@@ -1,0 +1,176 @@
+"""Where one training step's time goes, on the GPU.
+
+    python -m multimodal_rssm_torch.cli.profile_step [overrides ...] \\
+        [--steps N] [--trace PATH]
+
+Builds the configured model (default: the shipped configuration with the
+normalise kernel on, batch 50 x chunk 50) on random weights and one random
+uint8/float batch, warms up, then over ``--steps`` steps prints JSON lines:
+
+- ``phases``: device milliseconds per step of the input pipeline, the
+  encoder, the RSSM time loop, the decoders (each forward only, from CUDA
+  events recorded by module hooks), the whole loss forward, the backward
+  and the optimizer step, plus the host-clock step time;
+- ``profile``: the device-busy share of the profiled window (CUDA kernel
+  time over wall time) and the kernels with the most device time
+  (``torch.profiler``).
+
+``--trace`` writes a Chrome trace of the profiled window.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from multimodal_rssm_torch.core.config import compose
+from multimodal_rssm_torch.core.device import configure_float32, resolve_device
+from multimodal_rssm_torch.models.world_model import WorldModel, init_parameters
+from multimodal_rssm_torch.train import trainer as tr
+
+
+class _Spans:
+    """CUDA events around module forwards and named regions, per step."""
+
+    def __init__(self):
+        self.events: Dict[str, List] = {}
+
+    def mark(self, name: str):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.setdefault(name, []).append(ev)
+
+    def hook(self, module: torch.nn.Module, name: str) -> None:
+        module.register_forward_pre_hook(lambda *_: self.mark(name + ":start"))
+        module.register_forward_hook(lambda *_: self.mark(name + ":end"))
+
+    def wrap(self, obj, method: str, name: str) -> None:
+        """Span around a method that is not ``forward`` (hooks miss it)."""
+        fn = getattr(obj, method)
+
+        def timed(*args, **kwargs):
+            self.mark(name + ":start")
+            out = fn(*args, **kwargs)
+            self.mark(name + ":end")
+            return out
+
+        setattr(obj, method, timed)
+
+    def ms(self) -> Dict[str, float]:
+        torch.cuda.synchronize()
+        out = {}
+        for key, starts in self.events.items():
+            if key.endswith(":start"):
+                name = key[:-len(":start")]
+                ends = self.events[name + ":end"]
+                out[name] = sum(s.elapsed_time(e) for s, e in zip(starts, ends))
+        self.events.clear()
+        return out
+
+
+def _random_batch(cfg, device, rng):
+    L, B = int(cfg.train.chunk_size), int(cfg.train.batch_size)
+    obs = {"image_horizon": rng.integers(0, 256, (L, B, 64, 64, 3), np.uint8),
+           "sound": rng.normal(size=(L, B, 128, 20)).astype(np.float32)}
+    A = int(cfg.env.action_size)
+    batch = (obs, rng.normal(size=(L, B, A)).astype(np.float32),
+             rng.normal(size=(L, B)).astype(np.float32),
+             np.ones((L, B, 1), np.float32))
+    to = lambda a: torch.from_numpy(a).to(device)
+    return ({k: to(v) for k, v in batch[0].items()}, *map(to, batch[1:]))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("overrides", nargs="*")
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--warmup", type=int, default=3)
+    parser.add_argument("--trace", default=None)
+    args = parser.parse_args(argv)
+
+    device = resolve_device("cuda")
+    configure_float32()
+    cfg = compose(overrides=["train.pallas_normalize=true", *args.overrides])
+    model = WorldModel.from_config(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model.to(device)
+    optimizer, scheduler = tr.build_optimizer(cfg, model)
+    loss_fn = tr.make_loss_fn(model, cfg)
+    spec = tr.AugSpec(modalities=(("image_horizon", tr.ModalityAugSpec(
+        out_size=(64, 64), needs_crop=False, noise=False, pca=False,
+        normalize=True)),))
+    use_kernel = tr.kernel_normalize_enabled(cfg, device)
+    generator = torch.Generator(device).manual_seed(0)
+    raw = _random_batch(cfg, device, np.random.default_rng(0))
+
+    spans = _Spans()
+    spans.hook(model.encoder, "encoder")
+    spans.hook(model.transition_model, "rssm_loop")
+    spans.wrap(model.observation_model, "get_mse", "decoders")
+
+    def step():
+        spans.mark("prepare:start")
+        obs = tr.prepare_observations(raw[0], spec, {}, int(cfg.env.bit_depth),
+                                      generator, use_kernel)
+        spans.mark("prepare:end")
+        optimizer.zero_grad(set_to_none=True)
+        spans.mark("loss_forward:start")
+        loss, _ = loss_fn((obs, *raw[1:]), generator, True)
+        spans.mark("loss_forward:end")
+        spans.mark("backward:start")
+        loss.backward()
+        spans.mark("backward:end")
+        spans.mark("optimizer:start")
+        tr.apply_gradients(model, optimizer, scheduler,
+                           float(cfg.rssm.grad_clip_norm))
+        spans.mark("optimizer:end")
+        return loss
+
+    for _ in range(args.warmup):
+        step()
+    torch.cuda.synchronize()
+    spans.ms()
+
+    per_step, host = [], []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        float(step().detach())
+        host.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(spans.ms())
+    phases = {k: statistics.median(s[k] for s in per_step) for k in per_step[0]}
+    print(json.dumps({"phases_ms": phases, "host_step_ms": statistics.median(host),
+                      "batch": int(cfg.train.batch_size),
+                      "chunk": int(cfg.train.chunk_size),
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:20]
+    print(json.dumps({
+        "profile_steps": args.steps, "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+        "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                         "ms_per_step": e.device_time_total / 1e3 / args.steps}
+                        for e in top]}), flush=True)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,162 @@
+"""Building blocks with the JAX package's semantics, as PyTorch modules.
+
+Dense layers and convolutions are ``nn.Linear``, ``nn.Conv2d`` and
+``nn.ConvTranspose2d`` with torch padding (the JAX package's ``Conv`` +
+``torch_padding`` and its ``ConvTranspose`` variants are TPU lowerings of
+the same math).  Image tensors are NCHW inside the modules; the world
+model's public inputs and outputs keep the JAX package's NHWC layout.
+
+Two norms differ from their ``torch.nn`` namesakes on purpose:
+
+- ``BatchNorm`` tracks the BIASED batch variance in its running stats
+  (``nn.BatchNorm2d`` tracks the unbiased one);
+- ``InstanceNorm`` updates its running stats in train mode from the batch
+  mean of the per-instance statistics.
+
+Both compute ``var = max(E[x^2] - mean^2, 0)`` in float32 and apply
+``y = x * a + b`` in the input's dtype, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_ACTIVATIONS = {
+    "relu": F.relu,
+    "elu": F.elu,
+    "gelu": F.gelu,
+    "tanh": torch.tanh,
+    "silu": F.silu,
+    "leaky_relu": F.leaky_relu,
+}
+
+
+def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Resolve an activation by name."""
+    try:
+        return _ACTIVATIONS[name]
+    except KeyError as e:
+        raise ValueError(f"unknown activation {name!r}") from e
+
+
+def glu(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Gated linear unit over ``dim`` (torch ``nn.GLU``)."""
+    a, b = x.chunk(2, dim=dim)
+    return a * torch.sigmoid(b)
+
+
+def fold_tb(x: torch.Tensor) -> torch.Tensor:
+    """[T, B, ...] -> [B*T, ...], batch-major (the JAX package's fold)."""
+    T, B = x.shape[:2]
+    return x.transpose(0, 1).reshape(B * T, *x.shape[2:])
+
+
+def unfold_tb(y: torch.Tensor, T: int, B: int) -> torch.Tensor:
+    """Inverse of :func:`fold_tb`: [B*T, ...] -> [T, B, ...]."""
+    return y.reshape(B, T, *y.shape[1:]).transpose(0, 1)
+
+
+def _normalize(x, mean, var, weight, bias, eps, shape):
+    a = weight.float().reshape(shape) * torch.rsqrt(var + eps)
+    b = bias.float().reshape(shape) - mean * a
+    return x * a.to(x.dtype) + b.to(x.dtype)
+
+
+def _moments(x: torch.Tensor, dims: Tuple[int, ...]):
+    xf = x.float()
+    mean = xf.mean(dims, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dims, keepdim=True) - mean * mean, min=0.0)
+    return mean, var
+
+
+class _Norm(nn.Module):
+    """Affine norm over channel axis 1 with torch's parameter names."""
+
+    def __init__(self, num_features: int, track_running_stats: bool = True,
+                 momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.num_features = num_features
+        self.momentum = momentum
+        self.eps = eps
+        self.track_running_stats = track_running_stats
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        if track_running_stats:
+            self.register_buffer("running_mean", torch.zeros(num_features))
+            self.register_buffer("running_var", torch.ones(num_features))
+            self.register_buffer("num_batches_tracked",
+                                 torch.tensor(0, dtype=torch.long))
+
+    @torch.no_grad()
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var + m * var)
+        self.num_batches_tracked += 1
+
+
+class BatchNorm(_Norm):
+    """BatchNorm over all axes but 1 (eps 1e-5, momentum 0.1); the running
+    variance is the biased batch variance."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if self.training:
+            dims = (0,) + tuple(range(2, x.ndim))
+            mean, var = _moments(x, dims)
+            self._update(mean.reshape(-1), var.reshape(-1))
+        else:
+            mean = self.running_mean.reshape(shape)
+            var = self.running_var.reshape(shape)
+        return _normalize(x, mean, var, self.weight, self.bias, self.eps, shape)
+
+
+class InstanceNorm(_Norm):
+    """Per-sample, per-channel norm over the spatial axes (torch
+    ``InstanceNorm{1,2}d(affine=True)``).  With ``track_running_stats``, eval
+    mode uses the running stats, and train mode updates them from the batch
+    mean of the per-instance mean and (biased) variance."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if self.track_running_stats and not self.training:
+            mean = self.running_mean.reshape(shape)
+            var = self.running_var.reshape(shape)
+        else:
+            mean, var = _moments(x, tuple(range(2, x.ndim)))
+            if self.track_running_stats:
+                self._update(mean.mean(0).reshape(-1), var.mean(0).reshape(-1))
+        return _normalize(x, mean, var, self.weight, self.bias, self.eps, shape)
+
+
+class GRUCell(nn.Module):
+    """GRU cell with ``torch.nn.GRUCell``'s parameters and gate order
+    (r, z, n):  n = tanh(x Wn + bn_i + r * (h Un + bn_h)),
+    h' = (1 - z) * n + z * h.  The hidden state enters in the gates' dtype,
+    as in the JAX package's compute-dtype cell."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.weight_ih = nn.Parameter(torch.empty(3 * hidden_size, input_size))
+        self.weight_hh = nn.Parameter(torch.empty(3 * hidden_size, hidden_size))
+        self.bias_ih = nn.Parameter(torch.empty(3 * hidden_size))
+        self.bias_hh = nn.Parameter(torch.empty(3 * hidden_size))
+        bound = 1.0 / math.sqrt(hidden_size)
+        for p in self.parameters():
+            nn.init.uniform_(p, -bound, bound)
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        gi = F.linear(x, self.weight_ih, self.bias_ih)
+        gh = F.linear(h, self.weight_hh, self.bias_hh)
+        i_r, i_z, i_n = gi.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        return (1.0 - z) * n + z * h.to(n.dtype)

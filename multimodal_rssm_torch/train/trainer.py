@@ -1,0 +1,342 @@
+"""Optimizer, input pipeline, ELBO and the train / eval steps.
+
+Port of the JAX package's ``train/trainer.py`` for the default
+configuration:
+
+- Adam (eps from the config) after clipping by global norm with optax's
+  rule ``g * max_norm / ||g||`` when ``||g|| >= max_norm``
+  (``clip_grad_norm_`` would divide by ``||g|| + 1e-6``), with the
+  reference's linear warm-up when ``learning_rate_schedule`` is set;
+- mixed precision = bf16 ``torch.autocast`` around the model's forward,
+  float32 parameters, optimizer state and loss;
+- the device half of the input pipeline (crop / noise / PCA / clip, then
+  the bit-depth normalise, through the hand-written kernel when
+  ``train.pallas_normalize`` is on);
+- metric names of the reference's wandb keys plus ``grad_norm`` and
+  ``grad_norm_<module>`` (the JAX package's module names).
+
+Randomness comes from an explicit ``torch.Generator`` on the data's device;
+``generator=None`` in the loss is the deterministic path (posterior and
+prior samples collapse to their means).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from multimodal_rssm_torch.data import augment as aug
+from multimodal_rssm_torch.losses import elbo
+from multimodal_rssm_torch.models.world_model import WorldModel
+from multimodal_rssm_torch.ops import cuda_kernels
+from multimodal_rssm_torch.ops.image import normalize_image
+
+# the JAX package's top-level parameter groups, for grad_norm_<module>
+GRAD_GROUPS = {"encoder": "encoder", "transition_model": "core",
+               "observation_model": "observation_model",
+               "reward_model": "reward_model"}
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """bf16 compute when ``train.use_amp`` (ref train.yaml:29)."""
+    return torch.bfloat16 if cfg.train.use_amp else torch.float32
+
+
+def autocast(device: torch.device, dtype: torch.dtype):
+    """bf16 autocast on ``device``, or nothing for float32."""
+    if dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, dtype=dtype)
+
+
+# -- optimizer ---------------------------------------------------------------
+
+
+def build_optimizer(cfg, model: torch.nn.Module):
+    """Adam at the config's lr/eps plus, when ``learning_rate_schedule`` is
+    set, a linear ramp from 0 (optax's ``linear_schedule``: the first step
+    uses lr 0).  Returns (optimizer, scheduler or None)."""
+    lr = float(cfg.rssm.model_learning_rate)
+    opt = torch.optim.Adam(model.parameters(), lr=lr,
+                           eps=float(cfg.rssm.adam_epsilon))
+    steps = int(cfg.rssm.learning_rate_schedule or 0)
+    sched = (torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda c: min(c, steps) / steps) if steps else None)
+    return opt, sched
+
+
+def global_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
+    """sqrt of the sum of squares (optax.global_norm); None counts as 0."""
+    sq = [torch.sum(torch.square(g.float())) for g in grads if g is not None]
+    if not sq:
+        return torch.zeros(())
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[Optional[torch.Tensor]],
+                         norm: torch.Tensor, max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: keep g when ||g|| < max_norm,
+    else g / ||g|| * max_norm.  No host sync."""
+    keep = norm < max_norm
+    for g in grads:
+        if g is not None:
+            g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
+# -- augmentation plumbing ---------------------------------------------------
+
+
+class ModalityAugSpec(NamedTuple):
+    """Augmentation structure of one image modality."""
+
+    out_size: Tuple[int, int]
+    needs_crop: bool
+    noise: bool
+    pca: bool
+    normalize: bool
+
+
+class AugSpec(NamedTuple):
+    modalities: Tuple[Tuple[str, ModalityAugSpec], ...]
+
+    def get(self, name: str) -> Optional[ModalityAugSpec]:
+        for n, spec in self.modalities:
+            if n == name:
+                return spec
+        return None
+
+
+def build_aug_spec(buffer) -> AugSpec:
+    """The augmentation structure implied by a buffer's configuration."""
+    mods = []
+    for name in buffer.observation_names:
+        if "image" not in name:
+            continue
+        stored_hw = tuple(buffer.observations[name].shape[1:3])
+        out_size = (aug.crop_size_for(name) if buffer.n_crop is not None
+                    else stored_hw)
+        noise = ("bin" not in name and buffer.noise_scales is not None
+                 and any(s > 0 for s in buffer.noise_scales))
+        pca = ("bin" not in name and buffer.pca_scales is not None
+               and any(s > 0 for s in buffer.pca_scales)
+               and buffer.p_eigen_vectors.get(name) is not None)
+        mods.append((name, ModalityAugSpec(
+            out_size=out_size, needs_crop=stored_hw != out_size, noise=noise,
+            pca=pca, normalize="bin" not in name)))
+    return AugSpec(modalities=tuple(mods))
+
+
+class HostAugmentDraws:
+    """Per-batch augmentation choices drawn on the host (ref
+    data_augment.py:178-208): crop offsets, a noise scale, a PCA vector."""
+
+    def __init__(self, buffer, spec: AugSpec, seed: int = 0):
+        self.buffer = buffer
+        self.spec = spec
+        self.rng = np.random.default_rng(seed)
+
+    def draw(self) -> Dict[str, Dict[str, np.ndarray]]:
+        b = self.buffer
+        out: Dict[str, Dict[str, np.ndarray]] = {}
+        pca_rand = None
+        for name, mspec in self.spec.modalities:
+            entry: Dict[str, np.ndarray] = {}
+            if mspec.needs_crop:
+                crop_idx = int(self.rng.integers(0, b.n_crop))
+                dh, dw = aug.idx_to_offsets(
+                    crop_idx, b.observations[name].shape[1:3],
+                    mspec.out_size, b.dh_base, b.dw_base)
+                entry["crop"] = np.asarray([dh, dw], np.int32)
+            if mspec.noise:
+                entry["noise"] = np.float32(b.noise_scales[
+                    int(self.rng.integers(0, len(b.noise_scales)))])
+            if mspec.pca:
+                if pca_rand is None:
+                    scale = float(b.pca_scales[
+                        int(self.rng.integers(0, len(b.pca_scales)))])
+                    pca_rand = (self.rng.standard_normal(3).astype(np.float32)
+                                * scale if scale > 0
+                                else np.zeros(3, np.float32))
+                entry["pca"] = aug.pca_delta(
+                    b.p_eigen_vectors[name], b.lambd_eigen_values[name],
+                    pca_rand).astype(np.float32)
+            out[name] = entry
+        return out
+
+
+def kernel_normalize_enabled(cfg, device: torch.device) -> bool:
+    """Resolve ``train.pallas_normalize`` (false | true | auto): whether the
+    hand-written normalise kernel replaces ``ops/image.normalize_image`` in
+    the step.  "auto" = on when the step runs on CUDA.  On a CPU tensor the
+    kernel's wrapper runs its plain version."""
+    mode = str(cfg.train.get("pallas_normalize", "auto")).lower()
+    if mode in ("true", "false"):
+        return mode == "true"
+    if mode != "auto":
+        raise ValueError(
+            f"train.pallas_normalize={mode!r} not in (false, true, auto)")
+    return device.type == "cuda"
+
+
+def prepare_observations(observations: Mapping[str, torch.Tensor],
+                         spec: AugSpec,
+                         draws: Mapping[str, Mapping[str, np.ndarray]],
+                         bit_depth: int, generator: torch.Generator,
+                         kernel_normalize: bool = False
+                         ) -> Dict[str, torch.Tensor]:
+    """Device half of the input pipeline (ref memory.py:189-209): crop /
+    noise / PCA / clip for images, then the bit-depth normalise ("bin"
+    images: no normalise).  ``kernel_normalize`` routes the normalise
+    through ``cuda_kernels.normalize_image`` with a seed drawn on the
+    device from ``generator`` (no host sync)."""
+    out = {}
+    for name, arr in observations.items():
+        mspec = spec.get(name)
+        if mspec is None:
+            out[name] = arr.float()
+            continue
+        entry = draws.get(name, {})
+        img = arr.float()
+        if mspec.needs_crop:
+            dh, dw = (int(v) for v in entry["crop"])
+            oh, ow = mspec.out_size
+            img = img[:, :, dh:dh + oh, dw:dw + ow]
+        delta = None
+        if mspec.noise:
+            delta = torch.randn(img.shape, generator=generator,
+                                device=img.device) * (float(entry["noise"]) * 255.0)
+        if mspec.pca:
+            pca = torch.as_tensor(entry["pca"], device=img.device)
+            delta = pca if delta is None else delta + pca
+        if delta is not None:
+            img = torch.clamp(img + delta, 0.0, 255.0)
+        if mspec.normalize:
+            if kernel_normalize:
+                seed = torch.randint(0, 2 ** 62, (), generator=generator,
+                                     device=img.device, dtype=torch.int64)
+                img = cuda_kernels.normalize_image(img, bit_depth, seed)
+            else:
+                img = normalize_image(img, bit_depth, generator)
+        out[name] = img
+    return out
+
+
+# -- loss ---------------------------------------------------------------------
+
+
+def make_loss_fn(model: WorldModel, cfg) -> Callable:
+    """The ELBO over a prepared batch: ``loss_fn(batch, generator, train)``
+    -> (total, metrics).  The model's forward runs under the configured
+    autocast; ``train`` selects batch statistics (and updates the running
+    stats) or the running statistics."""
+    rssm = cfg.rssm
+    if bool(rssm.worldmodel_LogProbLoss):
+        raise NotImplementedError("rssm.worldmodel_LogProbLoss: the port "
+                                  "runs the MSE loss so far")
+    if float(rssm.overshooting_kl_beta) != 0 and int(
+            rssm.overshooting_distance or 0) > 0:
+        raise NotImplementedError("latent overshooting waits for a later "
+                                  "slice of the port")
+    free_nats = float(rssm.free_nats)
+    global_kl_beta = float(rssm.global_kl_beta)
+    kl_beta = float(rssm.kl_beta)
+    predict_reward = bool(rssm.predict_reward)
+    dtype = compute_dtype(cfg)
+
+    def loss_fn(batch, generator: Optional[torch.Generator], train: bool):
+        observations, actions, rewards, nonterminals = batch
+        obs_target = {k: v[1:] for k, v in observations.items()}
+        model.train(train)
+        with autocast(actions.device, dtype):
+            states, per_elem, rew = model.train_forward(
+                obs_target, actions[:-1], nonterminals[:-1], generator)
+
+        observations_loss = elbo.observation_losses(per_elem, negate=False)
+        observations_loss_sum = sum(observations_loss.values())
+        reward_l = elbo.reward_loss(rew["loc"], rew["scale"], rewards[:-1],
+                                    False)
+        if not predict_reward:
+            reward_l = torch.zeros_like(reward_l)
+        kl_loss = elbo.mopoe_kl(
+            states["expert_means_stacked"], states["expert_std_devs_stacked"],
+            states["prior_means"], states["prior_std_devs"], free_nats)
+        kl_loss_sum = kl_loss
+        if global_kl_beta != 0:
+            kl_loss_sum = kl_loss_sum + global_kl_beta * elbo.global_kl(
+                states["posterior_means"], states["posterior_std_devs"])
+        total = observations_loss_sum + reward_l + kl_beta * kl_loss_sum
+
+        metrics = {"observations_loss_sum": observations_loss_sum}
+        for name, v in observations_loss.items():
+            metrics[f"observation_{name}_loss"] = v
+        metrics["reward_loss"] = reward_l
+        metrics["kl_loss_sum"] = kl_loss_sum
+        metrics["kl_loss"] = kl_loss
+        metrics["loss"] = total
+        return total, {k: v.detach() for k, v in metrics.items()}
+
+    return loss_fn
+
+
+# -- steps ----------------------------------------------------------------------
+
+
+def grad_norms(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``grad_norm`` over all parameters and ``grad_norm_<module>`` per
+    top-level module (the reference's wandb.watch analogue)."""
+    out = {"grad_norm": global_norm([p.grad for p in model.parameters()])}
+    for child, group in GRAD_GROUPS.items():
+        out[f"grad_norm_{group}"] = global_norm(
+            [p.grad for p in getattr(model, child).parameters()])
+    return out
+
+
+def apply_gradients(model: torch.nn.Module, optimizer, scheduler,
+                    max_norm: float) -> Dict[str, torch.Tensor]:
+    """Gradient norms of the accumulated ``.grad``s, then clip by global
+    norm and one optimizer (and schedule) step.  Returns the norms."""
+    norms = grad_norms(model)
+    clip_by_global_norm_([p.grad for p in model.parameters()],
+                         norms["grad_norm"], max_norm)
+    optimizer.step()
+    if scheduler is not None:
+        scheduler.step()
+    return norms
+
+
+def make_train_step(model: WorldModel, cfg, optimizer, scheduler,
+                    aug_spec: AugSpec, device: torch.device):
+    """(train_step, eval_step), each ``step(raw_batch, draws, generator) ->
+    metrics`` (0-d device tensors; nothing synchronises).  ``train_step``
+    updates the parameters, the optimizer state and the norms' running
+    stats in place."""
+    loss_fn = make_loss_fn(model, cfg)
+    bit_depth = int(cfg.env.bit_depth)
+    use_kernel = kernel_normalize_enabled(cfg, device)
+    max_norm = float(cfg.rssm.grad_clip_norm)
+
+    def _prepare(raw_batch, draws, generator):
+        observations, actions, rewards, nonterminals = raw_batch
+        observations = prepare_observations(
+            observations, aug_spec, draws, bit_depth, generator, use_kernel)
+        return observations, actions, rewards, nonterminals
+
+    def train_step(raw_batch, draws, generator):
+        batch = _prepare(raw_batch, draws, generator)
+        optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(batch, generator, True)
+        loss.backward()
+        metrics.update(apply_gradients(model, optimizer, scheduler, max_norm))
+        return metrics
+
+    @torch.no_grad()
+    def eval_step(raw_batch, draws, generator):
+        batch = _prepare(raw_batch, draws, generator)
+        _, metrics = loss_fn(batch, generator, False)
+        return metrics
+
+    return train_step, eval_step
