@@ -18,7 +18,19 @@ each printed as one JSON line:
                every kernel of the path launched (counts reset just before);
 4. parity   -- the same weights on the card and on the CPU, float32,
                deterministic (generator=None), batch 2 x chunk 4 at full
-               width: loss, every metric and the gradient norms agree.
+               width: loss, every metric and the gradient norms agree;
+5. fused_codec -- the fused conv + InstanceNorm + GLU op (kernels K2, K3a,
+               K3b, K3c) at its stage shapes, N = 2450, bf16: each kernel
+               against its plain version (f32 arithmetic from the same
+               inputs, rounded to the kernel's output dtype, max |diff| <=
+               1e-2 of the plain version's max |value|), K3a's and K3c's
+               sums bit-equal across two calls, each kernel, its plain
+               version and its library yardstick timed; then the verify
+               CLI (cli/verify_fused_codec.py, the op's main path) with
+               the launch counts reset just before: forward and gradients
+               against the unfused reference, fused and unfused grad-step
+               times, and every one of the four kernels launched there
+               (and none in the train phase).
 
 Then the {"kernels": [...]} line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Without a GPU it exits non-zero
@@ -46,6 +58,16 @@ PARITY_RTOL = 1e-3
 # cores (NVIDIA data sheets; dense, full power).
 HBM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12}
 F32_RATE = 67e12
+BF16_RATE = 989e12     # tensor cores, dense
+FUSED_N = 2450         # T * B of the training step: the codec's batch
+FUSED_TOL = 1e-2       # kernel vs plain version, relative to max |plain|
+FUSED_KERNELS = {      # wrapper -> the JAX package's Pallas kernel it replaces
+    "conv_in_glu_fwd": "ops/fused_codec.py:142 (_fwd_kernel, JAX package)",
+    "in_glu_bwd_dz": "ops/fused_codec.py:166 (_bwd_dz_kernel_full, JAX "
+                     "package)",
+    "conv_dgrad": "ops/fused_codec.py:200 (_dgrad_kernel, JAX package)",
+    "conv_wgrad": "ops/fused_codec.py:209 (_wgrad_kernel, JAX package)",
+}
 
 
 def emit(obj) -> None:
@@ -59,38 +81,21 @@ def hbm_rate(name: str) -> float:
     return HBM_RATE["H100"]
 
 
-def time_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` launches, each timed
-    with CUDA events after ``warmup`` untimed calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def phase_build():
     from multimodal_rssm_torch.ops import cuda_kernels as ck
 
-    path, seconds, log = ck.build(force=True)
+    libs, seconds, log = ck.build(force=True)
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line]
-    emit({"phase": "build", "library": os.path.relpath(path, REPO),
+    emit({"phase": "build",
+          "libraries": {k: os.path.relpath(v, REPO) for k, v in libs.items()},
           "seconds": seconds, "ptxas": ptxas})
 
 
 def phase_kernel(device_name: str):
     import torch
 
+    from multimodal_rssm_torch.core.device import cuda_time_ms
     from multimodal_rssm_torch.ops import cuda_kernels as ck
     from multimodal_rssm_torch.ops.image import normalize_image_deterministic
 
@@ -136,9 +141,10 @@ def phase_kernel(device_name: str):
                        ck.normalize_image_plain(ragged, BIT_DEPTH, seed)):
         raise AssertionError("ragged / misaligned input disagrees")
 
-    kernel_ms = time_ms(lambda: ck.normalize_image(x, BIT_DEPTH, seed), 20)
-    plain_ms = time_ms(lambda: ck.normalize_image_plain(x, BIT_DEPTH, seed), 5,
-                       warmup=1)
+    kernel_ms = cuda_time_ms(lambda: ck.normalize_image(x, BIT_DEPTH, seed),
+                             20)
+    plain_ms = cuda_time_ms(
+        lambda: ck.normalize_image_plain(x, BIT_DEPTH, seed), 5, warmup=1)
     n = x.numel()
     bytes_ms = n * (4 + 4) / hbm_rate(device_name) * 1e3
     # float work per element: scale, floor, scale, shift, the mantissa's
@@ -266,6 +272,168 @@ def phase_parity():
         raise AssertionError(f"card and CPU disagree: {bad}")
 
 
+def _err(got, want):
+    """(max |diff|, that over max |want|)."""
+    d = float((got.float() - want.float()).abs().max())
+    return d, d / (float(want.float().abs().max()) + 1e-6)
+
+
+def _fused_stage(stage: str, device_name: str):
+    """Each of K2-K3c against its plain version at one stage's shapes, its
+    bit-equality across calls (K3a, K3c) and its times.  Returns
+    {kernel: record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_rssm_torch.cli import verify_fused_codec as vf
+    from multimodal_rssm_torch.core.device import cuda_time_ms
+    from multimodal_rssm_torch.ops import fused_codec as fc
+
+    dev = torch.device("cuda")
+    n = FUSED_N
+    x, w, scale, bias, dy = vf.make_inputs(n, stage, torch.bfloat16, dev)
+    h, wd, cin, kh, kw, cout, ph, pw = vf.STAGES[stage]
+    pad = (ph, pw)
+    ho, wo = h + 2 * ph - kh + 1, wd + 2 * pw - kw + 1
+    flops = 2 * n * ho * wo * kh * kw * cin * cout
+    b2, b4 = 2, 4                      # bytes of bf16, f32
+    x_b, w_b = x.numel() * b2, w.numel() * b2
+    z_b, y_b = n * ho * wo * cout * b2, n * ho * wo * cout // 2 * b2
+    stats_b, sb_b = 2 * n * cout * b4, 2 * cout * b4
+    hbm = hbm_rate(device_name)
+    rec = {}
+
+    def record(name, errors, kernel, plain, library, nbytes, ops, rate,
+               **extra):
+        torch.cuda.synchronize()
+        bytes_ms = nbytes / hbm * 1e3
+        ops_ms = ops / rate * 1e3
+        rec[name] = {
+            "errors": {k: {"max_abs": a, "rel": r} for k, (a, r) in errors.items()},
+            "max_abs_err": max(a for a, _ in errors.values()),
+            "max_rel_err": max(r for _, r in errors.values()),
+            "ms": cuda_time_ms(kernel, 5),
+            "plain_ms": cuda_time_ms(plain, 3, warmup=1),
+            "library_ms": (None if library is None
+                           else cuda_time_ms(library, 5)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            **extra}
+        torch.cuda.empty_cache()
+
+    # K2
+    out = fc.conv_in_glu_fwd(x, w, scale, bias, pad)
+    plain = fc.conv_in_glu_fwd_plain(x, w, scale, bias, pad)
+    errors = {k: _err(a, b) for k, a, b in zip(("y", "z", "mean", "var"),
+                                               out, plain)}
+    del plain
+    _, z, mean, var = out
+    x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+    record("conv_in_glu_fwd", errors,
+           lambda: fc.conv_in_glu_fwd(x, w, scale, bias, pad),
+           lambda: fc.conv_in_glu_fwd_plain(x, w, scale, bias, pad), None,
+           x_b + w_b + sb_b + y_b + z_b + stats_b, flops, BF16_RATE,
+           conv2d_ms=cuda_time_ms(
+               lambda: F.conv2d(x_nchw, w_oihw, padding=pad), 5))
+
+    # K3a (dy: the verify CLI's cotangent r)
+    dz, dscale, dbias = fc.in_glu_bwd_dz(dy, z, mean, var, scale, bias)
+    plain = fc.in_glu_bwd_dz_plain(dy, z, mean, var, scale, bias)
+    errors = {k: _err(a, b) for k, a, b in zip(("dz", "dscale", "dbias"),
+                                               (dz, dscale, dbias), plain)}
+    del plain
+    again = fc.in_glu_bwd_dz(dy, z, mean, var, scale, bias)
+    if not all(torch.equal(a, b) for a, b in zip((dz, dscale, dbias), again)):
+        raise AssertionError(f"{stage}: in_glu_bwd_dz differs between calls")
+    del again
+    # about 20 float operations per element of z in the kernel's two passes
+    record("in_glu_bwd_dz", errors,
+           lambda: fc.in_glu_bwd_dz(dy, z, mean, var, scale, bias),
+           lambda: fc.in_glu_bwd_dz_plain(dy, z, mean, var, scale, bias),
+           None, y_b + z_b + stats_b + sb_b + z_b + sb_b, 20 * z.numel(),
+           F32_RATE)
+
+    # K3b
+    dz_nchw = dz.permute(0, 3, 1, 2)
+    errors = {"dx": _err(fc.conv_dgrad(dz, w, pad),
+                         fc.conv_dgrad_plain(dz, w, pad))}
+    record("conv_dgrad", errors, lambda: fc.conv_dgrad(dz, w, pad),
+           lambda: fc.conv_dgrad_plain(dz, w, pad),
+           lambda: torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, dz_nchw,
+                                              padding=pad),
+           z_b + w_b + x_b, flops, BF16_RATE)
+
+    # K3c
+    dw = fc.conv_wgrad(x, dz, (kh, kw), pad)
+    errors = {"dw": _err(dw, fc.conv_wgrad_plain(x, dz, (kh, kw), pad))}
+    if not torch.equal(dw, fc.conv_wgrad(x, dz, (kh, kw), pad)):
+        raise AssertionError(f"{stage}: conv_wgrad differs between calls")
+    record("conv_wgrad", errors, lambda: fc.conv_wgrad(x, dz, (kh, kw), pad),
+           lambda: fc.conv_wgrad_plain(x, dz, (kh, kw), pad),
+           lambda: torch.nn.grad.conv2d_weight(x_nchw, w_oihw.shape, dz_nchw,
+                                               padding=pad),
+           x_b + z_b + w.numel() * b4, flops, BF16_RATE)
+    bad = {k: r["max_rel_err"] for k, r in rec.items()
+           if r["max_rel_err"] > FUSED_TOL}
+    if bad:
+        raise AssertionError(f"{stage}: kernel != plain version: {bad}")
+    return rec
+
+
+def phase_fused_codec(device_name: str, train_launches):
+    """K2-K3c against their plain versions at both stages, then the verify
+    CLI as the op's main path.  Returns the four kernels' lines."""
+    from multimodal_rssm_torch.cli import verify_fused_codec as vf
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    in_train = {k: train_launches[k] for k in FUSED_KERNELS
+                if train_launches[k]}
+    if in_train:
+        raise AssertionError(f"the train phase launched {in_train}")
+    stages = {stage: _fused_stage(stage, device_name) for stage in vf.STAGES}
+
+    ck.reset_launch_counts()
+    verify = vf.main(["--n", str(FUSED_N), "--dtype", "bfloat16",
+                      "--reps", "5"])
+    launches = ck.launch_counts()
+    missing = [k for k in FUSED_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the verify CLI launched none of {missing}")
+
+    lines = []
+    for name, replaces in FUSED_KERNELS.items():
+        per = {stage: rec[name] for stage, rec in stages.items()}
+
+        def total(key):
+            vals = [r[key] for r in per.values()]
+            return None if None in vals else sum(vals)
+
+        bound_by = {r["bound_by"] for r in per.values()}
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": "multimodal_rssm_torch/kernels/fused_codec.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in per.values()),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": bound_by.pop(),
+            "library_ms": total("library_ms"),
+            **({"conv2d_ms": total("conv2d_ms")}
+               if name == "conv_in_glu_fwd" else {}),
+            "stages": {s: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "library_ms", "max_rel_err")}
+                       for s, r in per.items()}})
+    emit({"phase": "fused_codec", "n": FUSED_N, "dtype": "bfloat16",
+          "tolerance": FUSED_TOL, "bit_equal_across_calls":
+          ["in_glu_bwd_dz", "conv_wgrad"], "kernels": stages,
+          "verify": {s: {k: r[k] for k in ("errors", "passed",
+                                           "fused_grad_step_ms",
+                                           "unfused_grad_step_ms")}
+                     for s, r in verify.items()},
+          "launches": launches, "wall_seconds": time.perf_counter() - t0})
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -286,8 +454,9 @@ def main() -> int:
     kernel = phase_kernel(name)
     launches = phase_train()
     phase_parity()
+    fused = phase_fused_codec(name, launches)
     kernel["launches"] = launches["normalize_image"]
-    emit({"kernels": [kernel]})
+    emit({"kernels": [kernel, *fused]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -7,7 +7,8 @@ behind the caller's back.
 
 from __future__ import annotations
 
-from typing import Optional
+import statistics
+from typing import Callable, Optional
 
 import torch
 
@@ -35,3 +36,20 @@ def configure_float32(allow_tf32: bool = False) -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     torch.backends.cudnn.allow_tf32 = allow_tf32
+
+
+def cuda_time_ms(fn: Callable[[], object], reps: int, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn()`` on the current CUDA stream: ``warmup``
+    untimed calls, then ``reps`` calls each between two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

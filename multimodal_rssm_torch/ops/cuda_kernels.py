@@ -1,16 +1,25 @@
 """Hand-written CUDA kernels of the port: build, bind, plain versions.
 
-One kernel so far, ``normalize_image`` (source ``kernels/normalize_image.cu``,
-replacing the JAX package's Pallas ``normalize_image_pallas``).  Its source
-note gives its bound and design.
+Every ``kernels/*.cu`` source is its own library with a plain C interface,
+loaded with ``ctypes``:
 
-- The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
-  ``build/torch_kernels/`` beside the package (a plain C interface, loaded
-  with ``ctypes``), and rebuilt when the source is newer.
-- The wrapper takes the plain PyTorch version only for a tensor on the CPU.
+- ``normalize_image.cu``: the bit-depth normalise (K1, replacing the JAX
+  package's Pallas ``normalize_image_pallas``), bound and wrapped here;
+- ``fused_codec.cu``: the fused conv + InstanceNorm + GLU forward and its
+  three backward steps (K2, K3a-c), bound and wrapped in
+  ``ops/fused_codec.py``.
+
+Each source note gives the kernel's bound and design.
+
+- ``build`` compiles the libraries with ``nvcc`` for ``sm_90a`` at first use
+  into ``build/torch_kernels/`` beside the package, one ``nvcc`` per source,
+  all started together; a library is rebuilt when its source, or any
+  ``kernels/*.cuh``, is newer.
+- A wrapper takes its plain PyTorch version only for a tensor on the CPU.
   A CUDA tensor goes through the kernel or raises: there is no fallback.
-- ``normalize_image.launches`` counts kernel launches (and nothing else),
-  so a run can show that the main path went through the kernel.
+- Each wrapper's ``launches`` counts kernel launches (and nothing else), so
+  a run can show that the main path went through the kernel; ``KERNELS``
+  names them all for ``reset_launch_counts`` and ``launch_counts``.
 """
 
 from __future__ import annotations
@@ -20,17 +29,17 @@ import functools
 import os
 import shutil
 import subprocess
+import glob
 import time
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from multimodal_rssm_torch.ops.image import normalize_image_deterministic
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "kernels", "normalize_image.cu")
+KERNEL_DIR = os.path.join(_PKG_DIR, "kernels")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-LIBRARY = os.path.join(BUILD_DIR, "libmrssm_normalize_image.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,30 +63,66 @@ def _nvcc() -> str:
     return path
 
 
-def build(force: bool = False) -> Tuple[str, float, str]:
-    """Compile the kernel library if it is missing or older than its source.
+def sources() -> Dict[str, str]:
+    """{library name: source path} for every ``kernels/*.cu``."""
+    return {os.path.splitext(os.path.basename(p))[0]: p
+            for p in sorted(glob.glob(os.path.join(KERNEL_DIR, "*.cu")))}
 
-    Returns (library path, build seconds (0 when up to date), compiler log).
+
+def build(force: bool = False) -> Tuple[Dict[str, str], float, str]:
+    """Compile every kernel library that is missing or older than its source
+    (or than any ``kernels/*.cuh``): one ``nvcc`` per source, all started
+    together.
+
+    Returns ({name: library path}, wall seconds of the build (0 when every
+    library is up to date), the compilers' output, ptxas's included).
     """
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY, 0.0, ""
+    headers = glob.glob(os.path.join(KERNEL_DIR, "*.cuh"))
+    srcs = sources()
+    libs = {name: os.path.join(BUILD_DIR, f"libmrssm_{name}.so")
+            for name in srcs}
+    stale = {}
+    for name, src in srcs.items():
+        newest = max(os.path.getmtime(p) for p in [src, *headers])
+        if (force or not os.path.exists(libs[name])
+                or os.path.getmtime(libs[name]) < newest):
+            stale[name] = src
+    if not stale:
+        return libs, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = {}
+    for name, src in stale.items():
+        tmp = f"{libs[name]}.{os.getpid()}.tmp"
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"== {name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode})")
+        else:
+            os.replace(tmp, libs[name])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY, seconds, proc.stderr
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+    return libs, seconds, log
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """The kernel library ``name`` (built first where it is stale)."""
+    libs, _, _ = build()
+    return ctypes.CDLL(libs[name])
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    path, _, _ = build()
-    lib = ctypes.CDLL(path)
+    lib = load_library("normalize_image")
     lib.mrssm_normalize_image.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -185,13 +230,21 @@ def normalize_image(x: torch.Tensor, bit_depth: int,
 
 normalize_image.launches = 0
 
-KERNELS = {"normalize_image": normalize_image}
+# Every kernel wrapper by name; ops/fused_codec.py adds K2-K3c when it is
+# imported, which ``_all_kernels`` makes sure of.
+KERNELS: Dict[str, Callable] = {"normalize_image": normalize_image}
+
+
+def _all_kernels() -> Dict[str, Callable]:
+    from multimodal_rssm_torch.ops import fused_codec  # noqa: F401
+
+    return KERNELS
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in _all_kernels().values():
         fn.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: fn.launches for name, fn in _all_kernels().items()}

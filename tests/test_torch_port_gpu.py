@@ -46,3 +46,106 @@ def test_normalize_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         ck.normalize_image(x.double(), 5, torch.tensor(1, device=cuda))
     assert ck.normalize_image.launches == before
+
+
+# -- K2, K3a, K3b, K3c: the fused conv + InstanceNorm + GLU --------------------
+
+FUSED_CASES = [
+    # (N, H, W, Cin, kh, kw, Cout, ph, pw)
+    (3, 8, 5, 8, 3, 3, 16, 1, 1),       # 40 positions per sample
+    (7, 32, 5, 16, 3, 4, 32, 1, 1),     # down4's family; N = 7
+    (7, 32, 4, 16, 3, 4, 32, 1, 2),     # up0's conv form: 160 positions
+    (2, 16, 16, 24, 3, 3, 160, 1, 1),   # 256 positions; C/2 = 80 spans
+                                        # a full and a masked column tile
+    (5, 9, 7, 3, 2, 3, 10, 0, 1),       # Cin 3, C/2 = 5: scalar loads
+]
+# Relative to the plain version's max |value|.  f32: the same products
+# summed in another order (and E[z^2] - mean^2 in the stats).  bf16: the
+# outputs are rounded to bf16, where one unit in the last place is 2^-8
+# of the value.
+FUSED_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / (b.float().abs().max() + 1e-6))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_codec_kernels_match_plain_on_card(cuda, case, dtype):
+    """Each of K2, K3a, K3b and K3c against its plain version on the same
+    inputs; each call counts one launch; K3a's and K3c's sums are bit-equal
+    across two calls (no atomics)."""
+    from multimodal_rssm_torch.core.device import configure_float32
+    from multimodal_rssm_torch.ops import fused_codec as fc
+
+    configure_float32()          # the plain versions' f32 matmuls: no TF32
+    n, h, wd, cin, kh, kw, cout, ph, pw = case
+    g = torch.Generator(cuda).manual_seed(1)
+
+    def draw(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * s).to(dtype)
+
+    x = draw(n, h, wd, cin)
+    w = draw(kh, kw, cin, cout, s=0.2)
+    scale = torch.rand(cout, generator=g, device=cuda) + 0.5
+    bias = torch.randn(cout, generator=g, device=cuda) * 0.1
+    tol = FUSED_TOL[dtype]
+    ck.reset_launch_counts()
+
+    out = fc.conv_in_glu_fwd(x, w, scale, bias, (ph, pw))
+    ref = fc.conv_in_glu_fwd_plain(x, w, scale, bias, (ph, pw))
+    for name, a, b in zip(("y", "z", "mean", "var"), out, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel(a, b) < tol, (name, _rel(a, b))
+    _, z, mean, var = out
+
+    dy = draw(*out[0].shape)
+    dz, dscale, dbias = fc.in_glu_bwd_dz(dy, z, mean, var, scale, bias)
+    ref = fc.in_glu_bwd_dz_plain(dy, z, mean, var, scale, bias)
+    for name, a, b in zip(("dz", "dscale", "dbias"), (dz, dscale, dbias), ref):
+        assert _rel(a, b) < tol, (name, _rel(a, b))
+    again = fc.in_glu_bwd_dz(dy, z, mean, var, scale, bias)
+    for a, b in zip((dz, dscale, dbias), again):
+        assert torch.equal(a, b)
+
+    dx = fc.conv_dgrad(dz, w, (ph, pw))
+    assert dx.shape == x.shape
+    assert _rel(dx, fc.conv_dgrad_plain(dz, w, (ph, pw))) < tol
+
+    dw = fc.conv_wgrad(x, dz, (kh, kw), (ph, pw))
+    assert dw.shape == w.shape and dw.dtype == torch.float32
+    assert _rel(dw, fc.conv_wgrad_plain(x, dz, (kh, kw), (ph, pw))) < tol
+    assert torch.equal(dw, fc.conv_wgrad(x, dz, (kh, kw), (ph, pw)))
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    assert {k: counts[k] for k in ("conv_in_glu_fwd", "in_glu_bwd_dz",
+                                   "conv_dgrad", "conv_wgrad")} == {
+        "conv_in_glu_fwd": 1, "in_glu_bwd_dz": 2, "conv_dgrad": 1,
+        "conv_wgrad": 2}
+
+
+@pytest.mark.gpu
+def test_fused_codec_kernels_reject_what_they_do_not_take(cuda):
+    """A non-contiguous input, a float64 input, an input on another device
+    or too many positions per sample raise before any launch."""
+    from multimodal_rssm_torch.ops import fused_codec as fc
+
+    x = torch.zeros(2, 8, 5, 8, device=cuda)
+    w = torch.zeros(3, 3, 8, 16, device=cuda)
+    s = torch.ones(16, device=cuda)
+    ck.reset_launch_counts()
+    with pytest.raises(ValueError):
+        fc.conv_in_glu_fwd(x.transpose(1, 2), w, s, s, (1, 1))
+    with pytest.raises(TypeError):
+        fc.conv_in_glu_fwd(x.double(), w.double(), s, s, (1, 1))
+    with pytest.raises(ValueError):
+        fc.conv_in_glu_fwd(x, w, s.cpu(), s, (1, 1))
+    with pytest.raises(ValueError):
+        fc.conv_in_glu_fwd(torch.zeros(1, 17, 16, 8, device=cuda), w, s, s,
+                           (1, 1))
+    with pytest.raises(ValueError):
+        fc.conv_wgrad(x, torch.zeros(2, 8, 4, 16, device=cuda), (3, 3), (1, 1))
+    assert all(v == 0 for v in ck.launch_counts().values())
