@@ -24,13 +24,20 @@ each printed as one JSON line:
                against its plain version (f32 arithmetic from the same
                inputs, rounded to the kernel's output dtype, max |diff| <=
                1e-2 of the plain version's max |value|), K3a's and K3c's
-               sums bit-equal across two calls, each kernel, its plain
-               version and its library yardstick timed; then the verify
-               CLI (cli/verify_fused_codec.py, the op's main path) with
-               the launch counts reset just before: forward and gradients
+               sums bit-equal across two calls, K3b and K3c shown to take
+               their Hopper (wgmma) kernels at these shapes (by the
+               variants' launch counts), each kernel, its plain version
+               and its library yardstick timed (the bound counts only the
+               products with in-range taps); PR 2's WMMA K3b and K3c,
+               which f32 and other channel counts still take, once each
+               against their plain versions at down4's shape in f32 and in
+               bf16 with 248 / 504 channels; then the verify CLI
+               (cli/verify_fused_codec.py, the op's main path) with the
+               launch counts reset just before: forward and gradients
                against the unfused reference, fused and unfused grad-step
-               times, and every one of the four kernels launched there
-               (and none in the train phase).
+               times, and every one of the four kernels launched there, in
+               the wgmma variants for K3b and K3c and never the WMMA ones
+               (and none of them in the train phase).
 
 Then the {"kernels": [...]} line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Without a GPU it exits non-zero
@@ -61,13 +68,17 @@ F32_RATE = 67e12
 BF16_RATE = 989e12     # tensor cores, dense
 FUSED_N = 2450         # T * B of the training step: the codec's batch
 FUSED_TOL = 1e-2       # kernel vs plain version, relative to max |plain|
-FUSED_KERNELS = {      # wrapper -> the JAX package's Pallas kernel it replaces
+FUSED_KERNELS = {      # kernel on the op's main path -> the JAX package's
     "conv_in_glu_fwd": "ops/fused_codec.py:142 (_fwd_kernel, JAX package)",
     "in_glu_bwd_dz": "ops/fused_codec.py:166 (_bwd_dz_kernel_full, JAX "
                      "package)",
-    "conv_dgrad": "ops/fused_codec.py:200 (_dgrad_kernel, JAX package)",
-    "conv_wgrad": "ops/fused_codec.py:209 (_wgrad_kernel, JAX package)",
-}
+    "conv_dgrad_wgmma": "ops/fused_codec.py:200 (_dgrad_kernel, JAX package)",
+    "conv_wgrad_wgmma": "ops/fused_codec.py:209 (_wgrad_kernel, JAX package)",
+}                      # Pallas kernel it replaces
+# K3b's and K3c's other kernels (f32 and other shapes): off the main path
+OTHER_VARIANTS = {"conv_dgrad_wgmma": "conv_dgrad",
+                  "conv_wgrad_wgmma": "conv_wgrad"}
+WMMA_TOL = {"float32": 1e-4}   # the WMMA kernels in f32 (bf16: FUSED_TOL)
 
 
 def emit(obj) -> None:
@@ -272,6 +283,19 @@ def phase_parity():
         raise AssertionError(f"card and CPU disagree: {bad}")
 
 
+def conv_flops(n, h, wd, cin, kh, kw, cout, ph, pw) -> int:
+    """2 x the multiply-adds a stride-1 conv needs: for each tap, only the
+    output positions whose input lies inside the unpadded input (the other
+    products multiply the zero padding).  K2's z, K3b's dx and K3c's dw
+    each need exactly these."""
+    def in_range(size, k, p):
+        out = size + 2 * p - k + 1
+        return sum(max(0, min(out, size + p - d) - max(0, p - d))
+                   for d in range(k))
+
+    return 2 * n * cin * cout * in_range(h, kh, ph) * in_range(wd, kw, pw)
+
+
 def _err(got, want):
     """(max |diff|, that over max |want|)."""
     d = float((got.float() - want.float()).abs().max())
@@ -287,6 +311,7 @@ def _fused_stage(stage: str, device_name: str):
 
     from multimodal_rssm_torch.cli import verify_fused_codec as vf
     from multimodal_rssm_torch.core.device import cuda_time_ms
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
     from multimodal_rssm_torch.ops import fused_codec as fc
 
     dev = torch.device("cuda")
@@ -295,7 +320,7 @@ def _fused_stage(stage: str, device_name: str):
     h, wd, cin, kh, kw, cout, ph, pw = vf.STAGES[stage]
     pad = (ph, pw)
     ho, wo = h + 2 * ph - kh + 1, wd + 2 * pw - kw + 1
-    flops = 2 * n * ho * wo * kh * kw * cin * cout
+    flops = conv_flops(n, h, wd, cin, kh, kw, cout, ph, pw)
     b2, b4 = 2, 4                      # bytes of bf16, f32
     x_b, w_b = x.numel() * b2, w.numel() * b2
     z_b, y_b = n * ho * wo * cout * b2, n * ho * wo * cout // 2 * b2
@@ -353,31 +378,93 @@ def _fused_stage(stage: str, device_name: str):
            None, y_b + z_b + stats_b + sb_b + z_b + sb_b, 20 * z.numel(),
            F32_RATE)
 
+    def check_variant(name, calls):
+        """Raise unless each of K3b's / K3c's last ``calls`` calls (counts
+        reset just before them) took the wgmma kernel."""
+        counts = ck.launch_counts()
+        got = {"wgmma": counts[name], "wmma": counts[OTHER_VARIANTS[name]]}
+        if got != {"wgmma": calls, "wmma": 0}:
+            raise AssertionError(f"{stage}: {calls} calls of {name}'s "
+                                 f"wrapper launched {got}")
+
     # K3b
     dz_nchw = dz.permute(0, 3, 1, 2)
+    ck.reset_launch_counts()
     errors = {"dx": _err(fc.conv_dgrad(dz, w, pad),
                          fc.conv_dgrad_plain(dz, w, pad))}
-    record("conv_dgrad", errors, lambda: fc.conv_dgrad(dz, w, pad),
+    check_variant("conv_dgrad_wgmma", 1)
+    record("conv_dgrad_wgmma", errors, lambda: fc.conv_dgrad(dz, w, pad),
            lambda: fc.conv_dgrad_plain(dz, w, pad),
            lambda: torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, dz_nchw,
                                               padding=pad),
            z_b + w_b + x_b, flops, BF16_RATE)
 
     # K3c
+    ck.reset_launch_counts()
     dw = fc.conv_wgrad(x, dz, (kh, kw), pad)
     errors = {"dw": _err(dw, fc.conv_wgrad_plain(x, dz, (kh, kw), pad))}
     if not torch.equal(dw, fc.conv_wgrad(x, dz, (kh, kw), pad)):
         raise AssertionError(f"{stage}: conv_wgrad differs between calls")
-    record("conv_wgrad", errors, lambda: fc.conv_wgrad(x, dz, (kh, kw), pad),
+    check_variant("conv_wgrad_wgmma", 2)
+    record("conv_wgrad_wgmma", errors,
+           lambda: fc.conv_wgrad(x, dz, (kh, kw), pad),
            lambda: fc.conv_wgrad_plain(x, dz, (kh, kw), pad),
-           lambda: torch.nn.grad.conv2d_weight(x_nchw, w_oihw.shape, dz_nchw,
-                                               padding=pad),
+           lambda: torch.nn.grad.conv2d_weight(x_nchw, w_oihw.shape,
+                                               dz_nchw, padding=pad),
            x_b + z_b + w.numel() * b4, flops, BF16_RATE)
     bad = {k: r["max_rel_err"] for k, r in rec.items()
            if r["max_rel_err"] > FUSED_TOL}
     if bad:
         raise AssertionError(f"{stage}: kernel != plain version: {bad}")
     return rec
+
+
+def _wmma_check():
+    """PR 2's WMMA K3b and K3c, which the wrappers still take for f32 and
+    for bf16 with channel counts that are not multiples of 64: one call
+    each against its plain version at down4's shape, N = FUSED_N, in f32
+    and in bf16 with 248 / 504 channels.  Off the main path; returns the
+    errors by case."""
+    import torch
+
+    from multimodal_rssm_torch.cli import verify_fused_codec as vf
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.ops import fused_codec as fc
+
+    dev = torch.device("cuda")
+    h, wd, cin, kh, kw, cout, ph, pw = vf.STAGES["down4"]
+    pad = (ph, pw)
+    ho, wo = h + 2 * ph - kh + 1, wd + 2 * pw - kw + 1
+    g = torch.Generator(dev).manual_seed(2)
+    out = {}
+    for dtype, ci, co in ((torch.float32, cin, cout),
+                          (torch.bfloat16, cin - 8, cout - 8)):
+        case = f"{str(dtype)[6:]} Cin {ci} Cout {co}"
+        if fc.uses_wgmma(dtype, ci, co, kh):
+            raise AssertionError(f"{case} would take the wgmma kernels")
+        x = (0.3 * torch.randn(FUSED_N, h, wd, ci, generator=g,
+                               device=dev)).to(dtype)
+        w = (0.05 * torch.randn(kh, kw, ci, co, generator=g,
+                                device=dev)).to(dtype)
+        dz = torch.randn(FUSED_N, ho, wo, co, generator=g, device=dev
+                         ).to(dtype)
+        ck.reset_launch_counts()
+        errors = {"dx": _err(fc.conv_dgrad(dz, w, pad),
+                             fc.conv_dgrad_plain(dz, w, pad)),
+                  "dw": _err(fc.conv_wgrad(x, dz, (kh, kw), pad),
+                             fc.conv_wgrad_plain(x, dz, (kh, kw), pad))}
+        launched = {k: v for k, v in ck.launch_counts().items() if v}
+        del x, w, dz
+        torch.cuda.empty_cache()
+        if launched != {"conv_dgrad": 1, "conv_wgrad": 1}:
+            raise AssertionError(f"{case}: the WMMA check launched {launched}")
+        tol = WMMA_TOL.get(str(dtype)[6:], FUSED_TOL)
+        bad = {k: r for k, (_, r) in errors.items() if r > tol}
+        if bad:
+            raise AssertionError(f"{case}: WMMA kernel != plain version: {bad}")
+        out[case] = {"tolerance": tol, **{k: {"max_abs": a, "rel": r}
+                                          for k, (a, r) in errors.items()}}
+    return out
 
 
 def phase_fused_codec(device_name: str, train_launches):
@@ -387,11 +474,13 @@ def phase_fused_codec(device_name: str, train_launches):
     from multimodal_rssm_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
-    in_train = {k: train_launches[k] for k in FUSED_KERNELS
+    in_train = {k: train_launches[k]
+                for k in [*FUSED_KERNELS, *OTHER_VARIANTS.values()]
                 if train_launches[k]}
     if in_train:
         raise AssertionError(f"the train phase launched {in_train}")
     stages = {stage: _fused_stage(stage, device_name) for stage in vf.STAGES}
+    wmma = _wmma_check()
 
     ck.reset_launch_counts()
     verify = vf.main(["--n", str(FUSED_N), "--dtype", "bfloat16",
@@ -400,6 +489,11 @@ def phase_fused_codec(device_name: str, train_launches):
     missing = [k for k in FUSED_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"the verify CLI launched none of {missing}")
+    off_path = {k: launches[k] for k in OTHER_VARIANTS.values()
+                if launches[k]}
+    if off_path:
+        raise AssertionError(f"the verify CLI launched the WMMA kernels "
+                             f"{off_path} instead of the wgmma ones")
 
     lines = []
     for name, replaces in FUSED_KERNELS.items():
@@ -420,12 +514,16 @@ def phase_fused_codec(device_name: str, train_launches):
             "library_ms": total("library_ms"),
             **({"conv2d_ms": total("conv2d_ms")}
                if name == "conv_in_glu_fwd" else {}),
+            **({"variants": {"wgmma": launches[name],
+                             "wmma": launches[OTHER_VARIANTS[name]]}}
+               if name in OTHER_VARIANTS else {}),
             "stages": {s: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "library_ms", "max_rel_err")}
                        for s, r in per.items()}})
     emit({"phase": "fused_codec", "n": FUSED_N, "dtype": "bfloat16",
           "tolerance": FUSED_TOL, "bit_equal_across_calls":
-          ["in_glu_bwd_dz", "conv_wgrad"], "kernels": stages,
+          ["in_glu_bwd_dz", "conv_wgrad_wgmma"], "kernels": stages,
+          "wmma_check": wmma,
           "verify": {s: {k: r[k] for k in ("errors", "passed",
                                            "fused_grad_step_ms",
                                            "unfused_grad_step_ms")}

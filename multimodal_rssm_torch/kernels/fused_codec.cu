@@ -10,14 +10,23 @@
 // [kh*kw*Cin, Cout]), scale and bias f32 [Cout].  x and w are bf16 or f32;
 // every sum accumulates in f32.
 //
-// The three conv-shaped kernels are one implicit GEMM, never an im2col in
-// device memory: output rows m = (n, h', w'), depth k = (dh, dw, ci),
-// columns co.  A block of 256 threads owns a tile of rows x 128 columns and
-// walks the depth in stages of 32: it gathers its A tile (the input taps,
-// zero outside the padding) and its B tile into shared memory with 16-byte
-// loads, multiplies them (bf16: WMMA 16x16x16 tensor-core tiles with f32
-// accumulators; f32: CUDA-core FMAs, so an f32 call keeps f32 accuracy), and
-// at the end parks the f32 result tile in shared memory for its epilogue.
+// The conv-shaped kernels are implicit GEMMs, never an im2col in device
+// memory: output rows m = (n, h', w'), depth k = (dh, dw, ci), columns co.
+// K3b and K3c have two kernels each; the wrapper picks one by dtype and
+// shape before launch:
+//   - bf16 with Cin and Cout multiples of 64 (the codec's 256 / 512): the
+//     Hopper kernels in namespace `wg` below (cp.async ring + wgmma);
+//   - every other case (f32, other channel counts): the WMMA kernels, which
+//     K2 also uses.
+//
+// WMMA kernels (K2, and K3b / K3c outside the case above).  A block of 256
+// threads owns a tile of rows x 128 columns and walks the depth in stages
+// of 32: it gathers its A tile (the input taps, zero outside the padding)
+// and its B tile into shared memory with 16-byte loads, synchronously and
+// single-buffered, multiplies them (bf16: WMMA 16x16x16 tensor-core tiles
+// with f32 accumulators, each warp 16 columns by all rows; f32: CUDA-core
+// FMAs, so an f32 call keeps f32 accuracy), and at the end parks the f32
+// result tile in shared memory for its epilogue.
 //
 // K2 block = one whole sample x a pair of channel tiles [c0, c0+64) and
 // [C/2+c0, C/2+c0+64).  InstanceNorm needs each instance's statistics over
@@ -31,33 +40,65 @@
 // and dbias are sums over all N: each block writes its sample's partials
 // and the wrapper sums them, so no float atomics and the result is the same
 // bit for bit from run to run.
-// K3b = the same implicit GEMM as K2's main loop, without the IN/GLU
-// epilogue, on dz padded by (kh-1-ph, kw-1-pw) with w2 = flip(w) transposed
-// to [kh, kw, Cout, Cin] (formed by the wrapper).
+// K3b = the conv of dz padded by (kh-1-ph, kw-1-pw) with w2 = flip(w)
+// transposed to [kh, kw, Cout, Cin] (formed by the wrapper).
 // K3c = a GEMM [kh*kw*Cin, N*Ho*Wo] x [N*Ho*Wo, Cout].  On the TPU the
 // sequential grid carried the sum; here the depth (313,600 at down4) is
 // split across blocks, each block writes an f32 partial, and a second pass
-// sums the partials in a fixed order (no atomics).
+// sums the partials in a fixed order (no atomics): dw is the same bit for
+// bit from run to run.
 //
 // Bounds on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM), at the
 // verify CLI's shapes, N = 2450, bf16:
-//   K2, K3b, K3c: 2*N*Ho*Wo*kh*kw*Cin*Cout useful FLOPs = 0.987 TFLOP at
-//     down4 (Ho*Wo = 128), 1.233 TFLOP at up0 (160): ~1.00 ms and ~1.25 ms
-//     on the tensor cores; their bytes (x, z, y or dz, once each) are well
-//     under 1 GB (~0.2-0.3 ms), so they are bound by operations.
+//   K2, K3b, K3c: the products whose tap lies inside the unpadded input,
+//     2*N*Cin*Cout * sum_dh valid_h(dh) * sum_dw valid_w(dw) (94 of 96
+//     (h', dh) pairs, and 14 of 16 (w', dw) pairs at down4, 14 of 20 at
+//     up0) = 0.845 TFLOP at both stages: ~0.855 ms on the tensor cores;
+//     their bytes (x, z, y or dz, once each) are well under 1 GB
+//     (~0.2-0.3 ms), so they are bound by operations.  The dense GEMMs over
+//     the padding are larger: 2*N*Ho*Wo*kh*kw*Cin*Cout = 0.987 TFLOP at
+//     down4 and 1.233 at up0 for K2 and K3c, the other way round for K3b.
 //   K3a: reads dy and z and writes dz, ~0.80 GB at down4: ~0.24 ms, bound
 //     by bytes.
-// What the design does about it: the conv kernels run on the tensor cores
-// with f32 accumulators and re-read their inputs from L2 rather than
-// materialising an im2col; K3a makes two passes over one sample's z and dy
-// (the second from L1/L2) and writes dz once.  Stage loads are synchronous
-// and single-buffered: a simple kernel first; cp.async/TMA pipelines,
-// wgmma and warp specialisation are later work.
+//
+// The Hopper K3b / K3c (bound by operations, so the design keeps the tensor
+// cores fed and skips work that is known to be zero):
+//   - tile 128 x 256 per block of two warpgroups, one m64n256k16 wgmma per
+//     warpgroup and 16 of depth, f32 accumulators in registers (128 a
+//     thread); operands in shared memory in wgmma's 128-byte swizzle;
+//   - 64-deep stages through a ring of 4 (48 KB each), filled 3 stages
+//     ahead with 16-byte cp.async (zero fill for padding and edges) while
+//     the tensor cores work: copies overlap the math, and no register holds
+//     a tile on its way to shared memory;
+//   - addressing by additions: each thread's rows (K3b) or positions (K3c)
+//     are decoded once per block; a stage adds one offset per stage (K3b)
+//     or steps each position by fixed amounts (K3c);
+//   - K3b: a block owns one dx column w and 128 (n, h) rows, so the taps dw
+//     whose dz column is padding for that w are skipped as whole stages
+//     (down4: 6 of 20 (w, dw) pairs; up0: 2 of 16) -- the GEMM it runs is
+//     0.863 TFLOP at down4 and 0.864 at up0, not 1.233 / 0.987 (the h edges
+//     are still multiplied: 2 % over the 0.845 bound); dx is written in
+//     bf16 from the accumulators;
+//   - K3c: the positions run in the order (w', n, h'), so the positions a
+//     tap dw reads as padding are whole ranges and a block skips them
+//     (down4: 2 of 16 (dw, w') pairs; up0: 6 of 20); grid (24 dw-row tiles,
+//     2 column tiles, splits) at the codec's shapes, the split count chosen
+//     on the host (ops/fused_codec.py: wgrad_splits) to fill the 132
+//     SMs for at least two waves with the least idle tail (11 splits of 446
+//     stages at down4: 528 blocks, 4 full waves); f32 partials, summed in a
+//     fixed order by the second pass.
+// Why not TMA for the tap tiles: a stage is a gather of rows at per-row
+// offsets (taps of whole samples, ragged edges, any N), which cp.async
+// takes as it comes; the price is the gather's instructions, which the
+// additions-only addressing keeps small.  TMA boxes with multicast across a
+// cluster (to halve the shared operand's L2 reads) are the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper_wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -658,6 +699,366 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ part,
   }
 }
 
+// ---- K3b, K3c for Hopper: cp.async ring + wgmma ----------------------------
+//
+// bf16 only, channel counts multiples of 64.  A block of 256 threads (two
+// warpgroups) owns a 128 x 256 f32 tile: warpgroup w the rows
+// [64 w, 64 w + 64), all 256 columns, one m64n256k16 wgmma per 16 of depth.
+// The depth runs in 64-deep stages through a ring of kRing shared-memory
+// stages: every thread gathers its share of a stage with 16-byte cp.async
+// (zero fill for padding and ragged edges) straight into the 128-byte
+// swizzled layout (hopper_wgmma.cuh) kAhead stages ahead of the one the
+// tensor cores read, and one wgmma group stays in flight while the next
+// gathers are issued.
+//
+// Ring discipline, at iteration s (stage s lives in slot s % kRing):
+//   wait for this thread's copies of stage s; proxy fence; __syncthreads
+//     (after it every thread's copies of s are visible to wgmma);
+//   issue the four wgmmas of stage s, commit, wait until at most one group
+//     (stage s) is pending; __syncthreads (every warpgroup has retired
+//     stage s - 1);
+//   gather stage s + kAhead into slot (s + kAhead) % kRing = (s - 1) % kRing.
+// A thread's gathers run while its wgmma group of stage s is in flight and
+// must end before that group retires, or the tensor cores idle: so what a
+// thread computes per gather is kept to additions and compares.
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 256;
+constexpr int kBM = 128;  // tile rows: two warpgroups x 64
+constexpr int kBN = 256;  // tile columns: one n256 wgmma
+constexpr int kBK = 64;   // depth per stage (one 128-byte swizzle row)
+constexpr int kRing = 4;
+constexpr int kAhead = kRing - 1;
+constexpr uint32_t kABytes = 2 * hopper::kAtomBytes;  // 128 x 64 bf16
+constexpr uint32_t kBBytes = 4 * hopper::kAtomBytes;  // 64 x 256 bf16
+constexpr uint32_t kStageBytes = kABytes + kBBytes;   // 48 KB
+constexpr size_t kSmemBytes = kRing * kStageBytes + 1024;  // + alignment
+
+// Slot base of stage s, the dynamic shared memory aligned to 1024 bytes (the
+// swizzle's period).
+__device__ __forceinline__ uint32_t slot(uint32_t base, int s) {
+  return base + static_cast<uint32_t>(s % kRing) * kStageBytes;
+}
+
+// K3b's B stage: 64 rows of depth from `src` (row-major, `ld` elements per
+// row, already offset to the stage's first row and the tile's column c0),
+// 256 columns as four MN-major atoms.  Thread t loads chunk t % 8 of atom
+// (t / 8) % 4 for rows t / 32 + 8 q.  Columns at or past `cols_left` are
+// zero.
+__device__ __forceinline__ void load_w2(uint32_t dst, const bf16* src, int ld,
+                                        int cols_left) {
+  const int c = threadIdx.x & 7;
+  const int j = (threadIdx.x >> 3) & 3;
+  const int r0 = threadIdx.x >> 5;
+  const bool ok = 64 * j < cols_left;
+  const bf16* p = src + 64 * j + 8 * c;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int r = r0 + 8 * q;
+    hopper::cp_async16(dst + j * hopper::kAtomBytes + hopper::swizzle128(r, c),
+                       ok ? p + static_cast<long long>(r) * ld : src, ok);
+  }
+}
+
+// The four k16 steps of one stage for this warpgroup.
+template <int kTransA>
+__device__ __forceinline__ void mma_stage(float (&acc)[128], uint32_t st,
+                                          int wgi) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    // A: K-major rows of this warpgroup (k16 = +32 B), or the MN-major atom
+    // of its 64 rows (k16 = 16 rows = +2048 B); B: MN-major, 4 atoms.
+    const uint64_t da =
+        kTransA ? hopper::make_desc(st + wgi * hopper::kAtomBytes + kk * 2048,
+                                    hopper::kAtomBytes, 1024)
+                : hopper::make_desc(st + wgi * hopper::kAtomBytes + kk * 32,
+                                    16, 1024);
+    const uint64_t db =
+        hopper::make_desc(st + kABytes + kk * 2048, hopper::kAtomBytes, 1024);
+    hopper::wgmma_m64n256k16<kTransA, 1>(acc, da, db);
+  }
+  hopper::wgmma_commit();
+}
+
+// Thread t's accumulator fragment -> (row, column) of the 128 x 256 tile:
+// rows r and r + 8, columns col + 8 j and col + 8 j + 1.
+__device__ __forceinline__ int frag_row() {
+  const int t = threadIdx.x;
+  return (t >> 7) * 64 + ((t >> 5) & 3) * 16 + ((t & 31) >> 2);
+}
+__device__ __forceinline__ int frag_col() { return 2 * (threadIdx.x & 3); }
+
+// The ring's main loop (discipline above) over `nst` stages: acc = the sum
+// of the stages' products; gather(s) fills stage s's slot.
+template <int kTransA, typename Gather>
+__device__ __forceinline__ void run_ring(float (&acc)[128], uint32_t base,
+                                         int nst, Gather& gather) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  hopper::fence_operands(acc);
+  const int wgi = threadIdx.x >> 7;
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) {
+    if (s < nst) gather(s);
+    hopper::cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    hopper::cp_async_wait<kAhead - 1>();
+    hopper::fence_proxy_async();
+    __syncthreads();
+    mma_stage<kTransA>(acc, slot(base, s), wgi);
+    hopper::wgmma_wait<1>();
+    __syncthreads();  // every warpgroup has retired stage s - 1
+    if (s + kAhead < nst) gather(s + kAhead);
+    hopper::cp_async_commit();
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_operands(acc);
+}
+
+// K3b.  The conv of dz [N, g.H, g.W, g.CI] (padded by (g.ph, g.pw)) with
+// w2 [g.K, g.CO] into dx [N, g.Ho, g.Wo, g.CO].  A block owns one dx column
+// w and 128 (n, h) rows of it: for that w the taps dw whose dz column
+// w + dw - pw lies outside [0, g.W) are zero for every row, so the block
+// skips their stages (6 of the 20 (w, dw) pairs at the codec's down4).
+// Depth k = (dh, dw, ci) over the remaining taps; A = dz taps, K-major,
+// 64 channels of one tap per stage; B = w2 rows, MN-major.  Each thread
+// gathers the same four rows in every stage, so their offsets and the taps
+// dh that fall inside the rows are set up once; a stage's tap and channel
+// offset advance by addition and add one offset to each row's.
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_dgrad_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ w2,
+                      bf16* __restrict__ dx, ConvGeom g) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (hopper::smem_addr(smem) + 1023u) & ~1023u;
+  const long long rows = static_cast<long long>(g.N) * g.Ho;  // (n, h)
+  const int w = blockIdx.x % g.Wo;
+  const long long r_base = static_cast<long long>(blockIdx.x / g.Wo) * kBM;
+  const int c0 = blockIdx.y * kBN;
+  const int cols_left = g.CO - c0;
+  const int dw_lo = g.pw - w > 0 ? g.pw - w : 0;
+  const int dw_hi = g.W + g.pw - w < g.kw ? g.W + g.pw - w : g.kw;
+  const int nst = dw_hi > dw_lo ? g.kh * (dw_hi - dw_lo) * (g.CI / kBK) : 0;
+
+  const int c = threadIdx.x & 7;
+  const int r0 = threadIdx.x >> 3;  // rows r0 + 32 q, q < 4
+  // per row: the dz offset of tap (0, 0) at this thread's chunk, and the
+  // taps dh that land inside [0, g.H) as a bit mask (0: no row)
+  long long row_off[4];
+  unsigned dh_ok[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const long long r = r_base + r0 + 32 * q;
+    row_off[q] = 0;
+    dh_ok[q] = 0u;
+    if (r < rows) {
+      const long long n = r / g.Ho;
+      const int h = static_cast<int>(r - n * g.Ho);
+      row_off[q] = ((n * g.H + h - g.ph) * g.W + w - g.pw) * g.CI + 8 * c;
+      for (int dh = 0; dh < g.kh; ++dh) {
+        const int hi = h + dh - g.ph;
+        if (hi >= 0 && hi < g.H) dh_ok[q] |= 1u << dh;
+      }
+    }
+  }
+  int tap_h = 0, tap_w = dw_lo, ci0 = 0;  // the next stage to gather
+
+  auto gather = [&](int s) {
+    const uint32_t st = slot(base, s);
+    const int tap_off = (tap_h * g.W + tap_w) * g.CI + ci0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool ok = (dh_ok[q] >> tap_h) & 1u;
+      hopper::cp_async16(st + hopper::swizzle128(r0 + 32 * q, c),
+                         ok ? dz + row_off[q] + tap_off : dz, ok);
+    }
+    const long long k = static_cast<long long>(tap_h * g.kw + tap_w) * g.CI + ci0;
+    load_w2(st + kABytes, w2 + k * g.CO + c0, g.CO, cols_left);
+    ci0 += kBK;
+    if (ci0 == g.CI) {
+      ci0 = 0;
+      if (++tap_w == dw_hi) {
+        tap_w = dw_lo;
+        ++tap_h;
+      }
+    }
+  };
+
+  float acc[128];
+  run_ring<0>(acc, base, nst, gather);
+
+  const int col = frag_col();
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long long r = r_base + frag_row() + 8 * half;
+    if (r >= rows) continue;
+    bf16* out = dx + (r * g.Wo + w) * g.CO + c0 + col;  // r = n Ho + h
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (8 * j < cols_left) {
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+    }
+  }
+}
+
+// K3c.  Block (dw rows k0 = 128 x, columns c0 = 256 y, split z): the f32
+// partial of x taps^T . dz over its share of the output positions.  The
+// positions run in the order j = (w', n, h'), so that the positions whose
+// tap column w' + dw - pw lies outside [0, g.W) -- zero for a dw row --
+// form whole ranges of j: the block keeps only the w' range that one of its
+// two taps reads (at the codec's up0, 6 of the 20 (dw, w') pairs are zero).
+// Split z covers j in [z per, (z + 1) per), cut to that range.  Depth runs
+// over positions, 64 per stage: A = x taps^T, MN-major (one atom of 64
+// channels of one tap per warpgroup), B = dz rows, MN-major.  Thread t
+// gathers positions t / 8 and t / 8 + 32 of each stage, for A and for B;
+// their (w', n, h') and x and dz offsets are decoded once and then advanced
+// by 64 positions per stage with additions and carries (the split of 64
+// into columns, samples and rows), no division or multiplication.
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz,
+                      float* __restrict__ part, ConvGeom g, long long per) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (hopper::smem_addr(smem) + 1023u) & ~1023u;
+  const long long nho = static_cast<long long>(g.N) * g.Ho;  // j per column
+  const int k0 = blockIdx.x * kBM;
+  const int c0 = blockIdx.y * kBN;
+  const int cols_left = g.CO - c0;
+
+  const int c = threadIdx.x & 7;
+  const int p0 = threadIdx.x >> 3;  // positions p0, p0 + 32 of a stage
+  // the two 64-channel atoms of this block's 128 dw rows: tap and channel,
+  // and the union of the w' ranges their taps read
+  int dy[2], dxo[2], ci[2];
+  bool k_ok[2];
+  int wlo = g.Wo, whi = 0;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int k = k0 + 64 * a;
+    k_ok[a] = k < g.K;
+    const int t = k_ok[a] ? k / g.CI : 0;
+    const int dh = t / g.kw;
+    dy[a] = dh - g.ph;
+    dxo[a] = t - dh * g.kw - g.pw;
+    ci[a] = k - t * g.CI + 8 * c;
+    if (k_ok[a]) {
+      const int lo = -dxo[a] > 0 ? -dxo[a] : 0;
+      const int hi = g.W - dxo[a] < g.Wo ? g.W - dxo[a] : g.Wo;
+      wlo = lo < wlo ? lo : wlo;
+      whi = hi > whi ? hi : whi;
+    }
+  }
+  long long jb = static_cast<long long>(blockIdx.z) * per;
+  long long je = jb + per;
+  if (jb < wlo * nho) jb = wlo * nho;
+  if (je > whi * nho) je = whi * nho;
+  const int nst = je > jb ? static_cast<int>((je - jb + kBK - 1) / kBK) : 0;
+
+  // 64 positions = step_w columns + step_n samples + step_h rows; a stage
+  // moves each position's x and dz offsets by fixed amounts, plus fixed
+  // carries when its row passes g.Ho or its sample passes N
+  const int step_w = static_cast<int>(kBK / nho);
+  const int step_n = static_cast<int>((kBK - step_w * nho) / g.Ho);
+  const int step_h = static_cast<int>(kBK - step_w * nho - step_n * g.Ho);
+  const long long x_sample = static_cast<long long>(g.H) * g.W * g.CI;
+  const long long z_sample = static_cast<long long>(g.Ho) * g.Wo * g.CO;
+  const long long x_step = step_n * x_sample +
+                           static_cast<long long>(step_h) * g.W * g.CI +
+                           static_cast<long long>(step_w) * g.CI;
+  const long long z_step = step_n * z_sample +
+                           static_cast<long long>(step_h) * g.Wo * g.CO +
+                           static_cast<long long>(step_w) * g.CO;
+  const long long x_carry_h = static_cast<long long>(g.H - g.Ho) * g.W * g.CI;
+  const long long x_carry_n = g.CI - g.N * x_sample;
+  const long long z_carry_n = g.CO - g.N * z_sample;
+  // per atom: the x offset of its tap and channels from a position's own
+  int a_off[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) a_off[a] = (dy[a] * g.W + dxo[a]) * g.CI + ci[a];
+  long long pj[2], x_off[2], z_off[2];
+  int pos_w[2], pos_n[2], pos_h[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    pj[q] = jb + p0 + 32 * q;
+    pos_w[q] = static_cast<int>(pj[q] / nho);
+    const long long rest = pj[q] - pos_w[q] * nho;
+    pos_n[q] = static_cast<int>(rest / g.Ho);
+    pos_h[q] = static_cast<int>(rest - static_cast<long long>(pos_n[q]) * g.Ho);
+    x_off[q] = ((static_cast<long long>(pos_n[q]) * g.H + pos_h[q]) * g.W + pos_w[q]) *
+               g.CI;
+    z_off[q] = ((static_cast<long long>(pos_n[q]) * g.Ho + pos_h[q]) * g.Wo +
+                pos_w[q]) * g.CO + c0 + 8 * c;
+  }
+
+  auto gather = [&](int s) {
+    const uint32_t st = slot(base, s);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const bool j_ok = pj[q] < je;
+      const uint32_t row = hopper::swizzle128(p0 + 32 * q, c);
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int hi = pos_h[q] + dy[a];
+        const int wi = pos_w[q] + dxo[a];
+        const bool ok = j_ok && k_ok[a] && hi >= 0 && hi < g.H && wi >= 0 &&
+                        wi < g.W;
+        hopper::cp_async16(st + a * hopper::kAtomBytes + row,
+                           ok ? x + x_off[q] + a_off[a] : x, ok);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const bool ok = j_ok && 64 * jj < cols_left;
+        hopper::cp_async16(st + kABytes + jj * hopper::kAtomBytes + row,
+                           ok ? dz + z_off[q] + 64 * jj : dz, ok);
+      }
+      // advance this position by one stage
+      pj[q] += kBK;
+      x_off[q] += x_step;
+      z_off[q] += z_step;
+      pos_h[q] += step_h;
+      if (pos_h[q] >= g.Ho) {  // next sample, same column
+        pos_h[q] -= g.Ho;
+        ++pos_n[q];
+        x_off[q] += x_carry_h;
+      }
+      pos_n[q] += step_n;
+      if (pos_n[q] >= g.N) {  // next column, first sample
+        pos_n[q] -= g.N;
+        ++pos_w[q];
+        x_off[q] += x_carry_n;
+        z_off[q] += z_carry_n;
+      }
+      pos_w[q] += step_w;
+    }
+  };
+
+  float acc[128];
+  run_ring<1>(acc, base, nst, gather);
+
+  float* out = part + static_cast<long long>(blockIdx.z) * g.K * g.CO;
+  const int row = frag_row();
+  const int col = frag_col();
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int k = k0 + row + 8 * half;
+    if (k >= g.K) continue;
+    float* o = out + static_cast<long long>(k) * g.CO + c0 + col;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (8 * j < cols_left) {
+        *reinterpret_cast<float2*>(o + 8 * j) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace wg
+
 // ---- host side ---------------------------------------------------------------
 
 bool aligned16(const void* p) {
@@ -763,6 +1164,17 @@ cudaError_t wgrad_launch(const void* x, const void* dz, float* part,
   return cudaGetLastError();
 }
 
+// What the wgmma kernels take: channel counts that are multiples of 64 (so
+// a 64-deep stage is one tap's channels and a 64-column atom is all valid
+// or all masked), kh <= 32 (K3b's tap mask) and 16-byte-aligned tensors.
+// The wrapper (ops/fused_codec.py: uses_wgmma) chooses the variant by this
+// rule; here it only guards the entry points with an error code.
+bool wgmma_shape_ok(const ConvGeom& g, const void* a, const void* b,
+                    const void* c) {
+  return g.CI % 64 == 0 && g.CO % 64 == 0 && g.kh <= 32 && aligned16(a) &&
+         aligned16(b) && aligned16(c);
+}
+
 }  // namespace
 
 // Every entry point: dtype 0 = f32, 1 = bf16 (x, w, y, z, dy, dz, dx);
@@ -844,6 +1256,58 @@ extern "C" int mrssm_conv_wgrad(int dtype, const void* x, const void* dz,
           ? wgrad_launch<__nv_bfloat16>(x, dz, part, dw, g, splits, per_split, s)
           : wgrad_launch<float>(x, dz, part, dw, g, splits, per_split, s);
   return static_cast<int>(err);
+}
+
+// K3b on Hopper (wgmma).  bf16 only; the arguments of mrssm_conv_dgrad, with
+// CI (dz's channels) and CO (dx's) multiples of 64.
+extern "C" int mrssm_conv_dgrad_wgmma(const void* dz, const void* w2, void* dx,
+                                      int N, int H, int W, int CI, int kh,
+                                      int kw, int CO, int ph, int pw,
+                                      void* stream) {
+  const ConvGeom g = make_geom(N, H, W, CI, kh, kw, CO, ph, pw);
+  if (N <= 0) return 0;
+  if (!wgmma_shape_ok(g, dz, w2, dx))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = set_smem(wg::conv_dgrad_kernel, wg::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(g.N) * g.Ho;
+  dim3 grid(static_cast<unsigned>((rows + wg::kBM - 1) / wg::kBM * g.Wo),
+            (g.CO + wg::kBN - 1) / wg::kBN);
+  wg::conv_dgrad_kernel<<<grid, wg::kThreads, wg::kSmemBytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(dz),
+      static_cast<const __nv_bfloat16*>(w2), static_cast<__nv_bfloat16*>(dx),
+      g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3c on Hopper (wgmma).  bf16 only; the arguments of mrssm_conv_wgrad, with
+// CI and CO multiples of 64 and per_split a multiple of 64 (whole stages).
+extern "C" int mrssm_conv_wgrad_wgmma(const void* x, const void* dz,
+                                      float* part, float* dw, int N, int H,
+                                      int W, int CI, int kh, int kw, int CO,
+                                      int ph, int pw, int splits,
+                                      long long per_split, void* stream) {
+  const ConvGeom g = make_geom(N, H, W, CI, kh, kw, CO, ph, pw);
+  if (N <= 0 || splits <= 0 || per_split % wg::kBK != 0 ||
+      !wgmma_shape_ok(g, x, dz, part))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = set_smem(wg::conv_wgrad_kernel, wg::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((g.K + wg::kBM - 1) / wg::kBM, (g.CO + wg::kBN - 1) / wg::kBN,
+            splits);
+  wg::conv_wgrad_kernel<<<grid, wg::kThreads, wg::kSmemBytes, s>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dz), part, g, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long count = static_cast<long long>(g.K) * g.CO;
+  long long blocks = (count + kThreads - 1) / kThreads;
+  if (blocks > 4096) blocks = 4096;
+  wgrad_reduce_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      part, dw, splits, count);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* mrssm_fused_codec_error_string(int code) {

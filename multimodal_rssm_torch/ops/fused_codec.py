@@ -14,9 +14,16 @@ one's bound and design):
   transposed kernel;
 - K3c ``conv_wgrad``: dw, summed over every sample in f32.
 
+K3b and K3c each have two kernels.  bf16 with both channel counts
+multiples of 64 (the codec's 256 / 512) takes the Hopper kernel
+(``cp.async`` ring + ``wgmma``, counted by ``conv_dgrad_wgmma`` and
+``conv_wgrad_wgmma``); every other dtype and shape takes the WMMA kernel
+(counted by ``conv_dgrad`` and ``conv_wgrad``).  ``uses_wgmma`` makes the
+choice, from dtype and shape only, before any launch.
+
 Each wrapper takes its plain PyTorch version (``*_plain``: the kernel's own
 arithmetic, pad + tap gather + matmul in f32) only for CPU tensors; a CUDA
-tensor launches the kernel or raises, and counts the launch.  Layouts are
+tensor launches a kernel or raises, and counts the launch.  Layouts are
 the JAX op's: x [N, H, W, Cin], w [kh, kw, Cin, Cout] (Cout even), scale and
 bias [Cout].
 """
@@ -34,8 +41,11 @@ from multimodal_rssm_torch.ops import cuda_kernels as ck
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_POSITIONS = 256     # K2: a block holds one sample's Ho * Wo positions
-_BK = 32                # K3c: depth rows per shared-memory stage (the .cu)
-_TILE = 128             # K3c: rows and columns of a block's dw tile (the .cu)
+_BK = 32                # K3c (WMMA): depth rows per shared-memory stage
+_TILE = 128             # K3c (WMMA): rows and columns of a block's dw tile
+WG_STAGE = 64           # wgmma kernels: depth per stage, channel multiple
+WG_TILE = (128, 256)    # wgmma kernels: rows x columns of a block's tile
+MAX_SPLITS = 32         # K3c: most depth splits (f32 partials)
 
 
 # -- shapes and checks --------------------------------------------------------
@@ -97,8 +107,12 @@ def _lib() -> ctypes.CDLL:
     lib.mrssm_conv_dgrad.argtypes = [i] + [p] * 3 + [i] * 9 + [p]
     lib.mrssm_conv_wgrad.argtypes = ([i] + [p] * 4 + [i] * 10
                                      + [ctypes.c_longlong, p])
+    lib.mrssm_conv_dgrad_wgmma.argtypes = [p] * 3 + [i] * 9 + [p]
+    lib.mrssm_conv_wgrad_wgmma.argtypes = ([p] * 4 + [i] * 10
+                                           + [ctypes.c_longlong, p])
     for fn in (lib.mrssm_conv_in_glu_fwd, lib.mrssm_in_glu_bwd_dz,
-               lib.mrssm_conv_dgrad, lib.mrssm_conv_wgrad):
+               lib.mrssm_conv_dgrad, lib.mrssm_conv_wgrad,
+               lib.mrssm_conv_dgrad_wgmma, lib.mrssm_conv_wgrad_wgmma):
         fn.restype = ctypes.c_int
     lib.mrssm_fused_codec_error_string.argtypes = [i]
     lib.mrssm_fused_codec_error_string.restype = ctypes.c_char_p
@@ -118,6 +132,24 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
 
 def _dtype_code(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
+
+
+def uses_wgmma(dtype: torch.dtype, cin: int, cout: int, kh: int) -> bool:
+    """Whether K3b and K3c take their Hopper (wgmma) kernel for this dtype,
+    these conv channel counts and kernel height: bf16 with Cin and Cout
+    multiples of 64 and at most 32 taps high (K3b keeps a block's valid
+    taps dh in one 32-bit mask).  Decided before any launch; the other
+    cases take the WMMA kernels.  The C entry points only guard the rule
+    (an error code, never another kernel)."""
+    return (dtype == torch.bfloat16 and cin % WG_STAGE == 0
+            and cout % WG_STAGE == 0 and kh <= 32)
+
+
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The wgmma kernels copy 16 bytes at a time."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the wgmma kernel takes 16-byte-aligned "
+                         "tensors (a contiguous view at an odd offset is not)")
 
 
 # -- plain versions (the kernels' arithmetic, f32) ------------------------------
@@ -287,6 +319,9 @@ def conv_dgrad(dz, w, padding):
     kh, kw, _, cin = w2.shape
     h, wd = _out_size(ho, kh, pad2[0]), _out_size(wo, kw, pad2[1])
     dx = torch.empty((n, h, wd, cin), dtype=dz.dtype, device=dz.device)
+    if uses_wgmma(dz.dtype, cin, cout, kh):
+        conv_dgrad_wgmma(dz, w2, dx, pad2)
+        return dx
     lib = _lib()
     _launch("conv_dgrad", lib.mrssm_conv_dgrad, dz.device, _dtype_code(dz),
             dz.data_ptr(), w2.data_ptr(), dx.data_ptr(), n, ho, wo, cout, kh,
@@ -295,13 +330,37 @@ def conv_dgrad(dz, w, padding):
     return dx
 
 
-def _wgrad_splits(rows: int, tiles: int, sms: int) -> Tuple[int, int]:
-    """(splits, rows per split): enough blocks for ~4 per SM, each split a
-    whole number of 32-row stages."""
-    stages = -(-rows // _BK)
-    splits = max(1, min(stages, -(-4 * sms // tiles)))
-    per = -(-stages // splits) * _BK
-    return -(-rows // per), per
+def conv_dgrad_wgmma(dz, w2, dx, pad2) -> None:
+    """K3b's Hopper kernel: dx [N, H, W, Cin] <- the stride-1 conv of dz
+    [N, Ho, Wo, Cout] padded by ``pad2`` with w2 [kh, kw, Cout, Cin], all
+    bf16, Cin and Cout multiples of 64 (``conv_dgrad`` checks and forms
+    w2)."""
+    _check_aligned("conv_dgrad", dz, w2, dx)
+    n, ho, wo, cout = dz.shape
+    kh, kw, _, cin = w2.shape
+    _launch("conv_dgrad", _lib().mrssm_conv_dgrad_wgmma, dz.device,
+            dz.data_ptr(), w2.data_ptr(), dx.data_ptr(), n, ho, wo, cout, kh,
+            kw, cin, *pad2)
+    conv_dgrad_wgmma.launches += 1
+
+
+def wgrad_splits(rows: int, tiles: int, stage: int,
+                 blocks: int) -> Tuple[int, int]:
+    """(splits, rows per split) of K3c, whose ``tiles`` output tiles each
+    run once per split, ``blocks`` blocks at a time on the card.  Each split
+    is a whole number of ``stage``-row stages and there are at most
+    ``MAX_SPLITS``; where the rows allow, enough splits for two waves.
+    Among those, the plan whose waves x stages per block (the time, in
+    stages) is least; the fewest splits on a tie."""
+    stages = -(-rows // stage)
+    want = min(MAX_SPLITS, stages, -(-2 * blocks // tiles))
+    best = None
+    for per in range(-(-stages // MAX_SPLITS), -(-stages // want) + 1):
+        splits = -(-stages // per)
+        key = (splits < want, -(-splits * tiles // blocks) * per, splits)
+        if best is None or key < best[0]:
+            best = (key, splits, per)
+    return best[1], best[2] * stage
 
 
 def conv_wgrad(x, dz, kernel_size, padding):
@@ -323,12 +382,20 @@ def conv_wgrad(x, dz, kernel_size, padding):
     cout = dz.shape[-1]
     k = kh * kw * cin
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, per = _wgrad_splits(n * ho * wo,
-                                -(-k // _TILE) * -(-cout // _TILE), sms)
+    wgmma = uses_wgmma(x.dtype, cin, cout, kh)
+    # wgmma: 64-row stages, 128 x 256 tiles, one block per SM; WMMA: 32-row
+    # stages, 128 x 128 tiles, two blocks per SM
+    (bm, bn), stage, per_sm = ((WG_TILE, WG_STAGE, 1) if wgmma
+                               else ((_TILE, _TILE), _BK, 2))
+    splits, per = wgrad_splits(n * ho * wo, -(-k // bm) * -(-cout // bn),
+                               stage, per_sm * sms)
     part = torch.empty((splits, k, cout), dtype=torch.float32,
                        device=x.device)
     dw = torch.empty((kh, kw, cin, cout), dtype=torch.float32,
                      device=x.device)
+    if wgmma:
+        conv_wgrad_wgmma(x, dz, part, dw, padding, per)
+        return dw
     lib = _lib()
     _launch("conv_wgrad", lib.mrssm_conv_wgrad, x.device, _dtype_code(x),
             x.data_ptr(), dz.data_ptr(), part.data_ptr(), dw.data_ptr(), n, h,
@@ -337,7 +404,22 @@ def conv_wgrad(x, dz, kernel_size, padding):
     return dw
 
 
-for _fn in (conv_in_glu_fwd, in_glu_bwd_dz, conv_dgrad, conv_wgrad):
+def conv_wgrad_wgmma(x, dz, part, dw, padding, per) -> None:
+    """K3c's Hopper kernel: dw f32 [kh, kw, Cin, Cout] <- the sum of the
+    partials part [splits, kh*kw*Cin, Cout] over splits of ``per`` output
+    rows each, for bf16 x [N, H, W, Cin] and dz [N, Ho, Wo, Cout], Cin and
+    Cout multiples of 64 (``conv_wgrad`` checks and plans the splits)."""
+    _check_aligned("conv_wgrad", x, dz)
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = dw.shape
+    _launch("conv_wgrad", _lib().mrssm_conv_wgrad_wgmma, x.device,
+            x.data_ptr(), dz.data_ptr(), part.data_ptr(), dw.data_ptr(), n, h,
+            wd, cin, kh, kw, cout, *padding, part.shape[0], per)
+    conv_wgrad_wgmma.launches += 1
+
+
+for _fn in (conv_in_glu_fwd, in_glu_bwd_dz, conv_dgrad, conv_wgrad,
+            conv_dgrad_wgmma, conv_wgrad_wgmma):
     _fn.launches = 0
     ck.KERNELS[_fn.__name__] = _fn
 

@@ -295,3 +295,50 @@ def test_build_runs_one_compiler_per_stale_source(tmp_path, monkeypatch):
     assert calls() == ["a.cu", "a.cu", "a.cu", "b.cu", "b.cu"]
     ck.build(force=True)
     assert len(calls()) == 7
+
+
+# -- (i) the host logic of the wgmma K3b / K3c ---------------------------------------
+
+
+@pytest.mark.parametrize("rows,tiles,sms", [
+    (313_600, 48, 132),      # down4 at N = 2450 on an H100
+    (392_000, 48, 132),      # up0
+    (384, 6, 132), (480, 48, 132), (280, 3, 132),
+    (10_000_000, 1, 132),    # capped at MAX_SPLITS
+    (2_113, 1, 132),         # 34 stages: the cap cuts the split count
+    (64, 5, 132), (1, 1, 132), (4_001, 7, 16)])
+def test_wgmma_wgrad_split_plan_covers_every_row_once(rows, tiles, sms):
+    """For the wgmma K3c's plan (64-row stages, one block per SM) and the
+    WMMA one's (32-row stages, two blocks per SM), split z covers rows
+    [z per, (z + 1) per): together the splits cover every reduction row
+    exactly once, each in whole stages, none empty, at most MAX_SPLITS of
+    them, and enough for two waves of blocks where the cap and the rows
+    allow."""
+    for stage, per_sm in ((fc.WG_STAGE, 1), (fc._BK, 2)):
+        blocks = per_sm * sms
+        splits, per = fc.wgrad_splits(rows, tiles, stage, blocks)
+        assert per % stage == 0 and 1 <= splits <= fc.MAX_SPLITS
+        covered = np.zeros(rows, np.int64)
+        for z in range(splits):
+            lo, hi = z * per, min((z + 1) * per, rows)
+            assert hi > lo
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+        stages = -(-rows // stage)
+        most = -(-stages // -(-stages // fc.MAX_SPLITS))   # most <= the cap
+        assert splits >= min(-(-2 * blocks // tiles), most)
+
+
+@pytest.mark.parametrize("dtype,cin,cout,wgmma", [
+    (torch.bfloat16, 256, 512, True),     # the codec's stages
+    (torch.bfloat16, 64, 128, True),
+    (torch.bfloat16, 64, 64, True),
+    (torch.float32, 256, 512, False),     # f32 keeps the WMMA kernels
+    (torch.bfloat16, 24, 160, False),
+    (torch.bfloat16, 3, 10, False),
+    (torch.bfloat16, 256, 96, False)])
+def test_wgmma_variant_choice_by_dtype_and_shape(dtype, cin, cout, wgmma):
+    """bf16 with both channel counts multiples of 64 and a kernel at most
+    32 taps high takes the wgmma kernels; everything else the WMMA ones."""
+    assert fc.uses_wgmma(dtype, cin, cout, 3) is wgmma
+    assert not fc.uses_wgmma(dtype, cin, cout, 33)

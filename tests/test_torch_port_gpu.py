@@ -58,6 +58,15 @@ FUSED_CASES = [
     (2, 16, 16, 24, 3, 3, 160, 1, 1),   # 256 positions; C/2 = 80 spans
                                         # a full and a masked column tile
     (5, 9, 7, 3, 2, 3, 10, 0, 1),       # Cin 3, C/2 = 5: scalar loads
+    # Cin and Cout multiples of 64: K3b and K3c take their wgmma kernels in
+    # bf16 (f32 still takes the WMMA ones)
+    (3, 32, 5, 64, 3, 4, 128, 1, 1),    # down4's family, a masked column
+                                        # half of the 256-wide tile
+    (3, 32, 4, 256, 3, 4, 512, 1, 2),   # up0's conv form at full width
+    (5, 9, 7, 64, 2, 3, 64, 0, 1),      # 280 rows: ragged last tile and
+                                        # stage; taps cut on both sides
+    (3, 32, 5, 64, 3, 3, 128, 1, 1),    # K3c depth 576: the last dw tile's
+                                        # second 64-row atom is all masked
 ]
 # Relative to the plain version's max |value|.  f32: the same products
 # summed in another order (and E[z^2] - mean^2 in the stats).  bf16: the
@@ -76,8 +85,10 @@ def _rel(a, b):
 @pytest.mark.parametrize("case", FUSED_CASES)
 def test_fused_codec_kernels_match_plain_on_card(cuda, case, dtype):
     """Each of K2, K3a, K3b and K3c against its plain version on the same
-    inputs; each call counts one launch; K3a's and K3c's sums are bit-equal
-    across two calls (no atomics)."""
+    inputs; each call counts one launch, of the kernel that
+    ``uses_wgmma`` picks for K3b and K3c (the wgmma kernels for bf16 with
+    Cin and Cout multiples of 64, more than one depth split for K3c there);
+    K3a's and K3c's sums are bit-equal across two calls (no atomics)."""
     from multimodal_rssm_torch.core.device import configure_float32
     from multimodal_rssm_torch.ops import fused_codec as fc
 
@@ -121,16 +132,24 @@ def test_fused_codec_kernels_match_plain_on_card(cuda, case, dtype):
     assert torch.equal(dw, fc.conv_wgrad(x, dz, (kh, kw), (ph, pw)))
     torch.cuda.synchronize()
     counts = ck.launch_counts()
-    assert {k: counts[k] for k in ("conv_in_glu_fwd", "in_glu_bwd_dz",
-                                   "conv_dgrad", "conv_wgrad")} == {
-        "conv_in_glu_fwd": 1, "in_glu_bwd_dz": 2, "conv_dgrad": 1,
-        "conv_wgrad": 2}
+    wgmma = fc.uses_wgmma(dtype, cin, cout, kh)
+    dgrad, wgrad = (("conv_dgrad_wgmma", "conv_wgrad_wgmma") if wgmma
+                    else ("conv_dgrad", "conv_wgrad"))
+    assert {k: v for k, v in counts.items() if v} == {
+        "conv_in_glu_fwd": 1, "in_glu_bwd_dz": 2, dgrad: 1, wgrad: 2}
+    if wgmma:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        tiles = -(-kh * kw * cin // fc.WG_TILE[0]) * -(-cout // fc.WG_TILE[1])
+        assert fc.wgrad_splits(n * dz.shape[1] * dz.shape[2], tiles,
+                               fc.WG_STAGE, sms)[0] > 1
 
 
 @pytest.mark.gpu
 def test_fused_codec_kernels_reject_what_they_do_not_take(cuda):
-    """A non-contiguous input, a float64 input, an input on another device
-    or too many positions per sample raise before any launch."""
+    """A non-contiguous input, a float64 input, an input on another device,
+    too many positions per sample, or a bf16 view off 16-byte alignment
+    where the wgmma kernels would run (they copy 16 bytes at a time) raise
+    before any launch."""
     from multimodal_rssm_torch.ops import fused_codec as fc
 
     x = torch.zeros(2, 8, 5, 8, device=cuda)
@@ -148,4 +167,13 @@ def test_fused_codec_kernels_reject_what_they_do_not_take(cuda):
                            (1, 1))
     with pytest.raises(ValueError):
         fc.conv_wgrad(x, torch.zeros(2, 8, 4, 16, device=cuda), (3, 3), (1, 1))
+    flat = torch.zeros(1 + 2 * 8 * 5 * 64, dtype=torch.bfloat16, device=cuda)
+    xb = flat[1:].view(2, 8, 5, 64)                  # 2 bytes past alignment
+    dz = torch.zeros(2, 8, 5, 64, dtype=torch.bfloat16, device=cuda)
+    wb = torch.zeros(3, 3, 64, 64, dtype=torch.bfloat16, device=cuda)
+    assert fc.uses_wgmma(xb.dtype, 64, 64, 3) and xb.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte"):
+        fc.conv_wgrad(xb, dz, (3, 3), (1, 1))
+    with pytest.raises(ValueError, match="16-byte"):
+        fc.conv_dgrad(flat[1:].view(2, 8, 5, 64), wb, (1, 1))
     assert all(v == 0 for v in ck.launch_counts().values())
