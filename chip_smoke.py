@@ -24,20 +24,23 @@ each printed as one JSON line:
                against its plain version (f32 arithmetic from the same
                inputs, rounded to the kernel's output dtype, max |diff| <=
                1e-2 of the plain version's max |value|), K3a's and K3c's
-               sums bit-equal across two calls, K3b and K3c shown to take
-               their Hopper (wgmma) kernels at these shapes (by the
+               sums bit-equal across two calls, K2, K3b and K3c shown to
+               take their Hopper (wgmma) kernels at these shapes (by the
                variants' launch counts), each kernel, its plain version
                and its library yardstick timed (the bound counts only the
-               products with in-range taps); PR 2's WMMA K3b and K3c,
-               which f32 and other channel counts still take, once each
-               against their plain versions at down4's shape in f32 and in
-               bf16 with 248 / 504 channels; then the verify CLI
-               (cli/verify_fused_codec.py, the op's main path) with the
-               launch counts reset just before: forward and gradients
-               against the unfused reference, fused and unfused grad-step
-               times, and every one of the four kernels launched there, in
-               the wgmma variants for K3b and K3c and never the WMMA ones
-               (and none of them in the train phase).
+               products with in-range taps; K2 also beside F.conv2d alone
+               and the unfused forward, reference_conv_in_glu); the
+               WMMA K2, K3b and K3c, which f32 and other channel counts
+               still take, once each against their plain versions at
+               down4's shape in f32 and in bf16 with 248 / 504 channels;
+               then the verify CLI (cli/verify_fused_codec.py, the op's
+               main path) with the launch counts reset just before: forward
+               and gradients against the unfused reference, fused and
+               unfused grad-step times, and every one of the four kernels
+               launched there, in the wgmma variants for K2, K3b and K3c
+               and never the WMMA ones (and none of them in the train
+               phase).  The kernels line gives each two-kernel step's
+               launches by variant from that run.
 
 Then the {"kernels": [...]} line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Without a GPU it exits non-zero
@@ -69,14 +72,17 @@ BF16_RATE = 989e12     # tensor cores, dense
 FUSED_N = 2450         # T * B of the training step: the codec's batch
 FUSED_TOL = 1e-2       # kernel vs plain version, relative to max |plain|
 FUSED_KERNELS = {      # kernel on the op's main path -> the JAX package's
-    "conv_in_glu_fwd": "ops/fused_codec.py:142 (_fwd_kernel, JAX package)",
+    "conv_in_glu_fwd_wgmma": "ops/fused_codec.py:142 (_fwd_kernel, JAX "
+                             "package)",
     "in_glu_bwd_dz": "ops/fused_codec.py:166 (_bwd_dz_kernel_full, JAX "
                      "package)",
     "conv_dgrad_wgmma": "ops/fused_codec.py:200 (_dgrad_kernel, JAX package)",
     "conv_wgrad_wgmma": "ops/fused_codec.py:209 (_wgrad_kernel, JAX package)",
 }                      # Pallas kernel it replaces
-# K3b's and K3c's other kernels (f32 and other shapes): off the main path
-OTHER_VARIANTS = {"conv_dgrad_wgmma": "conv_dgrad",
+# K2's, K3b's and K3c's other kernels (f32 and other shapes): off the main
+# path
+OTHER_VARIANTS = {"conv_in_glu_fwd_wgmma": "conv_in_glu_fwd",
+                  "conv_dgrad_wgmma": "conv_dgrad",
                   "conv_wgrad_wgmma": "conv_wgrad"}
 WMMA_TOL = {"float32": 1e-4}   # the WMMA kernels in f32 (bf16: FUSED_TOL)
 
@@ -346,20 +352,33 @@ def _fused_stage(stage: str, device_name: str):
             **extra}
         torch.cuda.empty_cache()
 
+    def check_variant(name, calls):
+        """Raise unless each of the last ``calls`` calls of a two-kernel
+        step (counts reset just before them) took the wgmma kernel."""
+        counts = ck.launch_counts()
+        got = {"wgmma": counts[name], "wmma": counts[OTHER_VARIANTS[name]]}
+        if got != {"wgmma": calls, "wmma": 0}:
+            raise AssertionError(f"{stage}: {calls} calls of {name}'s "
+                                 f"wrapper launched {got}")
+
     # K2
+    ck.reset_launch_counts()
     out = fc.conv_in_glu_fwd(x, w, scale, bias, pad)
+    check_variant("conv_in_glu_fwd_wgmma", 1)
     plain = fc.conv_in_glu_fwd_plain(x, w, scale, bias, pad)
     errors = {k: _err(a, b) for k, a, b in zip(("y", "z", "mean", "var"),
                                                out, plain)}
     del plain
     _, z, mean, var = out
     x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
-    record("conv_in_glu_fwd", errors,
+    record("conv_in_glu_fwd_wgmma", errors,
            lambda: fc.conv_in_glu_fwd(x, w, scale, bias, pad),
            lambda: fc.conv_in_glu_fwd_plain(x, w, scale, bias, pad), None,
            x_b + w_b + sb_b + y_b + z_b + stats_b, flops, BF16_RATE,
            conv2d_ms=cuda_time_ms(
-               lambda: F.conv2d(x_nchw, w_oihw, padding=pad), 5))
+               lambda: F.conv2d(x_nchw, w_oihw, padding=pad), 5),
+           unfused_ms=cuda_time_ms(
+               lambda: fc.reference_conv_in_glu(x, w, scale, bias, pad), 5))
 
     # K3a (dy: the verify CLI's cotangent r)
     dz, dscale, dbias = fc.in_glu_bwd_dz(dy, z, mean, var, scale, bias)
@@ -377,15 +396,6 @@ def _fused_stage(stage: str, device_name: str):
            lambda: fc.in_glu_bwd_dz_plain(dy, z, mean, var, scale, bias),
            None, y_b + z_b + stats_b + sb_b + z_b + sb_b, 20 * z.numel(),
            F32_RATE)
-
-    def check_variant(name, calls):
-        """Raise unless each of K3b's / K3c's last ``calls`` calls (counts
-        reset just before them) took the wgmma kernel."""
-        counts = ck.launch_counts()
-        got = {"wgmma": counts[name], "wmma": counts[OTHER_VARIANTS[name]]}
-        if got != {"wgmma": calls, "wmma": 0}:
-            raise AssertionError(f"{stage}: {calls} calls of {name}'s "
-                                 f"wrapper launched {got}")
 
     # K3b
     dz_nchw = dz.permute(0, 3, 1, 2)
@@ -420,11 +430,11 @@ def _fused_stage(stage: str, device_name: str):
 
 
 def _wmma_check():
-    """PR 2's WMMA K3b and K3c, which the wrappers still take for f32 and
-    for bf16 with channel counts that are not multiples of 64: one call
-    each against its plain version at down4's shape, N = FUSED_N, in f32
-    and in bf16 with 248 / 504 channels.  Off the main path; returns the
-    errors by case."""
+    """The WMMA K2, K3b and K3c, which the wrappers still take for f32
+    and for bf16 with channel counts that are not multiples of 64: one
+    call each against its plain version at down4's shape, N = FUSED_N, in
+    f32 and in bf16 with 248 / 504 channels.  Off the main path; returns
+    the errors by case."""
     import torch
 
     from multimodal_rssm_torch.cli import verify_fused_codec as vf
@@ -440,7 +450,8 @@ def _wmma_check():
     for dtype, ci, co in ((torch.float32, cin, cout),
                           (torch.bfloat16, cin - 8, cout - 8)):
         case = f"{str(dtype)[6:]} Cin {ci} Cout {co}"
-        if fc.uses_wgmma(dtype, ci, co, kh):
+        if fc.uses_wgmma(dtype, ci, co, kh) or fc.fwd_uses_wgmma(dtype, ci,
+                                                                  co):
             raise AssertionError(f"{case} would take the wgmma kernels")
         x = (0.3 * torch.randn(FUSED_N, h, wd, ci, generator=g,
                                device=dev)).to(dtype)
@@ -448,15 +459,22 @@ def _wmma_check():
                                 device=dev)).to(dtype)
         dz = torch.randn(FUSED_N, ho, wo, co, generator=g, device=dev
                          ).to(dtype)
+        scale = torch.rand(co, generator=g, device=dev) + 0.5
+        bias = 0.1 * torch.randn(co, generator=g, device=dev)
         ck.reset_launch_counts()
-        errors = {"dx": _err(fc.conv_dgrad(dz, w, pad),
-                             fc.conv_dgrad_plain(dz, w, pad)),
-                  "dw": _err(fc.conv_wgrad(x, dz, (kh, kw), pad),
-                             fc.conv_wgrad_plain(x, dz, (kh, kw), pad))}
+        errors = {k: _err(a, b) for k, a, b in zip(
+            ("y", "z", "mean", "var"),
+            fc.conv_in_glu_fwd(x, w, scale, bias, pad),
+            fc.conv_in_glu_fwd_plain(x, w, scale, bias, pad))}
+        errors.update(dx=_err(fc.conv_dgrad(dz, w, pad),
+                              fc.conv_dgrad_plain(dz, w, pad)),
+                      dw=_err(fc.conv_wgrad(x, dz, (kh, kw), pad),
+                              fc.conv_wgrad_plain(x, dz, (kh, kw), pad)))
         launched = {k: v for k, v in ck.launch_counts().items() if v}
         del x, w, dz
         torch.cuda.empty_cache()
-        if launched != {"conv_dgrad": 1, "conv_wgrad": 1}:
+        if launched != {"conv_in_glu_fwd": 1, "conv_dgrad": 1,
+                        "conv_wgrad": 1}:
             raise AssertionError(f"{case}: the WMMA check launched {launched}")
         tol = WMMA_TOL.get(str(dtype)[6:], FUSED_TOL)
         bad = {k: r for k, (_, r) in errors.items() if r > tol}
@@ -512,13 +530,16 @@ def phase_fused_codec(device_name: str, train_launches):
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"), "bound_by": bound_by.pop(),
             "library_ms": total("library_ms"),
-            **({"conv2d_ms": total("conv2d_ms")}
-               if name == "conv_in_glu_fwd" else {}),
+            **({"conv2d_ms": total("conv2d_ms"),
+                "unfused_ms": total("unfused_ms")}
+               if name == "conv_in_glu_fwd_wgmma" else {}),
             **({"variants": {"wgmma": launches[name],
                              "wmma": launches[OTHER_VARIANTS[name]]}}
                if name in OTHER_VARIANTS else {}),
             "stages": {s: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "library_ms", "max_rel_err")}
+                                             "library_ms", "max_rel_err",
+                                             "conv2d_ms", "unfused_ms")
+                           if k in r}
                        for s, r in per.items()}})
     emit({"phase": "fused_codec", "n": FUSED_N, "dtype": "bfloat16",
           "tolerance": FUSED_TOL, "bit_equal_across_calls":

@@ -12,34 +12,34 @@
 //
 // The conv-shaped kernels are implicit GEMMs, never an im2col in device
 // memory: output rows m = (n, h', w'), depth k = (dh, dw, ci), columns co.
-// K3b and K3c have two kernels each; the wrapper picks one by dtype and
-// shape before launch:
-//   - bf16 with Cin and Cout multiples of 64 (the codec's 256 / 512): the
-//     Hopper kernels in namespace `wg` below (cp.async ring + wgmma);
-//   - every other case (f32, other channel counts): the WMMA kernels, which
-//     K2 also uses.
+// K2, K3b and K3c have two kernels each; the wrapper picks one by dtype and
+// shape before launch (ops/fused_codec.py: fwd_uses_wgmma, uses_wgmma):
+//   - bf16 with the channel counts multiples of 64 (Cin and Cout / 2 for
+//     K2, Cin and Cout for K3b / K3c; the codec's 256 / 512): the Hopper
+//     kernels in namespace `wg` below (wgmma, operands by TMA for K2 and by
+//     a cp.async ring for K3b / K3c);
+//   - every other case (f32, other channel counts): the WMMA kernels.
+// K3a has one kernel for both dtypes.
 //
-// WMMA kernels (K2, and K3b / K3c outside the case above).  A block of 256
+// WMMA kernels (K2, K3b, K3c outside the case above).  A block of 256
 // threads owns a tile of rows x 128 columns and walks the depth in stages
 // of 32: it gathers its A tile (the input taps, zero outside the padding)
 // and its B tile into shared memory with 16-byte loads, synchronously and
 // single-buffered, multiplies them (bf16: WMMA 16x16x16 tensor-core tiles
 // with f32 accumulators, each warp 16 columns by all rows; f32: CUDA-core
 // FMAs, so an f32 call keeps f32 accuracy), and at the end parks the f32
-// result tile in shared memory for its epilogue.
+// result tile in shared memory for its epilogue.  The WMMA K2 block is one
+// whole sample x the channel tiles [c0, c0+64) and [C/2+c0, C/2+c0+64).
 //
-// K2 block = one whole sample x a pair of channel tiles [c0, c0+64) and
-// [C/2+c0, C/2+c0+64).  InstanceNorm needs each instance's statistics over
-// its Ho*Wo <= 256 positions and the GLU pairs channel c with c + C/2, so
-// with this ownership the statistics, the affine and the GLU all finish in
-// the block's epilogue with no pass across blocks.  (The TPU kernel instead
-// took 25-sample VMEM blocks and needed them to divide N; here the edge is
-// masked and any N works.)
-// K3a block = one sample x 128 channel pairs: the two per-instance means of
-// the InstanceNorm backward are block-local by the same ownership.  dscale
-// and dbias are sums over all N: each block writes its sample's partials
-// and the wrapper sums them, so no float atomics and the result is the same
-// bit for bit from run to run.
+// Ownership, for every K2 and K3a kernel: InstanceNorm needs each
+// instance's statistics over its Ho*Wo <= 256 positions and the GLU pairs
+// channel c with c + C/2, so a block owns whole samples and matching value
+// and gate channels; the statistics, the affine and the GLU (and the two
+// per-instance means of the backward) finish inside the block, with no
+// pass across blocks.  (The TPU kernel took 25-sample VMEM blocks and
+// needed them to divide N; here any N works.)  dscale and dbias are sums
+// over all N: K3a writes per-sample partials and the wrapper sums them, so
+// no float atomics and the result is the same bit for bit from run to run.
 // K3b = the conv of dz padded by (kh-1-ph, kw-1-pw) with w2 = flip(w)
 // transposed to [kh, kw, Cout, Cin] (formed by the wrapper).
 // K3c = a GEMM [kh*kw*Cin, N*Ho*Wo] x [N*Ho*Wo, Cout].  On the TPU the
@@ -58,8 +58,44 @@
 //     (~0.2-0.3 ms), so they are bound by operations.  The dense GEMMs over
 //     the padding are larger: 2*N*Ho*Wo*kh*kw*Cin*Cout = 0.987 TFLOP at
 //     down4 and 1.233 at up0 for K2 and K3c, the other way round for K3b.
-//   K3a: reads dy and z and writes dz, ~0.80 GB at down4: ~0.24 ms, bound
-//     by bytes.
+//     K2 owns whole samples, so its padded taps are never whole stages: it
+//     runs the dense GEMM, whose floor is 1.00 / 1.25 ms.
+//   K3a: reads dy and z once and writes dz once, 0.80 GB at down4 and
+//     1.0 GB at up0: 0.24 / 0.30 ms, bound by bytes.
+//
+// The Hopper K2 (bound by operations; the design keeps the tensor cores
+// fed and every other thread's instructions off them):
+//   - channels are wgmma's M and the sample's positions its N, so a sample
+//     of 128 (down4) or 160 (up0) positions wastes no row (positions as M
+//     would round 160 up to 192); a block of two warpgroups owns one sample
+//     and 2 x 64 channel pairs, warpgroup w the value channels of pair tile
+//     w and the matching gate channels, as two m64nNk16 wgmmas per 16 of
+//     depth on one B (N = 128 / 160 positions rounded up to 32; 2 x N / 2
+//     f32 accumulators a thread); past 160 positions the two warpgroups
+//     split the positions instead (FwdTile);
+//   - the operands come by TMA, not by each thread's cp.async: w as 64 x 64
+//     boxes of [K][Cout] (MN-major atoms), x as a [1][Ho][Wo][64] box of
+//     [N][H][W][Cin] at the tap's offset, whose rows are the sample's
+//     positions in order and whose rows outside x the copy engine fills
+//     with zeros (the padding, for free).  Thread 0 starts a stage's 3-5
+//     copies on a full barrier (mbarrier) that counts their bytes; a ring
+//     of 4 stages of 48 / 52 KB, loaded 3 ahead.  Gathering the stages
+//     with cp.async by every thread (K3b's ring) instead costs ~300
+//     instructions a thread per stage, and those, not the bytes, held the
+//     tensor cores back;
+//   - statistics from the f32 accumulators: a channel is an accumulator
+//     row, so its sum and sum of squares are in-thread sums plus a shuffle
+//     across the row's 4 lanes; the value and gate of a (channel, position)
+//     are in the same thread, so the affine and the GLU need no exchange;
+//   - z and y leave through swizzled [position][64] tiles in the ring's
+//     space and go out in 16-byte rows (no scattered 2-byte stores).
+//
+// The K3a kernel (bound by bytes): one block per (sample, 4 V channel
+// pairs), 4 ceil(Ho*Wo / 2) threads, two rows a thread: dy and both z
+// halves are read once with 16-byte loads, all in flight before the first use
+// and held in registers through the reduction, and dz is written once in
+// 16-byte stores; the per-channel constants are laid out so that a warp
+// reads them without bank conflicts (see the kernel).
 //
 // The Hopper K3b / K3c (bound by operations, so the design keeps the tensor
 // cores fed and skips work that is known to be zero):
@@ -87,12 +123,11 @@
 //     SMs for at least two waves with the least idle tail (11 splits of 446
 //     stages at down4: 528 blocks, 4 full waves); f32 partials, summed in a
 //     fixed order by the second pass.
-// Why not TMA for the tap tiles: a stage is a gather of rows at per-row
-// offsets (taps of whole samples, ragged edges, any N), which cp.async
-// takes as it comes; the price is the gather's instructions, which the
-// additions-only addressing keeps small.  TMA boxes with multicast across a
-// cluster (to halve the shared operand's L2 reads) are the next step.
+// Their stages are gathers at per-row offsets that skip padded taps, which
+// cp.async takes as it comes; K2's TMA ring (above) is the way to take the
+// gather's instructions off them too.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -114,6 +149,7 @@ template <typename T>
 struct Tr;
 template <>
 struct Tr<float> {
+  using Raw = uint32_t;
   static constexpr int kVec = 4;  // elements per 16-byte vector
   static constexpr int kPad = 4;  // shared-memory row padding (elements)
   static __device__ float to_f(float v) { return v; }
@@ -121,6 +157,7 @@ struct Tr<float> {
 };
 template <>
 struct Tr<__nv_bfloat16> {
+  using Raw = unsigned short;
   static constexpr int kVec = 8;
   static constexpr int kPad = 8;
   static __device__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -479,90 +516,259 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- K3a -------------------------------------------------------------------
 
-// Block (n, 128 channel pairs): GLU + affine + InstanceNorm backward.
+constexpr int kDzColT = 4;          // K3a: threads a row
+constexpr int kDzMaxThreads = 512;  // K3a: 4 x 256 / 2, at MAX_POSITIONS
+
+// A row's 16 bytes, V elements of T, as four 32-bit words (bf16: two
+// elements a word, the lower one first).
+__device__ __forceinline__ uint32_t word(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ void set_word(uint4& v, int k, uint32_t u) {
+  if (k == 0) v.x = u;
+  else if (k == 1) v.y = u;
+  else if (k == 2) v.z = u;
+  else v.w = u;
+}
+
+template <typename T>
+__device__ __forceinline__ float unpack(const uint4& v, int e) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(word(v, e));
+  } else {
+    const uint32_t u = word(v, e >> 1);
+    return __uint_as_float((e & 1) ? (u & 0xffff0000u) : (u << 16));
+  }
+}
+
+// The word of elements o[0..] (one f32, or two bf16 rounded to nearest).
+template <typename T>
+__device__ __forceinline__ uint32_t pack(const float* o) {
+  if constexpr (sizeof(T) == 4) {
+    return __float_as_uint(o[0]);
+  } else {
+    return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(o[0]))) |
+           (static_cast<uint32_t>(
+                __bfloat16_as_ushort(__float2bfloat16_rn(o[1])))
+            << 16);
+  }
+}
+
+// 16 bytes from p: one load where `vec` (the row allows 16-byte loads),
+// else the first `valid` elements one by one and zeros past them.
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* __restrict__ p, int valid,
+                                        bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(p);
+  using Raw = typename Tr<T>::Raw;
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int e = 0; e < Tr<T>::kVec; ++e) {
+    if (e < valid) {
+      const uint32_t u = reinterpret_cast<const Raw*>(p)[e];
+      const int k = e * sizeof(T) / 4;
+      set_word(v, k, word(v, k) | (u << (8 * ((e * sizeof(T)) % 4))));
+    }
+  }
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ void store16(T* __restrict__ p, const uint4& v,
+                                        int valid, bool vec) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(p) = v;
+    return;
+  }
+  using Raw = typename Tr<T>::Raw;
+#pragma unroll
+  for (int e = 0; e < Tr<T>::kVec; ++e) {
+    if (e < valid) {
+      reinterpret_cast<Raw*>(p)[e] = static_cast<Raw>(
+          word(v, e * sizeof(T) / 4) >> (8 * ((e * sizeof(T)) % 4)));
+    }
+  }
+}
+
+// Block (4 V channel pairs, sample n): GLU + affine + InstanceNorm backward.
 //   zhat = (z - mean) rstd, zn = zhat scale + bias, sig = sigmoid(zn_g),
 //   dzn_a = dy sig, dzn_g = dy zn_a sig (1 - sig),
 //   dz = rstd (dzn scale - m1 - zhat m2), m1 = mean(dzn scale),
 //   m2 = mean(dzn scale zhat) over the sample's positions;
 // partial dscale = sum dzn zhat, dbias = sum dzn over the sample.
+// The block has 4 ceil(hw / 2) threads (rounded up to whole warps): thread
+// t owns the 16-byte column t % 4 (V channel pairs) of rows t / 4 and
+// t / 4 + blockDim / 4.  It loads its dy, z value and z gate chunks once,
+// all before the first use, and keeps them in registers through both
+// passes; the sums go through a shuffle across the warp's 8 row groups and
+// a fixed-order sum over the warps; dz is stored once, 16 bytes a store.
+// The per-channel constants sit in shared memory as [value, gate][e][j]
+// (pair V j + e of the tile), so a warp's 4 column threads read 4
+// neighbouring float4s: stored as [pair] they were 256 bytes apart, a
+// 4-way bank conflict on each of a thread's ~50 reads, which held the
+// kernel to half its memory rate.  zhat = z rstd - mean rstd and
+// dz = dzn k1 - zhat k2 - k3 fold those constants.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDzMaxThreads)
     in_glu_bwd_dz_kernel(const T* __restrict__ dy, const T* __restrict__ z,
-                         const float* __restrict__ mean,
-                         const float* __restrict__ var,
-                         const float* __restrict__ scale,
-                         const float* __restrict__ bias, T* __restrict__ dz,
-                         float* __restrict__ dscale_part,
-                         float* __restrict__ dbias_part, int hw, int CO,
-                         float eps) {
-  __shared__ float red[4][2][kBN];
-  const int n = blockIdx.x;
+                       const float* __restrict__ mean,
+                       const float* __restrict__ var,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias, T* __restrict__ dz,
+                       float* __restrict__ dscale_part,
+                       float* __restrict__ dbias_part, int hw, int CO,
+                       float eps, bool vec) {
+  constexpr int V = Tr<T>::kVec;
+  constexpr int kRows = 2;                 // rows a thread
+  constexpr int kCols = kDzColT * V;       // channel pairs per block
+  constexpr int kPer = 4 / sizeof(T);      // elements per word
+  // per pair: (rstd, -mean rstd, scale, bias), then after the sums
+  // (rstd scale, rstd m2, rstd m1, 0), for the value and the gate half
+  __shared__ float4 prm[2][kCols];
+  __shared__ float4 red[kDzMaxThreads / 32][kCols];  // per warp: s1a..s2g
+  __shared__ float4 mom[2][kCols];
+  auto at = [](int pair) { return (pair % V) * kDzColT + pair / V; };
+  const int row_step = blockDim.x / kDzColT;
+  const int warps = blockDim.x / 32;
+  const int n = blockIdx.y;
   const int C2 = CO / 2;
-  const int jj = threadIdx.x % kBN;
-  const int part = threadIdx.x / kBN;
-  const int c = blockIdx.y * kBN + jj;
-  const bool valid = c < C2;
-  const int cg = C2 + c;
+  const int c0 = blockIdx.x * kCols;
   const long long stat = static_cast<long long>(n) * CO;
-  float ma = 0.f, ra = 0.f, sa = 0.f, ba = 0.f;
-  float mg = 0.f, rg = 0.f, sg = 0.f, bg = 0.f;
-  if (valid) {
-    ma = mean[stat + c];
-    ra = rsqrtf(var[stat + c] + eps);
-    sa = scale[c];
-    ba = bias[c];
-    mg = mean[stat + cg];
-    rg = rsqrtf(var[stat + cg] + eps);
-    sg = scale[cg];
-    bg = bias[cg];
-  }
+  const int j = threadIdx.x % kDzColT;
+  const int r0 = threadIdx.x / kDzColT;
+  const int cj = c0 + V * j;
+  const int valid = C2 - cj < V ? C2 - cj : V;
   const long long row0 = static_cast<long long>(n) * hw;
-  float s1a = 0.f, s2a = 0.f, s1g = 0.f, s2g = 0.f;
-  if (valid) {
-    for (int r = part; r < hw; r += 2) {
+  uint4 za[kRows], zg[kRows], d[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    za[i] = zg[i] = d[i] = make_uint4(0u, 0u, 0u, 0u);
+    const int r = r0 + row_step * i;
+    if (r < hw && valid > 0) {
       const long long row = row0 + r;
-      const float zha = (Tr<T>::to_f(z[row * CO + c]) - ma) * ra;
-      const float zhg = (Tr<T>::to_f(z[row * CO + cg]) - mg) * rg;
-      const float zna = zha * sa + ba;
-      const float sig = 1.0f / (1.0f + expf(-(zhg * sg + bg)));
-      const float d = Tr<T>::to_f(dy[row * C2 + c]);
-      const float dza = d * sig;
-      const float dzg = d * zna * sig * (1.0f - sig);
-      s1a += dza;
-      s2a += dza * zha;
-      s1g += dzg;
-      s2g += dzg * zhg;
+      za[i] = load16(z + row * CO + cj, valid, vec);
+      zg[i] = load16(z + row * CO + C2 + cj, valid, vec);
+      d[i] = load16(dy + row * C2 + cj, valid, vec);
     }
   }
-  red[0][part][jj] = s1a;
-  red[1][part][jj] = s2a;
-  red[2][part][jj] = s1g;
-  red[3][part][jj] = s2g;
-  __syncthreads();
-  if (!valid) return;
-  s1a = red[0][0][jj] + red[0][1][jj];
-  s2a = red[1][0][jj] + red[1][1][jj];
-  s1g = red[2][0][jj] + red[2][1][jj];
-  s2g = red[3][0][jj] + red[3][1][jj];
-  if (part == 0) {
-    dbias_part[stat + c] = s1a;
-    dscale_part[stat + c] = s2a;
-    dbias_part[stat + cg] = s1g;
-    dscale_part[stat + cg] = s2g;
+  for (int i = threadIdx.x; i < 2 * kCols; i += blockDim.x) {
+    const int half = i / kCols;
+    const int c = c0 + i - half * kCols;
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < C2) {
+      const int cc = c + half * C2;
+      const float r = rsqrtf(var[stat + cc] + eps);
+      q = make_float4(r, -mean[stat + cc] * r, scale[cc], bias[cc]);
+    }
+    prm[half][at(i - half * kCols)] = q;
   }
-  const float m1a = sa * s1a / hw, m2a = sa * s2a / hw;
-  const float m1g = sg * s1g / hw, m2g = sg * s2g / hw;
-  for (int r = part; r < hw; r += 2) {
-    const long long row = row0 + r;
-    const float zha = (Tr<T>::to_f(z[row * CO + c]) - ma) * ra;
-    const float zhg = (Tr<T>::to_f(z[row * CO + cg]) - mg) * rg;
-    const float zna = zha * sa + ba;
-    const float sig = 1.0f / (1.0f + expf(-(zhg * sg + bg)));
-    const float d = Tr<T>::to_f(dy[row * C2 + c]);
-    const float dza = d * sig;
-    const float dzg = d * zna * sig * (1.0f - sig);
-    dz[row * CO + c] = Tr<T>::from_f(ra * (dza * sa - m1a - zha * m2a));
-    dz[row * CO + cg] = Tr<T>::from_f(rg * (dzg * sg - m1g - zhg * m2g));
+  __syncthreads();
+
+  // pass 1: per channel, the four sums over this thread's rows (zero rows
+  // and channels past the edge add nothing: their dy is 0)
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const float4 pa = prm[0][e * kDzColT + j];
+    const float4 pg = prm[1][e * kDzColT + j];
+    float s1a = 0.f, s2a = 0.f, s1g = 0.f, s2g = 0.f;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const float zha = fmaf(unpack<T>(za[i], e), pa.x, pa.y);
+      const float zhg = fmaf(unpack<T>(zg[i], e), pg.x, pg.y);
+      const float sig =
+          __fdividef(1.0f, 1.0f + __expf(-fmaf(zhg, pg.z, pg.w)));
+      const float dd = unpack<T>(d[i], e);
+      const float dza = dd * sig;
+      const float dzg = dd * fmaf(zha, pa.z, pa.w) * fmaf(-sig, sig, sig);
+      s1a += dza;
+      s2a = fmaf(dza, zha, s2a);
+      s1g += dzg;
+      s2g = fmaf(dzg, zhg, s2g);
+    }
+#pragma unroll
+    for (int o = kDzColT; o < 32; o <<= 1) {
+      s1a += __shfl_xor_sync(0xffffffffu, s1a, o);
+      s2a += __shfl_xor_sync(0xffffffffu, s2a, o);
+      s1g += __shfl_xor_sync(0xffffffffu, s1g, o);
+      s2g += __shfl_xor_sync(0xffffffffu, s2g, o);
+    }
+    if ((threadIdx.x & 31) < kDzColT)
+      red[warp][e * kDzColT + j] = make_float4(s1a, s2a, s1g, s2g);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kCols; i += blockDim.x) {
+    const int a = at(i);
+    float4 sm = red[0][a];
+    for (int k = 1; k < warps; ++k) {
+      sm.x += red[k][a].x;
+      sm.y += red[k][a].y;
+      sm.z += red[k][a].z;
+      sm.w += red[k][a].w;
+    }
+    const int c = c0 + i;
+    if (c < C2) {
+      dbias_part[stat + c] = sm.x;
+      dscale_part[stat + c] = sm.y;
+      dbias_part[stat + C2 + c] = sm.z;
+      dscale_part[stat + C2 + c] = sm.w;
+    }
+    const float4 pa = prm[0][a], pg = prm[1][a];
+    mom[0][a] = make_float4(pa.x * pa.z, pa.x * (pa.z * sm.y / hw),
+                            pa.x * (pa.z * sm.x / hw), 0.f);
+    mom[1][a] = make_float4(pg.x * pg.z, pg.x * (pg.z * sm.w / hw),
+                            pg.x * (pg.z * sm.z / hw), 0.f);
+  }
+  __syncthreads();
+  // pass 2 recomputes zhat, sig and dzn from the loaded words: holding
+  // pass 1's values instead would take ~5 registers an element
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    asm volatile("" : "+r"(za[i].x), "+r"(za[i].y), "+r"(za[i].z), "+r"(za[i].w));
+    asm volatile("" : "+r"(zg[i].x), "+r"(zg[i].y), "+r"(zg[i].z), "+r"(zg[i].w));
+    asm volatile("" : "+r"(d[i].x), "+r"(d[i].y), "+r"(d[i].z), "+r"(d[i].w));
+  }
+
+  // pass 2: dz, word by word in place of z's words, then one store a row
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float4 pa[kPer], pg[kPer], ma[kPer], mg[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int col = (k * kPer + u) * kDzColT + j;
+      pa[u] = prm[0][col];
+      pg[u] = prm[1][col];
+      ma[u] = mom[0][col];
+      mg[u] = mom[1][col];
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      float oa[kPer], og[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int e = k * kPer + u;
+        const float zha = fmaf(unpack<T>(za[i], e), pa[u].x, pa[u].y);
+        const float zhg = fmaf(unpack<T>(zg[i], e), pg[u].x, pg[u].y);
+        const float sig =
+            __fdividef(1.0f, 1.0f + __expf(-fmaf(zhg, pg[u].z, pg[u].w)));
+        const float dd = unpack<T>(d[i], e);
+        const float dzg =
+            dd * fmaf(zha, pa[u].z, pa[u].w) * fmaf(-sig, sig, sig);
+        oa[u] = fmaf(dd * sig, ma[u].x, -fmaf(zha, ma[u].y, ma[u].z));
+        og[u] = fmaf(dzg, mg[u].x, -fmaf(zhg, mg[u].y, mg[u].z));
+      }
+      set_word(za[i], k, pack<T>(oa));
+      set_word(zg[i], k, pack<T>(og));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = r0 + row_step * i;
+    if (r < hw && valid > 0) {
+      const long long row = row0 + r;
+      store16(dz + row * CO + cj, za[i], valid, vec);
+      store16(dz + row * CO + C2 + cj, zg[i], valid, vec);
+    }
   }
 }
 
@@ -699,45 +905,55 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-// ---- K3b, K3c for Hopper: cp.async ring + wgmma ----------------------------
+// ---- K2, K3b, K3c for Hopper: a ring of stages + wgmma ---------------------
 //
-// bf16 only, channel counts multiples of 64.  A block of 256 threads (two
-// warpgroups) owns a 128 x 256 f32 tile: warpgroup w the rows
-// [64 w, 64 w + 64), all 256 columns, one m64n256k16 wgmma per 16 of depth.
-// The depth runs in 64-deep stages through a ring of kRing shared-memory
-// stages: every thread gathers its share of a stage with 16-byte cp.async
-// (zero fill for padding and ragged edges) straight into the 128-byte
-// swizzled layout (hopper_wgmma.cuh) kAhead stages ahead of the one the
-// tensor cores read, and one wgmma group stays in flight while the next
-// gathers are issued.
+// bf16 only, channel counts multiples of 64.  A block of 256 threads is two
+// warpgroups; each keeps its f32 accumulators in registers and runs
+// m64nNk16 wgmmas on operands in shared memory.  The depth runs in 64-deep
+// stages through a ring of shared-memory slots in the 128-byte swizzled
+// layout (hopper_wgmma.cuh), all but one slot ahead of the one the tensor
+// cores read, and one wgmma group stays in flight while the next stage is
+// loaded.  K2 loads a stage by TMA (conv_in_glu_fwd_kernel); K3b and K3c
+// have every thread gather its share with 16-byte cp.async (zero fill for
+// padding and ragged edges).
 //
-// Ring discipline, at iteration s (stage s lives in slot s % kRing):
+// K3b's and K3c's ring discipline (run_ring), at iteration s (stage s in
+// slot s % kRing):
 //   wait for this thread's copies of stage s; proxy fence; __syncthreads
 //     (after it every thread's copies of s are visible to wgmma);
-//   issue the four wgmmas of stage s, commit, wait until at most one group
+//   start the wgmmas of stage s, commit, wait until at most one group
 //     (stage s) is pending; __syncthreads (every warpgroup has retired
 //     stage s - 1);
 //   gather stage s + kAhead into slot (s + kAhead) % kRing = (s - 1) % kRing.
 // A thread's gathers run while its wgmma group of stage s is in flight and
 // must end before that group retires, or the tensor cores idle: so what a
 // thread computes per gather is kept to additions and compares.
+//
+// K3b and K3c: a 128 x 256 tile per block, warpgroup w the rows
+// [64 w, 64 w + 64), all 256 columns, one m64n256k16 wgmma per 16 of depth;
+// a ring of 4 slots of 48 KB.
 
 namespace wg {
 
 using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
-constexpr int kBM = 128;  // tile rows: two warpgroups x 64
-constexpr int kBN = 256;  // tile columns: one n256 wgmma
+constexpr int kBM = 128;  // K3b / K3c tile rows: two warpgroups x 64
+constexpr int kBN = 256;  // K3b / K3c tile columns: one n256 wgmma
 constexpr int kBK = 64;   // depth per stage (one 128-byte swizzle row)
-constexpr int kRing = 4;
+constexpr int kRing = 4;  // ring slots
 constexpr int kAhead = kRing - 1;
 constexpr uint32_t kABytes = 2 * hopper::kAtomBytes;  // 128 x 64 bf16
 constexpr uint32_t kBBytes = 4 * hopper::kAtomBytes;  // 64 x 256 bf16
 constexpr uint32_t kStageBytes = kABytes + kBBytes;   // 48 KB
 constexpr size_t kSmemBytes = kRing * kStageBytes + 1024;  // + alignment
 
-// Slot base of stage s, the dynamic shared memory aligned to 1024 bytes (the
+// The dynamic shared memory's first address aligned to 1024 bytes (the
 // swizzle's period).
+__device__ __forceinline__ uint32_t ring_base(const void* smem) {
+  return (hopper::smem_addr(smem) + 1023u) & ~1023u;
+}
+
+// K3b's / K3c's slot base of stage s.
 __device__ __forceinline__ uint32_t slot(uint32_t base, int s) {
   return base + static_cast<uint32_t>(s % kRing) * kStageBytes;
 }
@@ -778,7 +994,7 @@ __device__ __forceinline__ void mma_stage(float (&acc)[128], uint32_t st,
                                     16, 1024);
     const uint64_t db =
         hopper::make_desc(st + kABytes + kk * 2048, hopper::kAtomBytes, 1024);
-    hopper::wgmma_m64n256k16<kTransA, 1>(acc, da, db);
+    hopper::wgmma<kBN, kTransA, 1>(acc, da, db);
   }
   hopper::wgmma_commit();
 }
@@ -833,7 +1049,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     conv_dgrad_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ w2,
                       bf16* __restrict__ dx, ConvGeom g) {
   extern __shared__ unsigned char smem[];
-  const uint32_t base = (hopper::smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t base = ring_base(smem);
   const long long rows = static_cast<long long>(g.N) * g.Ho;  // (n, h)
   const int w = blockIdx.x % g.Wo;
   const long long r_base = static_cast<long long>(blockIdx.x / g.Wo) * kBM;
@@ -923,7 +1139,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     conv_wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz,
                       float* __restrict__ part, ConvGeom g, long long per) {
   extern __shared__ unsigned char smem[];
-  const uint32_t base = (hopper::smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t base = ring_base(smem);
   const long long nho = static_cast<long long>(g.N) * g.Ho;  // j per column
   const int k0 = blockIdx.x * kBM;
   const int c0 = blockIdx.y * kBN;
@@ -1057,6 +1273,282 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// K2's tile.  A block owns one sample and kPT tiles of 64 channel pairs:
+// pair tile t is the value channels [c0 + 64 t, +64) and the gate channels
+// [C/2 + c0 + 64 t, +64).  Channels are wgmma's M and the sample's
+// positions its N: A = w rows, MN-major, one 64-channel atom per value tile
+// and per gate tile (value atoms first); B = the sample's tap rows,
+// K-major, kN rows (Ho*Wo rounded up; rows past Ho*Wo stay zero) x 64
+// channels of one tap per stage.  A warpgroup runs two wgmmas per 16 of
+// depth on one B descriptor, its value atom and its gate atom, so that the
+// value and the gate of a (channel, position) meet in one thread.
+//   kSplit == false (Ho*Wo <= 160): kPT = 2 and warpgroup w owns pair tile
+//     w at all kN = kWN positions;
+//   kSplit == true (160 < Ho*Wo <= 256): kPT = 1 and warpgroup w owns the
+//     positions [w kWN, (w + 1) kWN) of kN = 2 kWN; the two add their
+//     statistics through shared memory.
+// A thread holds 2 x kWN / 2 accumulators (160 at most), which is why the
+// positions split past 160 rather than take m64n256 pairs.
+template <int kWN, bool kSplit>
+struct FwdTile {
+  static constexpr int kN = kSplit ? 2 * kWN : kWN;
+  static constexpr int kPT = kSplit ? 1 : 2;
+  static constexpr int kAtoms = 2 * kPT;
+  static constexpr uint32_t kABytes = kAtoms * hopper::kAtomBytes;
+  static constexpr uint32_t kTileBytes = kN * 128;  // [kN][64] bf16, swizzled
+  static constexpr uint32_t kStageBytes = kABytes + kTileBytes;
+  // after the main loop the ring holds, per pair tile, the z value, z gate
+  // and y tiles on their way out
+  static constexpr uint32_t kEpiBytes = 3 * kPT * kTileBytes;
+  static constexpr uint32_t kRingBytes = kRing * kStageBytes;
+  static constexpr size_t kSmemBytes =
+      (kRingBytes > kEpiBytes ? kRingBytes : kEpiBytes) + 1024;
+  static_assert(kEpiBytes <= kRingBytes, "the epilogue reuses the ring");
+};
+
+// K2.  x [N, g.H, g.W, g.CI] and w [g.K, g.CO] -> y, z, mean, var for the
+// block's sample and pair tiles (FwdTile above).  The operands come by TMA
+// (tmap_w: w as [K][CO] in 64 x 64 boxes; tmap_x: x as [N][H][W][CI] in
+// boxes of [1][Ho][Wo][64], whose rows are the sample's positions in
+// order, with the rows whose tap falls outside x zero-filled by the copy
+// engine): thread 0 starts a stage's copies and the stage's full barrier
+// counts their bytes, so no other thread spends an instruction on loads
+// while the tensor cores run.  After the loop each thread has its rows'
+// sums in registers (a shuffle across the 4 lanes of a row completes a
+// channel's), applies the affine and the GLU to its own value and gate
+// accumulators, and parks z and y in swizzled [position][64] tiles, which
+// the block writes out in 16-byte rows.
+template <int kWN, bool kSplit>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_in_glu_fwd_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                           const __grid_constant__ CUtensorMap tmap_w,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ bias,
+                           bf16* __restrict__ y, bf16* __restrict__ z,
+                           float* __restrict__ mean_out,
+                           float* __restrict__ var_out, ConvGeom g, float eps) {
+  using F = FwdTile<kWN, kSplit>;
+  constexpr int kLead = kRing - 1;  // stages loaded ahead
+  extern __shared__ unsigned char smem[];
+  __shared__ float part[2][2][64][2];  // kSplit: [warpgroup][value, gate]
+                                       // [channel][sum, sum of squares]
+  __shared__ uint64_t full[kRing];     // a slot's copies have landed
+  const uint32_t base = ring_base(smem);
+  unsigned char* sm = smem + (base - hopper::smem_addr(smem));
+  const int C2 = g.CO / 2;
+  const int P = g.Ho * g.Wo;
+  const int tiles = (C2 + 64 * F::kPT - 1) / (64 * F::kPT);
+  const int n = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x - n * tiles) * 64 * F::kPT;
+  const int nst = g.K / kBK;
+
+  // B rows P .. kN of every slot stay zero: the copies write P rows
+  const int pad_chunks = (F::kN - P) * 8;
+  for (int i = threadIdx.x; i < kRing * pad_chunks; i += kThreads) {
+    const int ring_slot = i / pad_chunks;
+    const int k = i - ring_slot * pad_chunks;
+    *reinterpret_cast<uint4*>(sm + ring_slot * F::kStageBytes + F::kABytes +
+                              P * 128 + 16 * k) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRing; ++i)
+      hopper::mbar_init(hopper::smem_addr(&full[i]), 1);
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  // thread 0's copies of stage s: the active A atoms at depth 64 s and the
+  // tap (tap_h, tap_w) rows at channels ci0 (stages run in that order)
+  int tap_h = 0, tap_w = 0, ci0 = 0;
+  uint32_t a_bytes = 0;
+  for (int a = 0; a < F::kAtoms; ++a)
+    if (c0 + 64 * (a % F::kPT) < C2) a_bytes += hopper::kAtomBytes;
+  auto load = [&](int s) {
+    const uint32_t st =
+        base + static_cast<uint32_t>(s % kRing) * F::kStageBytes;
+    const uint32_t bar = hopper::smem_addr(&full[s % kRing]);
+    hopper::mbar_expect_tx(bar, a_bytes + static_cast<uint32_t>(P) * 128u);
+#pragma unroll
+    for (int a = 0; a < F::kAtoms; ++a) {
+      const int ct = c0 + 64 * (a % F::kPT);
+      if (ct < C2)
+        hopper::tma_load_2d(st + a * hopper::kAtomBytes, &tmap_w, bar,
+                            (a < F::kPT ? 0 : C2) + ct, kBK * s);
+    }
+    hopper::tma_load_4d(st + F::kABytes, &tmap_x, bar, ci0, tap_w - g.pw,
+                        tap_h - g.ph, n);
+    ci0 += kBK;
+    if (ci0 == g.CI) {
+      ci0 = 0;
+      if (++tap_w == g.kw) {
+        tap_w = 0;
+        ++tap_h;
+      }
+    }
+  };
+
+  const int wgi = threadIdx.x >> 7;
+  const int pt = kSplit ? 0 : wgi;  // this warpgroup's pair tile
+  const bool active = c0 + 64 * pt < C2;
+  const uint32_t b_off = F::kABytes + (kSplit ? wgi * kWN * 128 : 0);
+  float acc_v[kWN / 2], acc_g[kWN / 2];
+#pragma unroll
+  for (int i = 0; i < kWN / 2; ++i) {
+    acc_v[i] = 0.0f;
+    acc_g[i] = 0.0f;
+  }
+  hopper::fence_operands(acc_v);
+  hopper::fence_operands(acc_g);
+
+  // the ring: stage s in slot s % kRing, loaded kLead stages ahead; one
+  // wgmma group in flight; a slot is reloaded once both warpgroups have
+  // retired the stage in it
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kLead && s < nst; ++s) load(s);
+  for (int s = 0; s < nst; ++s) {
+    const uint32_t st =
+        base + static_cast<uint32_t>(s % kRing) * F::kStageBytes;
+    hopper::mbar_wait(hopper::smem_addr(&full[s % kRing]), (s / kRing) & 1);
+    if (active) {  // a masked pair tile has nothing to multiply
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t db = hopper::make_desc(st + b_off + kk * 32, 16, 1024);
+        hopper::wgmma<kWN, 1, 0>(
+            acc_v,
+            hopper::make_desc(st + pt * hopper::kAtomBytes + kk * 2048,
+                              hopper::kAtomBytes, 1024),
+            db);
+        hopper::wgmma<kWN, 1, 0>(
+            acc_g,
+            hopper::make_desc(
+                st + (F::kPT + pt) * hopper::kAtomBytes + kk * 2048,
+                hopper::kAtomBytes, 1024),
+            db);
+      }
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait<1>();
+    __syncthreads();  // every warpgroup has retired stage s - 1
+    if (threadIdx.x == 0 && s + kLead < nst) load(s + kLead);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_operands(acc_v);
+  hopper::fence_operands(acc_g);
+
+  // statistics: rows ch and ch + 8 of each atom; positions past P are zero
+  const int tw = threadIdx.x & 127;
+  const int ch = ((tw >> 5) << 4) + ((tw & 31) >> 2);
+  float sum[2][2][2] = {};  // [value, gate][row ch, ch + 8][sum, squares]
+#pragma unroll
+  for (int j = 0; j < kWN / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = acc_v[4 * j + 2 * h + e];
+        const float u = acc_g[4 * j + 2 * h + e];
+        sum[0][h][0] += v;
+        sum[0][h][1] += v * v;
+        sum[1][h][0] += u;
+        sum[1][h][1] += u * u;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float& t = (&sum[0][0][0])[i];
+    t += __shfl_xor_sync(0xffffffffu, t, 1);
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+  }
+  if constexpr (kSplit) {
+    if ((tw & 3) == 0) {
+#pragma unroll
+      for (int vg = 0; vg < 2; ++vg)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) part[wgi][vg][ch + 8 * h][k] = sum[vg][h][k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int vg = 0; vg < 2; ++vg)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          sum[vg][h][k] = part[0][vg][ch + 8 * h][k] + part[1][vg][ch + 8 * h][k];
+  }
+  float a[2][2], b[2][2];  // [value, gate][row ch, ch + 8]: zn = z a + b
+#pragma unroll
+  for (int vg = 0; vg < 2; ++vg) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cc = (vg ? C2 : 0) + c0 + 64 * pt + ch + 8 * h;
+      const float m = sum[vg][h][0] / P;
+      const float v = fmaxf(sum[vg][h][1] / P - m * m, 0.0f);
+      a[vg][h] = 0.0f;
+      b[vg][h] = 0.0f;
+      if (active) {
+        a[vg][h] = scale[cc] * rsqrtf(v + eps);
+        b[vg][h] = bias[cc] - m * a[vg][h];
+        if ((tw & 3) == 0 && (!kSplit || wgi == 0)) {
+          mean_out[static_cast<long long>(n) * g.CO + cc] = m;
+          var_out[static_cast<long long>(n) * g.CO + cc] = v;
+        }
+      }
+    }
+  }
+  __syncthreads();  // every warpgroup is done with the ring
+
+  // affine + GLU on this thread's own value and gate; z and y in bf16 into
+  // the tiles [z value | z gate | y] x pair tile
+  unsigned char* zv = sm + pt * F::kTileBytes;
+  unsigned char* zg = sm + (F::kPT + pt) * F::kTileBytes;
+  unsigned char* yt = sm + (2 * F::kPT + pt) * F::kTileBytes;
+  const int p0 = (kSplit ? wgi * kWN : 0) + 2 * (tw & 3);
+#pragma unroll
+  for (int j = 0; j < kWN / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cc = ch + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t off =
+            hopper::swizzle128(p0 + 8 * j + e, cc >> 3) + (cc & 7) * 2;
+        const float v = acc_v[4 * j + 2 * h + e];
+        const float u = acc_g[4 * j + 2 * h + e];
+        const float sig = 1.0f / (1.0f + expf(-(u * a[1][h] + b[1][h])));
+        *reinterpret_cast<bf16*>(zv + off) = __float2bfloat16(v);
+        *reinterpret_cast<bf16*>(zg + off) = __float2bfloat16(u);
+        *reinterpret_cast<bf16*>(yt + off) =
+            __float2bfloat16((v * a[0][h] + b[0][h]) * sig);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the tiles' first P rows out, 16 bytes a thread, 8 threads a row
+  const long long row0 = static_cast<long long>(n) * P;
+#pragma unroll
+  for (int t = 0; t < F::kPT; ++t) {
+    const int cb = c0 + 64 * t;
+    if (cb >= C2) break;
+#pragma unroll
+    for (int which = 0; which < 3; ++which) {  // z value, z gate, y
+      const unsigned char* tile = sm + (which * F::kPT + t) * F::kTileBytes;
+      const int ld = which == 2 ? C2 : g.CO;
+      bf16* dst = (which == 2 ? y : z) + row0 * ld + (which == 1 ? C2 : 0) + cb;
+      for (int i = threadIdx.x; i < P * 8; i += kThreads) {
+        const int p = i >> 3;
+        const int k = i & 7;
+        *reinterpret_cast<uint4*>(dst + static_cast<long long>(p) * ld + 8 * k) =
+            *reinterpret_cast<const uint4*>(tile + hopper::swizzle128(p, k));
+      }
+    }
+  }
+}
+
 }  // namespace wg
 
 // ---- host side ---------------------------------------------------------------
@@ -1164,6 +1656,119 @@ cudaError_t wgrad_launch(const void* x, const void* dz, float* part,
   return cudaGetLastError();
 }
 
+// K3a: a block of 4 ceil(hw / 2) threads, in whole warps, per (4 V channel
+// pairs, sample).
+template <typename T>
+cudaError_t bwd_dz_launch(const void* dy, const void* z, const float* mean,
+                          const float* var, const float* scale,
+                          const float* bias, void* dz, float* dscale_part,
+                          float* dbias_part, int N, int hw, int CO, float eps,
+                          cudaStream_t s) {
+  constexpr int kCols = kDzColT * Tr<T>::kVec;
+  const int threads = (kDzColT * ((hw + 1) / 2) + 31) / 32 * 32;
+  if (hw <= 0 || threads > kDzMaxThreads) return cudaErrorInvalidValue;
+  const int C2 = CO / 2;
+  const bool vec = C2 % Tr<T>::kVec == 0 && aligned16(dy) && aligned16(z) &&
+                   aligned16(dz);
+  in_glu_bwd_dz_kernel<T><<<dim3((C2 + kCols - 1) / kCols, N), threads, 0, s>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(z), mean, var, scale,
+      bias, static_cast<T*>(dz), dscale_part, dbias_part, hw, CO, eps, vec);
+  return cudaGetLastError();
+}
+
+// K2 on Hopper for one tile shape (wg::FwdTile).
+template <int kWN, bool kSplit>
+cudaError_t fwd_wgmma_launch(const CUtensorMap& tmap_x,
+                             const CUtensorMap& tmap_w, const float* scale,
+                             const float* bias, void* y, void* z, float* mean,
+                             float* var, const ConvGeom& g, float eps,
+                             cudaStream_t s) {
+  using F = wg::FwdTile<kWN, kSplit>;
+  auto kernel = wg::conv_in_glu_fwd_kernel<kWN, kSplit>;
+  cudaError_t err = set_smem(kernel, F::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = (g.CO / 2 + 64 * F::kPT - 1) / (64 * F::kPT);
+  kernel<<<static_cast<unsigned>(g.N) * tiles, wg::kThreads, F::kSmemBytes,
+           s>>>(tmap_x, tmap_w, scale, bias, static_cast<__nv_bfloat16*>(y),
+                static_cast<__nv_bfloat16*>(z), mean, var, g, eps);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime (so the
+// library needs no link against libcuda); null where libcuda has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// K2's two tensor maps, bf16 in the 128-byte swizzle: x [N][H][W][CI] in
+// boxes [1][Ho][Wo][64] (a tap's rows for one sample: out-of-range rows
+// read as zeros) and w [K][CO] in boxes [64][64].
+bool fwd_tensor_maps(const void* x, const void* w, const ConvGeom& g,
+                     CUtensorMap* tmap_x, CUtensorMap* tmap_w) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  const cuuint64_t x_dim[4] = {static_cast<cuuint64_t>(g.CI),
+                               static_cast<cuuint64_t>(g.W),
+                               static_cast<cuuint64_t>(g.H),
+                               static_cast<cuuint64_t>(g.N)};
+  const cuuint64_t x_stride[3] = {x_dim[0] * e, x_dim[0] * x_dim[1] * e,
+                                  x_dim[0] * x_dim[1] * x_dim[2] * e};
+  const cuuint32_t x_box[4] = {64, static_cast<cuuint32_t>(g.Wo),
+                               static_cast<cuuint32_t>(g.Ho), 1};
+  const cuuint64_t w_dim[2] = {static_cast<cuuint64_t>(g.CO),
+                               static_cast<cuuint64_t>(g.K)};
+  const cuuint64_t w_stride[1] = {w_dim[0] * e};
+  const cuuint32_t w_box[2] = {64, 64};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(tmap_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(x), x_dim, x_stride, x_box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS &&
+         encode(tmap_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(w), w_dim, w_stride, w_box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tile for Ho * Wo positions: all of them in each warpgroup, rounded up
+// to 32, up to 160; past that, split across the two warpgroups.
+cudaError_t fwd_wgmma_dispatch(const void* x, const void* w,
+                               const float* scale, const float* bias, void* y,
+                               void* z, float* mean, float* var,
+                               const ConvGeom& g, float eps, cudaStream_t s) {
+  CUtensorMap tx, tw;
+  if (!fwd_tensor_maps(x, w, g, &tx, &tw)) return cudaErrorInvalidValue;
+  const int p = g.Ho * g.Wo;
+#define FWD_WGMMA(kWN, kSplit) \
+  fwd_wgmma_launch<kWN, kSplit>(tx, tw, scale, bias, y, z, mean, var, g, eps, s)
+  if (p <= 32) return FWD_WGMMA(32, false);
+  if (p <= 64) return FWD_WGMMA(64, false);
+  if (p <= 96) return FWD_WGMMA(96, false);
+  if (p <= 128) return FWD_WGMMA(128, false);
+  if (p <= 160) return FWD_WGMMA(160, false);
+  if (p <= 256) return FWD_WGMMA(128, true);
+#undef FWD_WGMMA
+  return cudaErrorInvalidValue;
+}
+
 // What the wgmma kernels take: channel counts that are multiples of 64 (so
 // a 64-deep stage is one tap's channels and a 64-column atom is all valid
 // or all masked), kh <= 32 (K3b's tap mask) and 16-byte-aligned tensors.
@@ -1173,6 +1778,15 @@ bool wgmma_shape_ok(const ConvGeom& g, const void* a, const void* b,
                     const void* c) {
   return g.CI % 64 == 0 && g.CO % 64 == 0 && g.kh <= 32 && aligned16(a) &&
          aligned16(b) && aligned16(c);
+}
+
+// K2's: Cin and C/2 multiples of 64 (so a pair tile's value and gate atoms
+// are both whole), at most 256 positions, 16-byte-aligned tensors
+// (ops/fused_codec.py: fwd_uses_wgmma).
+bool fwd_wgmma_shape_ok(const ConvGeom& g, const void* x, const void* w,
+                        const void* y, const void* z) {
+  return g.CI % 64 == 0 && g.CO % 128 == 0 && g.Ho * g.Wo <= 256 &&
+         aligned16(x) && aligned16(w) && aligned16(y) && aligned16(z);
 }
 
 }  // namespace
@@ -1200,8 +1814,27 @@ extern "C" int mrssm_conv_in_glu_fwd(int dtype, const void* x, const void* w,
   return static_cast<int>(err);
 }
 
+// K2 on Hopper (wgmma).  bf16 only; the arguments of mrssm_conv_in_glu_fwd,
+// with CI and CO / 2 multiples of 64.
+extern "C" int mrssm_conv_in_glu_fwd_wgmma(const void* x, const void* w,
+                                           const float* scale,
+                                           const float* bias, void* y, void* z,
+                                           float* mean, float* var, int N,
+                                           int H, int W, int CI, int kh, int kw,
+                                           int CO, int ph, int pw, float eps,
+                                           void* stream) {
+  const ConvGeom g = make_geom(N, H, W, CI, kh, kw, CO, ph, pw);
+  if (N <= 0) return 0;
+  if (!fwd_wgmma_shape_ok(g, x, w, y, z))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fwd_wgmma_dispatch(
+      x, w, scale, bias, y, z, mean, var, g, eps,
+      static_cast<cudaStream_t>(stream)));
+}
+
 // K3a.  dy [N, hw, CO/2], z [N, hw, CO], mean and var [N, CO] -> dz
 // [N, hw, CO] and the per-sample partials dscale_part, dbias_part [N, CO].
+// Needs hw <= 256.
 extern "C" int mrssm_in_glu_bwd_dz(int dtype, const void* dy, const void* z,
                                    const float* mean, const float* var,
                                    const float* scale, const float* bias,
@@ -1210,19 +1843,14 @@ extern "C" int mrssm_in_glu_bwd_dz(int dtype, const void* dy, const void* z,
                                    float eps, void* stream) {
   if (N <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(N, (CO / 2 + kBN - 1) / kBN);
-  if (dtype == 1) {
-    in_glu_bwd_dz_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(dy),
-        static_cast<const __nv_bfloat16*>(z), mean, var, scale, bias,
-        static_cast<__nv_bfloat16*>(dz), dscale_part, dbias_part, hw, CO, eps);
-  } else {
-    in_glu_bwd_dz_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(dy), static_cast<const float*>(z), mean, var,
-        scale, bias, static_cast<float*>(dz), dscale_part, dbias_part, hw, CO,
-        eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      dtype == 1 ? bwd_dz_launch<__nv_bfloat16>(
+                       dy, z, mean, var, scale, bias, dz, dscale_part,
+                       dbias_part, N, hw, CO, eps, s)
+                 : bwd_dz_launch<float>(dy, z, mean, var, scale, bias, dz,
+                                          dscale_part, dbias_part, N, hw, CO,
+                                          eps, s);
+  return static_cast<int>(err);
 }
 
 // K3b.  A stride-1 conv: dz [N, H, W, CI] (here the forward's output and

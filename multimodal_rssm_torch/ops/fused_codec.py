@@ -9,17 +9,20 @@ one's bound and design):
 
 - K2  ``conv_in_glu_fwd``: conv -> per-instance stats -> affine -> GLU;
 - K3a ``in_glu_bwd_dz``: GLU + affine + InstanceNorm backward, dy -> dz,
-  with the (dscale, dbias) sums;
+  with the (dscale, dbias) sums, in one pass over dy and z (both dtypes);
 - K3b ``conv_dgrad``: dx, the conv of padded dz with the flipped,
   transposed kernel;
 - K3c ``conv_wgrad``: dw, summed over every sample in f32.
 
-K3b and K3c each have two kernels.  bf16 with both channel counts
-multiples of 64 (the codec's 256 / 512) takes the Hopper kernel
-(``cp.async`` ring + ``wgmma``, counted by ``conv_dgrad_wgmma`` and
+K2, K3b and K3c each have two kernels.  bf16 with the channel counts
+multiples of 64 (the codec's 256 / 512: Cin and Cout / 2 for K2, Cin and
+Cout for K3b and K3c) takes the Hopper kernel (``wgmma``, its operands
+brought by TMA for K2 and by a ``cp.async`` ring for K3b and K3c;
+counted by ``conv_in_glu_fwd_wgmma``, ``conv_dgrad_wgmma`` and
 ``conv_wgrad_wgmma``); every other dtype and shape takes the WMMA kernel
-(counted by ``conv_dgrad`` and ``conv_wgrad``).  ``uses_wgmma`` makes the
-choice, from dtype and shape only, before any launch.
+(counted by ``conv_in_glu_fwd``, ``conv_dgrad`` and ``conv_wgrad``).
+``fwd_uses_wgmma`` (K2) and ``uses_wgmma`` (K3b, K3c) make the choice,
+from dtype and shape only, before any launch.
 
 Each wrapper takes its plain PyTorch version (``*_plain``: the kernel's own
 arithmetic, pad + tap gather + matmul in f32) only for CPU tensors; a CUDA
@@ -40,7 +43,7 @@ import torch.nn.functional as F
 from multimodal_rssm_torch.ops import cuda_kernels as ck
 
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_POSITIONS = 256     # K2: a block holds one sample's Ho * Wo positions
+MAX_POSITIONS = 256     # K2, K3a: a block holds a sample's Ho * Wo positions
 _BK = 32                # K3c (WMMA): depth rows per shared-memory stage
 _TILE = 128             # K3c (WMMA): rows and columns of a block's dw tile
 WG_STAGE = 64           # wgmma kernels: depth per stage, channel multiple
@@ -103,6 +106,7 @@ def _lib() -> ctypes.CDLL:
     lib = ck.load_library("fused_codec")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mrssm_conv_in_glu_fwd.argtypes = [i] + [p] * 8 + [i] * 9 + [f, p]
+    lib.mrssm_conv_in_glu_fwd_wgmma.argtypes = [p] * 8 + [i] * 9 + [f, p]
     lib.mrssm_in_glu_bwd_dz.argtypes = [i] + [p] * 9 + [i] * 3 + [f, p]
     lib.mrssm_conv_dgrad.argtypes = [i] + [p] * 3 + [i] * 9 + [p]
     lib.mrssm_conv_wgrad.argtypes = ([i] + [p] * 4 + [i] * 10
@@ -110,7 +114,8 @@ def _lib() -> ctypes.CDLL:
     lib.mrssm_conv_dgrad_wgmma.argtypes = [p] * 3 + [i] * 9 + [p]
     lib.mrssm_conv_wgrad_wgmma.argtypes = ([p] * 4 + [i] * 10
                                            + [ctypes.c_longlong, p])
-    for fn in (lib.mrssm_conv_in_glu_fwd, lib.mrssm_in_glu_bwd_dz,
+    for fn in (lib.mrssm_conv_in_glu_fwd, lib.mrssm_conv_in_glu_fwd_wgmma,
+               lib.mrssm_in_glu_bwd_dz,
                lib.mrssm_conv_dgrad, lib.mrssm_conv_wgrad,
                lib.mrssm_conv_dgrad_wgmma, lib.mrssm_conv_wgrad_wgmma):
         fn.restype = ctypes.c_int
@@ -143,6 +148,16 @@ def uses_wgmma(dtype: torch.dtype, cin: int, cout: int, kh: int) -> bool:
     (an error code, never another kernel)."""
     return (dtype == torch.bfloat16 and cin % WG_STAGE == 0
             and cout % WG_STAGE == 0 and kh <= 32)
+
+
+def fwd_uses_wgmma(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Whether K2 takes its Hopper (wgmma) kernel for this dtype and these
+    conv channel counts: bf16 with Cin and Cout / 2 multiples of 64 (any
+    kernel size; at most ``MAX_POSITIONS`` positions, which every K2
+    kernel needs).  Decided before any launch; the other cases take the
+    WMMA kernel.  The C entry point only guards the rule."""
+    return (dtype == torch.bfloat16 and cin % WG_STAGE == 0
+            and (cout // 2) % WG_STAGE == 0)
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
@@ -243,7 +258,8 @@ def conv_in_glu_fwd(x, w, scale, bias, padding, eps: float = 1e-5,
                     stride=1):
     """K2: (y [N, Ho, Wo, Cout/2], z [N, Ho, Wo, Cout]) in x's dtype and
     (mean, var) f32 [N, Cout].  x and w of one dtype (f32 or bf16), scale
-    and bias f32 [Cout], Ho * Wo <= 256."""
+    and bias f32 [Cout], Ho * Wo <= 256.  On the card, the kernel that
+    ``fwd_uses_wgmma`` picks."""
     if _pair(stride) != (1, 1):
         raise ValueError(f"conv_in_glu_fwd takes stride 1 only, got {stride}")
     padding = _pair(padding)
@@ -265,6 +281,10 @@ def conv_in_glu_fwd(x, w, scale, bias, padding, eps: float = 1e-5,
     z = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     mean = torch.empty((n, cout), dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
+    if fwd_uses_wgmma(x.dtype, cin, cout):
+        conv_in_glu_fwd_wgmma(x, w, scale, bias, (y, z, mean, var), padding,
+                              eps)
+        return y, z, mean, var
     lib = _lib()
     _launch("conv_in_glu_fwd", lib.mrssm_conv_in_glu_fwd, x.device,
             _dtype_code(x), x.data_ptr(), w.data_ptr(), scale.data_ptr(),
@@ -274,9 +294,25 @@ def conv_in_glu_fwd(x, w, scale, bias, padding, eps: float = 1e-5,
     return y, z, mean, var
 
 
+def conv_in_glu_fwd_wgmma(x, w, scale, bias, out, padding, eps) -> None:
+    """K2's Hopper kernel: out = (y, z, mean, var) from bf16 x [N, H, W,
+    Cin] and w [kh, kw, Cin, Cout], Cin and Cout / 2 multiples of 64
+    (``conv_in_glu_fwd`` checks and allocates)."""
+    y, z, mean, var = out
+    _check_aligned("conv_in_glu_fwd", x, w, y, z)
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    _launch("conv_in_glu_fwd", _lib().mrssm_conv_in_glu_fwd_wgmma, x.device,
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), z.data_ptr(), mean.data_ptr(), var.data_ptr(), n, h,
+            wd, cin, kh, kw, cout, *padding, eps)
+    conv_in_glu_fwd_wgmma.launches += 1
+
+
 def in_glu_bwd_dz(dy, z, mean, var, scale, bias, eps: float = 1e-5):
     """K3a: dz [N, Ho, Wo, Cout] in z's dtype, and f32 dscale, dbias
-    [Cout] (the per-sample partials the kernel writes, summed here)."""
+    [Cout] (the per-sample partials the kernel writes, summed here).
+    Ho * Wo <= 256, as K2 makes it."""
     _check_dtype("in_glu_bwd_dz", z)
     n, ho, wo, cout = z.shape
     if cout % 2 or dy.shape != (n, ho, wo, cout // 2):
@@ -286,6 +322,9 @@ def in_glu_bwd_dz(dy, z, mean, var, scale, bias, eps: float = 1e-5):
             or scale.shape != (cout,) or bias.shape != (cout,)):
         raise ValueError("in_glu_bwd_dz: mean, var [N, Cout] and scale, "
                          "bias [Cout] expected")
+    if ho * wo > MAX_POSITIONS:
+        raise ValueError(f"in_glu_bwd_dz: {ho} x {wo} positions, the kernel "
+                         f"holds at most {MAX_POSITIONS}")
     _check("in_glu_bwd_dz", dy, z, dtype=z.dtype)
     _check("in_glu_bwd_dz", z, mean, var, scale, bias)
     _check("in_glu_bwd_dz", mean, var, scale, bias, dtype=torch.float32)
@@ -419,7 +458,7 @@ def conv_wgrad_wgmma(x, dz, part, dw, padding, per) -> None:
 
 
 for _fn in (conv_in_glu_fwd, in_glu_bwd_dz, conv_dgrad, conv_wgrad,
-            conv_dgrad_wgmma, conv_wgrad_wgmma):
+            conv_in_glu_fwd_wgmma, conv_dgrad_wgmma, conv_wgrad_wgmma):
     _fn.launches = 0
     ck.KERNELS[_fn.__name__] = _fn
 

@@ -220,7 +220,8 @@ def _small():
 
 
 @pytest.mark.parametrize("bad", ["stride", "odd_cout", "dtype", "device",
-                                 "non_contiguous", "positions", "dz_shape"])
+                                 "non_contiguous", "positions", "dz_shape",
+                                 "dz_positions"])
 def test_wrappers_raise_on_what_they_do_not_take(bad):
     x, w, s = _small()
     ck.reset_launch_counts()
@@ -241,6 +242,10 @@ def test_wrappers_raise_on_what_they_do_not_take(bad):
                              torch.ones(2, 16), s, s)
         elif bad == "positions":
             fc.conv_in_glu_fwd(torch.zeros(1, 17, 16, 8), w, s, s, (1, 1))
+        elif bad == "dz_positions":      # K3a holds <= MAX_POSITIONS, as K2
+            fc.in_glu_bwd_dz(torch.zeros(1, 17, 16, 8),
+                             torch.zeros(1, 17, 16, 16), torch.zeros(1, 16),
+                             torch.ones(1, 16), s, s)
         else:
             fc.conv_wgrad(x, torch.zeros(2, 8, 4, 16), (3, 3), (1, 1))
     assert all(v == 0 for v in ck.launch_counts().values())
@@ -342,3 +347,32 @@ def test_wgmma_variant_choice_by_dtype_and_shape(dtype, cin, cout, wgmma):
     32 taps high takes the wgmma kernels; everything else the WMMA ones."""
     assert fc.uses_wgmma(dtype, cin, cout, 3) is wgmma
     assert not fc.uses_wgmma(dtype, cin, cout, 33)
+
+
+@pytest.mark.parametrize("dtype,cin,cout,wgmma", [
+    (torch.bfloat16, 256, 512, True),     # the codec's stages
+    (torch.bfloat16, 64, 128, True),      # C/2 = 64: one column tile
+    (torch.bfloat16, 64, 640, True),      # C/2 = 320: a masked pair tile
+    (torch.float32, 256, 512, False),     # f32 keeps the WMMA kernel
+    (torch.bfloat16, 256, 496, False),    # C/2 = 248
+    (torch.bfloat16, 256, 64, False),     # C/2 = 32
+    (torch.bfloat16, 24, 512, False)])    # Cin = 24
+def test_forward_variant_choice_by_dtype_and_shape(dtype, cin, cout, wgmma):
+    """K2 takes its wgmma kernel for bf16 with Cin and C/2 multiples of 64,
+    whatever the kernel size; everything else the WMMA one."""
+    assert fc.fwd_uses_wgmma(dtype, cin, cout) is wgmma
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_refuses_more_positions_than_a_block_holds(dtype):
+    """Ho * Wo over MAX_POSITIONS raises before either K2 kernel is chosen,
+    also at the channel counts that take the wgmma one in bf16."""
+    x = torch.zeros(1, 17, 16, 64, dtype=dtype)
+    w = torch.zeros(3, 3, 64, 128, dtype=dtype)
+    s = torch.ones(128)
+    assert (17 * 16 > fc.MAX_POSITIONS
+            and fc.fwd_uses_wgmma(dtype, 64, 128) is (dtype == torch.bfloat16))
+    ck.reset_launch_counts()
+    with pytest.raises(ValueError, match="positions"):
+        fc.conv_in_glu_fwd(x, w, s, s, (1, 1))
+    assert all(v == 0 for v in ck.launch_counts().values())

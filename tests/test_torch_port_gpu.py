@@ -67,6 +67,12 @@ FUSED_CASES = [
                                         # stage; taps cut on both sides
     (3, 32, 5, 64, 3, 3, 128, 1, 1),    # K3c depth 576: the last dw tile's
                                         # second 64-row atom is all masked
+    # bf16 with Cin and C/2 multiples of 64: K2 takes its wgmma kernel too
+    (3, 32, 5, 256, 3, 4, 512, 1, 1),   # down4 at full width
+    (3, 8, 5, 64, 3, 3, 128, 1, 1),     # 40 positions, C/2 = 64: the second
+                                        # pair tile of a block is masked
+    (2, 16, 16, 64, 3, 3, 128, 1, 1),   # 256 positions: split across the
+                                        # two warpgroups
 ]
 # Relative to the plain version's max |value|.  f32: the same products
 # summed in another order (and E[z^2] - mean^2 in the stats).  bf16: the
@@ -86,9 +92,11 @@ def _rel(a, b):
 def test_fused_codec_kernels_match_plain_on_card(cuda, case, dtype):
     """Each of K2, K3a, K3b and K3c against its plain version on the same
     inputs; each call counts one launch, of the kernel that
-    ``uses_wgmma`` picks for K3b and K3c (the wgmma kernels for bf16 with
-    Cin and Cout multiples of 64, more than one depth split for K3c there);
-    K3a's and K3c's sums are bit-equal across two calls (no atomics)."""
+    ``fwd_uses_wgmma`` picks for K2 (the wgmma kernel for bf16 with Cin and
+    C/2 multiples of 64) and ``uses_wgmma`` for K3b and K3c (the wgmma
+    kernels for bf16 with Cin and Cout multiples of 64, more than one depth
+    split for K3c there); K3a's and K3c's sums are bit-equal across two
+    calls (no atomics)."""
     from multimodal_rssm_torch.core.device import configure_float32
     from multimodal_rssm_torch.ops import fused_codec as fc
 
@@ -135,8 +143,10 @@ def test_fused_codec_kernels_match_plain_on_card(cuda, case, dtype):
     wgmma = fc.uses_wgmma(dtype, cin, cout, kh)
     dgrad, wgrad = (("conv_dgrad_wgmma", "conv_wgrad_wgmma") if wgmma
                     else ("conv_dgrad", "conv_wgrad"))
+    fwd = ("conv_in_glu_fwd_wgmma" if fc.fwd_uses_wgmma(dtype, cin, cout)
+           else "conv_in_glu_fwd")
     assert {k: v for k, v in counts.items() if v} == {
-        "conv_in_glu_fwd": 1, "in_glu_bwd_dz": 2, dgrad: 1, wgrad: 2}
+        fwd: 1, "in_glu_bwd_dz": 2, dgrad: 1, wgrad: 2}
     if wgmma:
         sms = torch.cuda.get_device_properties(cuda).multi_processor_count
         tiles = -(-kh * kw * cin // fc.WG_TILE[0]) * -(-cout // fc.WG_TILE[1])
@@ -148,8 +158,8 @@ def test_fused_codec_kernels_match_plain_on_card(cuda, case, dtype):
 def test_fused_codec_kernels_reject_what_they_do_not_take(cuda):
     """A non-contiguous input, a float64 input, an input on another device,
     too many positions per sample, or a bf16 view off 16-byte alignment
-    where the wgmma kernels would run (they copy 16 bytes at a time) raise
-    before any launch."""
+    where the wgmma kernels would run (K2, K3b and K3c: they copy 16 bytes
+    at a time) raise before any launch."""
     from multimodal_rssm_torch.ops import fused_codec as fc
 
     x = torch.zeros(2, 8, 5, 8, device=cuda)
@@ -176,4 +186,9 @@ def test_fused_codec_kernels_reject_what_they_do_not_take(cuda):
         fc.conv_wgrad(xb, dz, (3, 3), (1, 1))
     with pytest.raises(ValueError, match="16-byte"):
         fc.conv_dgrad(flat[1:].view(2, 8, 5, 64), wb, (1, 1))
+    w2 = torch.zeros(3, 3, 64, 128, dtype=torch.bfloat16, device=cuda)
+    s2 = torch.ones(128, device=cuda)
+    assert fc.fwd_uses_wgmma(xb.dtype, 64, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        fc.conv_in_glu_fwd(xb, w2, s2, s2, (1, 1))
     assert all(v == 0 for v in ck.launch_counts().values())
