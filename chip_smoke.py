@@ -14,8 +14,36 @@ each printed as one JSON line:
                range and moments, seed determinism) and time both;
 3. train    -- the port's train CLI, in process, on a synthetic COBOTTA-schema
                dataset at the default configuration's full width, batch 50 x
-               chunk 50, with train.pallas_normalize=true: finite losses and
-               every kernel of the path launched (counts reset just before);
+               chunk 50, with train.pallas_normalize=true, fed from the
+               device-resident replay (train.device_replay=auto): finite
+               losses and every kernel of the path launched (counts reset
+               just before);
+3b. feed    -- the same CLI on a dataset of a real set's size (360 x 120
+               episodes, 43,200 rows, 0.97 GB; experience_size to match),
+               24 steps a run, with train.device_replay=true (the whole
+               replay on the card), =stream (train.replay_budget_gb=0.5: a
+               working set of 119 of 216 segments, one replaced a step) and
+               =false (host batches behind the prefetch thread), run in the
+               order true, stream, false, false, stream, true; then at that
+               size the load (serial against 4 threads), one batch's host
+               gather (native into the host feed's pinned batch at 1-8
+               threads and into fresh memory, NumPy), NumPy + pin + copy
+               against the host feed's producer, and the device gather,
+               each on fresh indices;
+3c. checkpoint -- 4 steps with a checkpoint every 2, then --resume to 6; the
+               restored model bit-equal on the card to the one saved; an
+               async save's time on the loop's thread against a synchronous
+               save's, and the file's size.
+               Every train run checks finite losses, K1 launched at least
+               once per step, and prints its median steps/s over the steps
+               after the first two, without the last (which also
+               validates), and its peak memory;
+3d. budget  -- in a fresh process, as the CLI starts: a device-resident
+               replay as large as hbm_budget_bytes allows (rows tiled from
+               a small dataset), 6 full-width steps with an async
+               checkpoint after step 3: no out-of-memory, finite losses,
+               and what the run needed beyond the replay (peak reserved,
+               memory outside the allocator) against the budget's reserve;
 4. parity   -- the same weights on the card and on the CPU, float32,
                deterministic (generator=None), batch 2 x chunk 4 at full
                width: loss, every metric and the gradient norms agree;
@@ -58,6 +86,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SHAPE = (50, 50, 64, 64, 3)      # image_horizon batch at batch 50 x chunk 50
@@ -183,39 +212,92 @@ def phase_kernel(device_name: str):
     return result
 
 
-def phase_train():
+def write_dataset(root: str, train_episodes: int) -> None:
+    """Synthetic COBOTTA-schema episodes of 120 steps under root/train and
+    2 of 80 under root/validation."""
+    from multimodal_rssm_torch.data.synthetic import write_synthetic_dataset
+
+    shapes = {"image_horizon": [3, 64, 64], "sound": [128, 20]}
+    write_synthetic_dataset(os.path.join(root, "train"), train_episodes, 120,
+                            shapes)
+    write_synthetic_dataset(os.path.join(root, "validation"), 2, 80, shapes,
+                            seed=100)
+
+
+def train_run(phase: str, root: str, args, steps: int, feed: str,
+              batch: int = SHAPE[1], first_step: int = 1):
+    """One in-process run of the train CLI on the card, K1 on (launch
+    counts and peak memory reset just before).  Raises unless it took
+    ``feed``, ran ``steps`` steps from ``first_step``, logged finite losses
+    and launched K1 at least once per train and validation step.  Prints
+    and returns (its record, the CLI's result, the launch counts)."""
+    import gc
+
     import torch
 
     from multimodal_rssm_torch.cli.train import main as train_main
-    from multimodal_rssm_torch.data.synthetic import write_synthetic_dataset
     from multimodal_rssm_torch.ops import cuda_kernels as ck
 
-    shapes = {"image_horizon": [3, 64, 64], "sound": [128, 20]}
+    if not any(a.startswith("--resume") for a in args):
+        args = [f"train.train_data_path=[{root}/train]",
+                f"train.validation_data_path=[{root}/validation]",
+                "train.pallas_normalize=true", f"train.batch_size={batch}",
+                f"train.chunk_size={SHAPE[0]}", "train.experience_size=1000",
+                *args]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_main([*args, "--device", "cuda", "--cwd", root])
+    wall = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    values = {**{f"{k}/train": v for k, v in result["metrics"].items()},
+              **{f"{k}/validation": v
+                 for k, v in result["validation_metrics"].items()}}
+    bad = {k: v for k, v in values.items() if not math.isfinite(v)}
+    if bad or not result["validation_metrics"]:
+        raise AssertionError(f"{phase}: non-finite or missing metrics: {bad}")
+    if (result["feed"], result["start_step"], len(result["step_seconds"])) != (
+            feed, first_step - 1, steps):
+        raise AssertionError(
+            f"{phase}: expected {steps} steps from {first_step} on the "
+            f"{feed} feed, got {len(result['step_seconds'])} from "
+            f"{result['start_step'] + 1} on the {result['feed']} feed")
+    runs = steps + 1     # the train steps plus one validation step
+    if launches["normalize_image"] < runs:
+        raise AssertionError(f"{phase}: normalize_image launched "
+                             f"{launches['normalize_image']} times in {runs} "
+                             "steps")
+    timed = result["step_seconds"][2:-1]   # the last step also validates
+    record = {"phase": phase, "feed": feed, "batch": batch,
+              "chunk": SHAPE[0], "steps": steps, "first_step": first_step,
+              "launches": launches, "step_seconds": result["step_seconds"],
+              "median_steps_per_s_after_warmup":
+                  1.0 / statistics.median(timed) if timed else None,
+              "timed_steps": len(timed),
+              "max_memory_allocated_GiB":
+                  torch.cuda.max_memory_allocated() / 2 ** 30,
+              "wall_seconds": wall, "loss": result["metrics"]["loss"],
+              "validation_loss": result["validation_metrics"]["loss"]}
+    emit(record)
+    return record, result, launches
+
+
+def phase_train():
+    import torch
+
     batch = SHAPE[1]
     with tempfile.TemporaryDirectory() as tmp:
-        write_synthetic_dataset(os.path.join(tmp, "train"), 4, 120, shapes)
-        write_synthetic_dataset(os.path.join(tmp, "validation"), 2, 80,
-                                shapes, seed=100)
+        write_dataset(tmp, 4)
         while True:
-            overrides = [
-                f"train.train_data_path=[{tmp}/train]",
-                f"train.validation_data_path=[{tmp}/validation]",
-                "train.pallas_normalize=true",
-                f"train.batch_size={batch}", f"train.chunk_size={SHAPE[0]}",
-                f"train.train_iteration={TRAIN_STEPS}",
-                f"train.validation_interval={TRAIN_STEPS}",
-                "train.experience_size=1000",
-                "main.experiment_name=chip_smoke",
-                "--device", "cuda", "--cwd", tmp]
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            ck.reset_launch_counts()
             try:
-                t0 = time.perf_counter()
-                result = train_main(overrides)
-                wall = time.perf_counter() - t0
-                launches = ck.launch_counts()
-                break
+                _, _, launches = train_run(
+                    "train", tmp, [f"train.train_iteration={TRAIN_STEPS}",
+                                   f"train.validation_interval={TRAIN_STEPS}",
+                                   "main.experiment_name=chip_smoke"],
+                    TRAIN_STEPS, "device_resident", batch=batch)
+                return launches
             except torch.cuda.OutOfMemoryError as e:
                 if batch == 1:
                     raise
@@ -223,25 +305,312 @@ def phase_train():
                       f"{SHAPE[0]} does not fit the card ({e}); halving the "
                       "batch"})
                 batch //= 2
-    values = {**{f"{k}/train": v for k, v in result["metrics"].items()},
-              **{f"{k}/validation": v
-                 for k, v in result["validation_metrics"].items()}}
-    bad = {k: v for k, v in values.items() if not math.isfinite(v)}
-    if bad or not result["validation_metrics"]:
-        raise AssertionError(f"non-finite or missing metrics: {bad}")
-    steps = TRAIN_STEPS + 1  # train steps plus the validation step
-    if launches["normalize_image"] < steps:
-        raise AssertionError(f"normalize_image launched {launches} times in "
-                             f"{steps} steps")
-    steady = result["step_seconds"][2:]
-    emit({"phase": "train", "batch": batch, "chunk": SHAPE[0],
-          "steps": TRAIN_STEPS, "launches": launches,
-          "step_seconds": result["step_seconds"],
-          "median_steps_per_s_after_warmup": 1.0 / statistics.median(steady),
-          "max_memory_allocated_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "wall_seconds": wall, "loss": result["metrics"]["loss"],
-          "validation_loss": result["validation_metrics"]["loss"]})
-    return launches
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn(i)`` for i = 1..reps, after an
+    untimed ``fn(0)``."""
+    fn(0)
+    times = []
+    for i in range(1, reps + 1):
+        t0 = time.perf_counter()
+        fn(i)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+FEED_EPISODES = 360     # x 120 steps: 43,200 rows, 0.97 GB
+FEED_STEPS = 24
+FEED_STREAM_GB = 0.5
+FEED_ORDER = (("true", "device_resident"), ("stream", "stream"),
+              ("false", "host"), ("false", "host"), ("stream", "stream"),
+              ("true", "device_resident"))   # train.device_replay, feed
+
+
+def phase_feed(device_name: str):
+    """The three feeds through the CLI on a dataset of a real set's size,
+    FEED_STEPS steps each, twice each in mirrored order; then the load and
+    one batch's gather at that size, on the host and on the card."""
+    import torch
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.core.device import cuda_time_ms
+    from multimodal_rssm_torch.data import buffer
+    from multimodal_rssm_torch.data import device_buffer as db
+    from multimodal_rssm_torch.data.native import (gather_chunks,
+                                                   gather_chunks_plain)
+
+    rows = FEED_EPISODES * 120
+    B, L = SHAPE[1], SHAPE[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_dataset(tmp, FEED_EPISODES)
+        write_s = time.perf_counter() - t0
+        common = [f"train.train_iteration={FEED_STEPS}",
+                  f"train.validation_interval={FEED_STEPS}",
+                  f"train.experience_size={rows}",
+                  f"train.replay_budget_gb={FEED_STREAM_GB}"]
+        runs = {}
+        for mode, feed in FEED_ORDER:
+            rec, _, _ = train_run(
+                "feed", tmp, [*common, f"train.device_replay={mode}",
+                              f"main.experiment_name=chip_smoke_{mode}"],
+                FEED_STEPS, feed)
+            runs.setdefault(feed, []).append(
+                rec["median_steps_per_s_after_warmup"])
+
+        cfg = compose(overrides=[f"train.experience_size={rows}"])
+        load_s = {}
+        for workers in (1, 4, 4, 1):
+            D = buffer.build_buffer(cfg)
+            t0 = time.perf_counter()
+            D.load_dataset(os.path.join(tmp, "train"), workers=workers)
+            load_s.setdefault(workers, []).append(time.perf_counter() - t0)
+        if (D.steps, D.full) != (rows, True):
+            raise AssertionError(f"loaded {D.steps} rows, not {rows}")
+        stream = db.StreamingDeviceReplay(D, L, torch.device("cuda"),
+                                          int(FEED_STREAM_GB * 2 ** 30))
+        if not 2 <= stream.W < stream.n_host_segments:
+            raise AssertionError(f"working set {stream.W} of "
+                                 f"{stream.n_host_segments} segments")
+        idxs = [D.sample_indices(B, L) for _ in range(21)]
+        arrays = [*D.observations.values(), D.actions, D.rewards,
+                  D.nonterminals]
+        batch_bytes = sum(a.itemsize * a[0].size for a in arrays) * B * L
+        image = D.observations["image_horizon"]
+        staged = torch.empty((L, B, *image.shape[1:]), dtype=torch.uint8,
+                             pin_memory=True).numpy()
+        image_ms = {f"native_pinned_{t}_threads": _host_ms(
+            lambda i, t=t: gather_chunks(image, idxs[i], t, out=staged), 20)
+            for t in (1, 2, 4, 8)}
+        image_ms["native_fresh_default_threads"] = _host_ms(
+            lambda i: gather_chunks(image, idxs[i]), 20)
+        image_ms["numpy"] = _host_ms(
+            lambda i: gather_chunks_plain(image, idxs[i]), 20)
+
+        def numpy_batch(i):
+            return ({k: gather_chunks_plain(v, idxs[i])
+                     for k, v in D.observations.items()},
+                    *(gather_chunks_plain(a, idxs[i])
+                      for a in (D.actions, D.rewards, D.nonterminals)))
+
+        native_ms = _host_ms(lambda i: D.gather(idxs[i]), 20)
+        numpy_ms = _host_ms(numpy_batch, 20)
+        # a step's host work before the pinned feed (NumPy gather, pin,
+        # copy) and the host feed's producer (its draw, the native gather
+        # into a pinned batch, the copy)
+        numpy_pin_copy_ms = _host_ms(lambda i: (
+            buffer.to_device(numpy_batch(i), torch.device("cuda")),
+            torch.cuda.synchronize()), 10)
+        feed = buffer.HostBatchFeed(D, B, L, torch.device("cuda"))
+        feed_ms = _host_ms(lambda i: (feed(), torch.cuda.synchronize()), 10)
+        working_set = [stream.W, stream.n_host_segments]
+        replay = db.DeviceReplay(D, torch.device("cuda"))
+        didx = db.indices_to_device(idxs[0], torch.device("cuda"))
+        device_ms = cuda_time_ms(lambda: db.gather_batch(
+            replay.arrays, didx, D.observation_names, replay.row_shapes), 20)
+        replay_gb = db.DeviceReplay.nbytes(D) / 1e9
+        del replay, stream, D, feed
+    emit({"phase": "feed_gather", "batch": B, "chunk": L, "rows": rows,
+          "dataset_GB": replay_gb, "write_dataset_s": write_s,
+          "stream_working_set": working_set,
+          "steps_per_s_by_feed": runs,
+          "load_s": {f"{w}_workers": v for w, v in load_s.items()},
+          "batch_MB": batch_bytes / 1e6, "host_cores": os.cpu_count(),
+          "host_gather_ms": {"native": native_ms, "numpy": numpy_ms},
+          "image_gather_ms": image_ms,
+          "host_numpy_pin_copy_ms": numpy_pin_copy_ms,
+          "host_feed_producer_ms": feed_ms,
+          "device_gather_ms": device_ms,
+          "device_gather_bound_ms": 2 * batch_bytes / hbm_rate(device_name) * 1e3})
+
+
+def phase_checkpoint():
+    """Resume on the card, the restored state against the saved one, and
+    an async save's cost to the loop against a synchronous save's (full
+    width: the model, Adam's moments and the schedule)."""
+    import torch
+
+    from multimodal_rssm_torch.core.config import load_run_config
+    from multimodal_rssm_torch.io import checkpoint as ckpt
+    from multimodal_rssm_torch.models.world_model import WorldModel
+    from multimodal_rssm_torch.train import trainer as tr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_dataset(tmp, 4)
+        first, result, _ = train_run(
+            "checkpoint", tmp, ["train.train_iteration=4",
+                                "train.validation_interval=4",
+                                "train.checkpoint_interval=2",
+                                "main.experiment_name=chip_smoke_resume"],
+            4, "device_resident")
+        run_dir = result["results_dir"]
+        saved = {k: v.clone() for k, v in result["model"].state_dict().items()}
+        del result
+        resumed, result, _ = train_run(
+            "checkpoint", tmp, ["train.train_iteration=6",
+                                "train.validation_interval=6",
+                                "--resume", run_dir], 2, "device_resident",
+            first_step=5)
+        del result
+        cfg = load_run_config(run_dir)
+        model = WorldModel.from_config(cfg).to("cuda")
+        optimizer, scheduler = tr.build_optimizer(cfg, model)
+        path = os.path.join(run_dir, "models_4.pt")
+        step, extra = ckpt.load_checkpoint(path, model, optimizer, scheduler)
+        differ = [k for k, v in model.state_dict().items()
+                  if not (v.is_cuda and torch.equal(v, saved[k]))]
+        if step != 4 or differ or "generator" not in extra:
+            raise AssertionError(f"restored step {step}; tensors that differ "
+                                 f"from the saved model: {differ}")
+        del saved
+
+        save_dir = os.path.join(tmp, "timing")
+        sync_ms = _host_ms(lambda i: ckpt.save_checkpoint(
+            save_dir, 1, model, optimizer, scheduler, extra), 3)
+        saver = ckpt.AsyncCheckpointer()
+        blocked, total = [], []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saver.save(save_dir, 2, model, optimizer, scheduler, extra)
+            t1 = time.perf_counter()
+            saver.wait()
+            t2 = time.perf_counter()
+            if i:          # the first call allocates the pinned buffers
+                blocked.append((t1 - t0) * 1e3)
+                total.append((t2 - t0) * 1e3)
+        size = os.path.getsize(os.path.join(save_dir, "models_2.pt"))
+    record = {"phase": "checkpoint_save", "restored_bit_equal": True,
+              "file_MB": size / 1e6, "sync_save_ms": sync_ms,
+              "async_save_blocking_ms": statistics.median(blocked),
+              "async_save_until_written_ms": statistics.median(total),
+              "resume": {"first": first["step_seconds"],
+                         "resumed": resumed["step_seconds"]}}
+    emit(record)
+    return record
+
+
+def budget_run(reserve_bytes: Optional[int]) -> dict:
+    """In a fresh process, as the train CLI starts: the model on the card,
+    then a device-resident replay as large as ``hbm_budget_bytes`` allows
+    (rows tiled from a small synthetic set), then six full-width steps from
+    it with an async checkpoint after step 3 (its clones on the card inside
+    the window).  Returns the memory readings; ``oom`` if a step ran out."""
+    import numpy as np
+    import torch
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.core.device import configure_float32
+    from multimodal_rssm_torch.data import buffer
+    from multimodal_rssm_torch.data import device_buffer as db
+    from multimodal_rssm_torch.io import checkpoint as ckpt
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.train import trainer as tr
+
+    configure_float32()
+    dev = torch.device("cuda")
+    L, B = SHAPE[0], SHAPE[1]
+    gib = 2 ** 30
+    reserve = (db._DEFAULT_RESERVE_BYTES if reserve_bytes is None
+               else reserve_bytes)
+    cfg = compose(overrides=["train.pallas_normalize=true",
+                             "train.experience_size=1000"])
+    record = {"reserve_GiB": reserve / gib, "oom": None}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_dataset(tmp, 4)
+        D = buffer.build_buffer(cfg)
+        buffer.load_dataset(tmp, D, "train")
+        model = WorldModel.from_config(cfg)
+        init_parameters(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        optimizer, scheduler = tr.build_optimizer(cfg, model)
+        free0, total = torch.cuda.mem_get_info(dev)
+        budget = db.hbm_budget_bytes(dev, reserve)
+        reserved0 = torch.cuda.memory_reserved(dev)
+        small = db.DeviceReplay(D, dev)
+        row_bytes = sum(v.element_size() * v.shape[1]
+                        for v in small.arrays.values())
+        rows = budget // row_bytes
+        tile = torch.arange(rows, device=dev) % small.used
+        arrays = {k: v.index_select(0, tile) for k, v in small.arrays.items()}
+        del tile, small
+        replay = sum(v.numel() * v.element_size() for v in arrays.values())
+        spec = tr.build_aug_spec(D)
+        draws = tr.HostAugmentDraws(D, spec)
+        train_step, _ = tr.make_device_resident_steps(
+            model, cfg, optimizer, scheduler, spec, dev, D.observation_names,
+            db._row_shapes(D))
+        gen = torch.Generator(dev).manual_seed(0)
+        rng = np.random.default_rng(0)
+        saver = ckpt.AsyncCheckpointer()
+        losses, seconds, pending = [], [], None
+        try:
+            for step in range(1, 7):
+                t0 = time.perf_counter()
+                starts = rng.integers(0, rows - L + 1, size=B)
+                idxs = db.indices_to_device(starts[:, None] + np.arange(L),
+                                            dev)
+                metrics = train_step(arrays, idxs, draws.draw(), gen)
+                if step == 3:
+                    saver.save(tmp, step, model, optimizer, scheduler, {})
+                if pending is not None:    # read back a step late, as the loop
+                    losses.append(float(pending))
+                pending = metrics["loss"]
+                seconds.append(time.perf_counter() - t0)
+            losses.append(float(pending))
+            saver.wait()
+        except torch.cuda.OutOfMemoryError as e:
+            record["oom"] = f"step {step}: {e}"[:400]
+        free1, _ = torch.cuda.mem_get_info(dev)
+        peak = torch.cuda.max_memory_reserved(dev)
+        # memory outside PyTorch's allocator (context, library handles and
+        # workspaces) before the budget was taken and after the steps
+        outside0 = total - free0 - reserved0
+        outside1 = total - free1 - torch.cuda.memory_reserved(dev)
+        need = peak - reserved0 - replay + max(0, outside1 - outside0)
+        record.update({
+            "budget_GiB": budget / gib, "replay_GiB": replay / gib,
+            "rows": int(rows), "total_GiB": total / gib,
+            "reserved_before_GiB": reserved0 / gib,
+            "max_allocated_GiB": torch.cuda.max_memory_allocated(dev) / gib,
+            "max_reserved_GiB": peak / gib,
+            "outside_allocator_before_GiB": outside0 / gib,
+            "outside_allocator_after_GiB": outside1 / gib,
+            # what the reserve has to hold: the step's and the snapshot's
+            # peak beyond the replay and what was held when the budget was
+            # taken, plus the memory outside the allocator that appeared
+            # after it
+            "need_GiB": need / gib, "margin_GiB": (reserve - need) / gib,
+            "step_seconds": seconds, "losses": losses})
+    return record
+
+
+def phase_budget(reserves=(None,)):
+    """``budget_run`` in a fresh process for each reserve (None: the
+    port's default).  Raises on an out-of-memory or a non-finite loss."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()   # this process's cached blocks back to the card
+    for reserve in reserves:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--budget-run",
+             "" if reserve is None else str(reserve)],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"budget run failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        record = {"phase": "budget",
+                  **json.loads(proc.stdout.strip().splitlines()[-1])}
+        emit(record)
+        if record["oom"] or not all(math.isfinite(x)
+                                    for x in record["losses"]):
+            raise AssertionError(f"budget: {record['oom']} losses "
+                                 f"{record['losses']}")
 
 
 def phase_parity():
@@ -572,6 +941,9 @@ def main() -> int:
     phase_build()
     kernel = phase_kernel(name)
     launches = phase_train()
+    phase_feed(name)
+    phase_checkpoint()
+    phase_budget()
     phase_parity()
     fused = phase_fused_codec(name, launches)
     kernel["launches"] = launches["normalize_image"]
@@ -586,4 +958,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--budget-run"]:   # phase_budget's fresh process
+        sys.path.insert(0, REPO)
+        arg = sys.argv[2] if len(sys.argv) > 2 else ""
+        emit(budget_run(int(arg) if arg else None))
+        sys.exit(0)
     sys.exit(main())

@@ -159,3 +159,9 @@ def save_config(cfg: ConfigDict, path: str) -> None:
     with open(path, "w") as f:
         yaml.safe_dump(cfg.to_dict(), f, default_flow_style=False,
                        sort_keys=False)
+
+
+def load_run_config(results_dir: str,
+                    name: str = "hydra_config.yaml") -> ConfigDict:
+    """Re-open a saved run's config (what ``--resume`` continues)."""
+    return ConfigDict(load_yaml(os.path.join(results_dir, name)))

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from multimodal_rssm_torch.data import augment as aug
+from multimodal_rssm_torch.data.device_buffer import gather_batch
 from multimodal_rssm_torch.losses import elbo
 from multimodal_rssm_torch.models.world_model import WorldModel
 from multimodal_rssm_torch.ops import cuda_kernels
@@ -338,5 +339,28 @@ def make_train_step(model: WorldModel, cfg, optimizer, scheduler,
         batch = _prepare(raw_batch, draws, generator)
         _, metrics = loss_fn(batch, generator, False)
         return metrics
+
+    return train_step, eval_step
+
+
+def make_device_resident_steps(model: WorldModel, cfg, optimizer, scheduler,
+                               aug_spec: AugSpec, device: torch.device,
+                               observation_names, row_shapes):
+    """(train_step, eval_step) over a device-resident replay
+    (``data/device_buffer.py``), each ``step(buffer_arrays, idxs, draws,
+    generator) -> metrics``: the chunks are gathered on the device from
+    the [n, L] index matrix, then the step is ``make_train_step``'s on the
+    same raw batch layout."""
+    train_raw, eval_raw = make_train_step(model, cfg, optimizer, scheduler,
+                                          aug_spec, device)
+    names = tuple(observation_names)
+
+    def train_step(buffer_arrays, idxs, draws, generator):
+        return train_raw(gather_batch(buffer_arrays, idxs, names, row_shapes),
+                         draws, generator)
+
+    def eval_step(buffer_arrays, idxs, draws, generator):
+        return eval_raw(gather_batch(buffer_arrays, idxs, names, row_shapes),
+                        draws, generator)
 
     return train_step, eval_step

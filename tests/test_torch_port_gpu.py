@@ -192,3 +192,180 @@ def test_fused_codec_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fc.conv_in_glu_fwd(xb, w2, s2, s2, (1, 1))
     assert all(v == 0 for v in ck.launch_counts().values())
+
+
+# -- the training run's feed and persistence ------------------------------------
+
+SMALL = ["rssm.belief_size=64", "rssm.state_size=16", "rssm.hidden_size=64",
+         "rssm.embedding_size.image=64", "rssm.embedding_size.sound=32",
+         "rssm.embedding_size.fusion=64", "rssm.embedding_size.other=16",
+         "train.use_amp=False"]
+
+
+@pytest.fixture(scope="module")
+def host_buffer(tmp_path_factory):
+    """90 rows (3 episodes of 30) of the COBOTTA schema in a host replay."""
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.data import buffer
+    from multimodal_rssm_torch.data.synthetic import write_synthetic_dataset
+
+    path = str(tmp_path_factory.mktemp("episodes"))
+    write_synthetic_dataset(path, 3, 30, {"image_horizon": [3, 64, 64],
+                                          "sound": [128, 20]})
+    D = buffer.build_buffer(compose(overrides=["train.experience_size=200"]))
+    buffer.load_dataset(path, D, ".")
+    return D
+
+
+@pytest.mark.gpu
+def test_device_replay_gather_on_card_matches_cpu(cuda, host_buffer):
+    """DeviceReplay on the card and on the CPU hold the same rows, and
+    gather_batch of one index matrix (pinned, non-blocking index copy)
+    gives the same contiguous batch."""
+    from multimodal_rssm_torch.data import device_buffer as db
+
+    D = host_buffer
+    on_card = db.DeviceReplay(D, cuda)
+    on_cpu = db.DeviceReplay(D, torch.device("cpu"))
+    idxs = D.sample_indices(8, 6)
+    got = db.gather_batch(on_card.arrays, db.indices_to_device(idxs, cuda),
+                          D.observation_names, on_card.row_shapes)
+    want = db.gather_batch(on_cpu.arrays, torch.from_numpy(idxs),
+                           D.observation_names, on_cpu.row_shapes)
+    torch.cuda.synchronize()
+    for g, w in zip((*got[0].values(), *got[1:]), (*want[0].values(), *want[1:])):
+        assert g.is_cuda and g.is_contiguous() and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_streaming_refresh_waits_for_the_queued_step(cuda, host_buffer):
+    """A gather queued behind a busy stream, then three refreshes (the
+    third reuses the first staging buffer): the gather reads the rows as
+    they were, the refreshed arrays equal the CPU replay's after the same
+    draws, and a gather after the refreshes reads the new rows."""
+    from multimodal_rssm_torch.data import device_buffer as db
+
+    D, S, L = host_buffer, 16, 4
+    kw = dict(chunk_size=L, budget_bytes=1, segment_len=S, seed=0)
+    card = db.StreamingDeviceReplay(D, device=cuda, **kw)
+    cpu = db.StreamingDeviceReplay(D, device=torch.device("cpu"), **kw)
+    assert card.W == 2 and card.n_host_segments == 5
+    idxs, cpu_idxs = card.sample_indices(8, L), cpu.sample_indices(8, L)
+    names = D.observation_names
+    want_before = db.gather_batch(cpu.arrays, cpu_idxs, names, cpu.row_shapes)
+    first = card.resident.copy()
+    torch.cuda._sleep(200_000_000)           # ~0.1 s of a busy stream
+    before = db.gather_batch(card.arrays, idxs, names, card.row_shapes)
+    for _ in range(3):
+        assert card.refresh() == cpu.refresh()
+    after = db.gather_batch(card.arrays, idxs, names, card.row_shapes)
+    torch.cuda.synchronize()
+    assert not (card.resident == first).all()   # rows did change
+    for k in names:
+        assert torch.equal(before[0][k].cpu(), want_before[0][k]), k
+    for k, v in cpu.arrays.items():
+        assert torch.equal(card.arrays[k].cpu(), v), k
+    want_after = db.gather_batch(cpu.arrays, cpu_idxs, names, cpu.row_shapes)
+    for k in names:
+        assert torch.equal(after[0][k].cpu(), want_after[0][k]), k
+
+
+@pytest.mark.gpu
+def test_prefetcher_hands_batches_over_between_streams(cuda):
+    """Items made on the worker's stream behind a slow kernel reach the
+    caller's stream complete and in order."""
+    from multimodal_rssm_torch.train.prefetch import Prefetcher
+
+    made = []
+
+    def produce():
+        torch.cuda._sleep(20_000_000)
+        made.append(len(made))
+        return {"x": torch.full((1 << 20,), float(made[-1]), device=cuda)}
+
+    with Prefetcher(produce, depth=2, device=cuda) as pf:
+        sums = [float(pf.get()["x"].sum()) for _ in range(4)]
+    assert sums == [float(i * (1 << 20)) for i in range(4)]
+
+
+@pytest.mark.gpu
+def test_host_batch_feed_on_card_matches_cpu(cuda, host_buffer):
+    """The host feed's producer behind the prefetcher, five batches (its
+    two pinned staging batches each refilled twice, a busy stream before
+    each copy): every batch equals the CPU gather of the same draws."""
+    import copy
+
+    from multimodal_rssm_torch.data import buffer
+    from multimodal_rssm_torch.train.prefetch import Prefetcher
+
+    D, twin = host_buffer, copy.deepcopy(host_buffer)
+    feed = buffer.HostBatchFeed(D, 8, 6, cuda)
+
+    def produce():
+        torch.cuda._sleep(20_000_000)
+        return feed()
+
+    with Prefetcher(produce, depth=2, device=cuda) as pf:
+        got = [pf.get() for _ in range(5)]
+    torch.cuda.synchronize()
+    for state, (obs, act, rew, nt) in got:
+        wobs, wact, wrew, wnt = buffer.to_device(twin.sample(8, 6),
+                                                 torch.device("cpu"))
+        assert state == twin.rng.bit_generator.state
+        for k in wobs:
+            assert obs[k].is_cuda and torch.equal(obs[k].cpu(), wobs[k]), k
+        for g, w in ((act, wact), (rew, wrew), (nt, wnt)):
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """An async save of a model, Adam and a CUDA generator on the card,
+    followed at once by an in-place optimizer step: the file holds the
+    state at the save, and loads back bit-equal on the card."""
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.io import checkpoint as ckpt
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.train import trainer as tr
+
+    cfg = compose(overrides=SMALL + ["rssm.learning_rate_schedule=3"])
+
+    def build(seed):
+        model = WorldModel.from_config(cfg)
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        model.to(cuda)
+        return (model, *tr.build_optimizer(cfg, model))
+
+    def step(model, opt, sched, g):
+        for p in model.parameters():
+            p.grad = torch.randn(p.shape, generator=g, device=cuda)
+        opt.step()
+        sched.step()
+
+    model, opt, sched = build(0)
+    g = torch.Generator(cuda).manual_seed(1)
+    step(model, opt, sched, g)
+    want_model = {k: v.clone() for k, v in model.state_dict().items()}
+    want_opt = {i: {k: (v.clone() if torch.is_tensor(v) else v)
+                    for k, v in s.items()}
+                for i, s in opt.state_dict()["state"].items()}
+    saver = ckpt.AsyncCheckpointer()
+    saver.save(str(tmp_path), 1, model, opt, sched,
+               {"generator": g.get_state()})
+    step(model, opt, sched, g)               # in place, right after the save
+    path = saver.wait()
+    m2, o2, s2 = build(5)
+    step_no, extra = ckpt.load_checkpoint(path, m2, o2, s2)
+    assert step_no == 1
+    for k, v in m2.state_dict().items():
+        assert v.is_cuda and torch.equal(v, want_model[k]), k
+    for i, s in o2.state_dict()["state"].items():
+        for k, v in s.items():
+            assert torch.equal(v.to(want_opt[i][k].device), want_opt[i][k])
+    g2 = torch.Generator(cuda).set_state(extra["generator"])
+    assert s2.last_epoch == 1
+    step(m2, o2, s2, g2)
+    for k, v in m2.state_dict().items():
+        assert torch.equal(v, model.state_dict()[k]), k

@@ -365,6 +365,12 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 # -- (g) import hygiene -----------------------------------------------------------------
 
 
+# the training run's feed and persistence, and the native gather's source
+FEED_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
+    "core.runtime", "data.native", "data.device_buffer", "train.prefetch",
+    "io.checkpoint", "train.loop", "cli.train")]
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -374,8 +380,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'jaxlib', 'flax', 'optax', 'multimodal_rssm_tpu'))]\n"
-        "print(len(sys.modules), bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        f"missing = [m for m in {FEED_MODULES!r} if m not in sys.modules]\n"
+        "print(len(sys.modules), bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -383,9 +390,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "multimodal_rssm_torch")):
         files += [os.path.join(root, n) for n in names
-                  if n.endswith((".py", ".cu", ".yaml"))]
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp", ".yaml"))]
     for path in files:
         with open(path) as f:
             text = f.read()
         assert "multimodal_rssm_tpu" not in text, path
         assert "import jax" not in text and "from jax" not in text, path
+    assert os.path.join(REPO, "multimodal_rssm_torch", "csrc",
+                        "gather.cpp") in files
