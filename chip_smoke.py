@@ -11,7 +11,8 @@ each printed as one JSON line:
                at the main path's shapes (the bit-depth normalise on
                [50, 50, 64, 64, 3] f32, bit depth 5: exact equality, the
                quantised part against normalize_image_deterministic, noise
-               range and moments, seed determinism) and time both;
+               range and moments, seed determinism) and time both
+               (device time: calls captured in a CUDA graph, replayed);
 3. train    -- the port's train CLI, in process, on a synthetic COBOTTA-schema
                dataset at the default configuration's full width, batch 50 x
                chunk 50, with train.pallas_normalize=true, fed from the
@@ -34,6 +35,24 @@ each printed as one JSON line:
                restored model bit-equal on the card to the one saved; an
                async save's time on the loop's thread against a synchronous
                save's, and the file's size.
+3e. eval    -- on 3c's run (models_6.pt) at full width, float32, episodes
+               of 120 steps at batch 1, and on a twin of it whose config
+               says train.pallas_normalize=false (the shipped default):
+               the estimate_state CLI in process over both (one states
+               entry per episode file, beliefs [119, 1, 1024], posterior
+               means [119, 1, 128], the three experts, all finite, the
+               two runs' states alike; K1 launched once per episode of
+               each, counts reset just before; ms per episode), the
+               check_model CLI on the twin (every artifact, finite MSE /
+               PSNR / SSIM; K1 once per episode),
+               the card's det estimate, reconstruction and 20-step
+               imagination against the CPU's on the same weights and
+               prepared episode, the streaming filter frame by frame
+               against the card's own sequence estimate (both within
+               PARITY_RTOL |want| + EVAL_ATOL; median ms per frame over
+               the frames after 5), and K1's device time at an episode's
+               shape (20 launches in a CUDA graph: the wrapper's host
+               enqueue is longer than the kernel there).
                Every train run checks finite losses, K1 launched at least
                once per step, and prints its median steps/s over the steps
                after the first two, without the last (which also
@@ -114,6 +133,13 @@ OTHER_VARIANTS = {"conv_in_glu_fwd_wgmma": "conv_in_glu_fwd",
                   "conv_dgrad_wgmma": "conv_dgrad",
                   "conv_wgrad_wgmma": "conv_wgrad"}
 WMMA_TOL = {"float32": 1e-4}   # the WMMA kernels in f32 (bf16: FUSED_TOL)
+EVAL_ITR = 6           # the checkpoint phase's last checkpoint
+EVAL_T = 120           # steps of a synthetic episode (write_dataset)
+EVAL_T_START, EVAL_HORIZON = 20, 20
+# eval: card against CPU and filter against sequence, elementwise
+# |diff| <= PARITY_RTOL |want| + EVAL_ATOL (float32, TF32 off; beliefs,
+# posterior means and decoded means are O(0.1-1))
+EVAL_ATOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -187,10 +213,13 @@ def phase_kernel(device_name: str):
                        ck.normalize_image_plain(ragged, BIT_DEPTH, seed)):
         raise AssertionError("ragged / misaligned input disagrees")
 
-    kernel_ms = cuda_time_ms(lambda: ck.normalize_image(x, BIT_DEPTH, seed),
-                             20)
-    plain_ms = cuda_time_ms(
-        lambda: ck.normalize_image_plain(x, BIT_DEPTH, seed), 5, warmup=1)
+    # device times from CUDA graphs; the per-call event time (which also
+    # holds the wrapper's host enqueue) beside them, as PRs 1-7 read it
+    kernel_ms = graph_time_ms(lambda: ck.normalize_image(x, BIT_DEPTH, seed),
+                              20)
+    plain_ms = graph_time_ms(
+        lambda: ck.normalize_image_plain(x, BIT_DEPTH, seed), 2, reps=3)
+    call_ms = cuda_time_ms(lambda: ck.normalize_image(x, BIT_DEPTH, seed), 20)
     n = x.numel()
     bytes_ms = n * (4 + 4) / hbm_rate(device_name) * 1e3
     # float work per element: scale, floor, scale, shift, the mantissa's
@@ -207,7 +236,7 @@ def phase_kernel(device_name: str):
     emit({"phase": "kernel", "name": "normalize_image", "shape": list(SHAPE),
           "exact": True, "noise": stats, "seed_changed_fraction": changed,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "bound_ms": result["bound_ms"],
+          "call_event_ms": call_ms, "bound_ms": result["bound_ms"],
           "achieved_GBps": n * 8 / (kernel_ms * 1e-3) / 1e9})
     return result
 
@@ -305,6 +334,37 @@ def phase_train():
                       f"{SHAPE[0]} does not fit the card ({e}); halving the "
                       "batch"})
                 batch //= 2
+
+
+def graph_time_ms(fn, calls: int, reps: int = 5) -> float:
+    """Device milliseconds of one ``fn()``: ``calls`` calls captured in one
+    CUDA graph (after one call outside it), the graph replayed ``reps``
+    times between two CUDA events; the median replay over ``calls``.  The
+    host's time to enqueue a call is not in it, as it is in
+    ``cuda_time_ms`` of a call that is shorter than its enqueue."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
 
 
 def _host_ms(fn, reps: int) -> float:
@@ -425,10 +485,11 @@ def phase_feed(device_name: str):
           "device_gather_bound_ms": 2 * batch_bytes / hbm_rate(device_name) * 1e3})
 
 
-def phase_checkpoint():
+def phase_checkpoint(tmp: str) -> str:
     """Resume on the card, the restored state against the saved one, and
     an async save's cost to the loop against a synchronous save's (full
-    width: the model, Adam's moments and the schedule)."""
+    width: the model, Adam's moments and the schedule), on a dataset
+    written under ``tmp``.  Returns the run dir (checkpoints at 2, 4, 6)."""
     import torch
 
     from multimodal_rssm_torch.core.config import load_run_config
@@ -436,59 +497,299 @@ def phase_checkpoint():
     from multimodal_rssm_torch.models.world_model import WorldModel
     from multimodal_rssm_torch.train import trainer as tr
 
-    with tempfile.TemporaryDirectory() as tmp:
-        write_dataset(tmp, 4)
-        first, result, _ = train_run(
-            "checkpoint", tmp, ["train.train_iteration=4",
-                                "train.validation_interval=4",
-                                "train.checkpoint_interval=2",
-                                "main.experiment_name=chip_smoke_resume"],
-            4, "device_resident")
-        run_dir = result["results_dir"]
-        saved = {k: v.clone() for k, v in result["model"].state_dict().items()}
-        del result
-        resumed, result, _ = train_run(
-            "checkpoint", tmp, ["train.train_iteration=6",
-                                "train.validation_interval=6",
-                                "--resume", run_dir], 2, "device_resident",
-            first_step=5)
-        del result
-        cfg = load_run_config(run_dir)
-        model = WorldModel.from_config(cfg).to("cuda")
-        optimizer, scheduler = tr.build_optimizer(cfg, model)
-        path = os.path.join(run_dir, "models_4.pt")
-        step, extra = ckpt.load_checkpoint(path, model, optimizer, scheduler)
-        differ = [k for k, v in model.state_dict().items()
-                  if not (v.is_cuda and torch.equal(v, saved[k]))]
-        if step != 4 or differ or "generator" not in extra:
-            raise AssertionError(f"restored step {step}; tensors that differ "
-                                 f"from the saved model: {differ}")
-        del saved
+    write_dataset(tmp, 4)
+    first, result, _ = train_run(
+        "checkpoint", tmp, ["train.train_iteration=4",
+                            "train.validation_interval=4",
+                            "train.checkpoint_interval=2",
+                            "main.experiment_name=chip_smoke_resume"],
+        4, "device_resident")
+    run_dir = result["results_dir"]
+    saved = {k: v.clone() for k, v in result["model"].state_dict().items()}
+    del result
+    resumed, result, _ = train_run(
+        "checkpoint", tmp, ["train.train_iteration=6",
+                            "train.validation_interval=6",
+                            "--resume", run_dir], 2, "device_resident",
+        first_step=5)
+    del result
+    cfg = load_run_config(run_dir)
+    model = WorldModel.from_config(cfg).to("cuda")
+    optimizer, scheduler = tr.build_optimizer(cfg, model)
+    path = os.path.join(run_dir, "models_4.pt")
+    step, extra = ckpt.load_checkpoint(path, model, optimizer, scheduler)
+    differ = [k for k, v in model.state_dict().items()
+              if not (v.is_cuda and torch.equal(v, saved[k]))]
+    if step != 4 or differ or "generator" not in extra:
+        raise AssertionError(f"restored step {step}; tensors that differ "
+                             f"from the saved model: {differ}")
+    del saved
 
-        save_dir = os.path.join(tmp, "timing")
-        sync_ms = _host_ms(lambda i: ckpt.save_checkpoint(
-            save_dir, 1, model, optimizer, scheduler, extra), 3)
-        saver = ckpt.AsyncCheckpointer()
-        blocked, total = [], []
-        for i in range(4):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            saver.save(save_dir, 2, model, optimizer, scheduler, extra)
-            t1 = time.perf_counter()
-            saver.wait()
-            t2 = time.perf_counter()
-            if i:          # the first call allocates the pinned buffers
-                blocked.append((t1 - t0) * 1e3)
-                total.append((t2 - t0) * 1e3)
-        size = os.path.getsize(os.path.join(save_dir, "models_2.pt"))
-    record = {"phase": "checkpoint_save", "restored_bit_equal": True,
-              "file_MB": size / 1e6, "sync_save_ms": sync_ms,
-              "async_save_blocking_ms": statistics.median(blocked),
-              "async_save_until_written_ms": statistics.median(total),
-              "resume": {"first": first["step_seconds"],
-                         "resumed": resumed["step_seconds"]}}
+    save_dir = os.path.join(tmp, "timing")
+    sync_ms = _host_ms(lambda i: ckpt.save_checkpoint(
+        save_dir, 1, model, optimizer, scheduler, extra), 3)
+    saver = ckpt.AsyncCheckpointer()
+    blocked, total = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save(save_dir, 2, model, optimizer, scheduler, extra)
+        t1 = time.perf_counter()
+        saver.wait()
+        t2 = time.perf_counter()
+        if i:          # the first call allocates the pinned buffers
+            blocked.append((t1 - t0) * 1e3)
+            total.append((t2 - t0) * 1e3)
+    size = os.path.getsize(os.path.join(save_dir, "models_2.pt"))
+    emit({"phase": "checkpoint_save", "restored_bit_equal": True,
+          "file_MB": size / 1e6, "sync_save_ms": sync_ms,
+          "async_save_blocking_ms": statistics.median(blocked),
+          "async_save_until_written_ms": statistics.median(total),
+          "resume": {"first": first["step_seconds"],
+                     "resumed": resumed["step_seconds"]}})
+    return run_dir
+
+
+def _all_finite(tree) -> bool:
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return all(_all_finite(v) for v in tree.values())
+    return bool(np.isfinite(np.asarray(tree)).all())
+
+
+def _eval_err(got, want) -> dict:
+    """Max |diff| and max |diff| / (|want| + EVAL_ATOL / PARITY_RTOL) of two
+    tensors; ``ok`` when |diff| <= PARITY_RTOL |want| + EVAL_ATOL
+    everywhere."""
+    d = (got.detach().cpu().double() - want.detach().cpu().double()).abs()
+    w = want.detach().cpu().double().abs()
+    return {"max_abs": float(d.max()),
+            "max_rel": float((d / (w + EVAL_ATOL / PARITY_RTOL)).max()),
+            "ok": bool((d <= PARITY_RTOL * w + EVAL_ATOL).all())}
+
+
+def phase_eval(tmp: str, run_dir: str, device_name: str) -> dict:
+    """The offline evaluation at full width on the checkpoint phase's run:
+    ``cli.estimate_state`` in process over that run and a twin of it whose
+    config says ``train.pallas_normalize=false``, the shipped default (one
+    entry per episode file, shapes, finite values, the two runs' states
+    alike, K1 launched once per episode of each, ms per episode),
+    ``cli.check_model`` (its artifacts and finite metrics), the card's det
+    estimate, reconstruction and 20-step imagination against the CPU's on
+    the same weights and prepared observations, and the streaming filter
+    frame by frame against the card's own sequence estimate (ms per
+    frame).  Returns K1's launches on the two entry points and K1's device
+    time at an episode's shape."""
+    import numpy as np
+    import torch
+
+    from multimodal_rssm_torch.cli import check_model, estimate_state
+    from multimodal_rssm_torch.core.config import (
+        apply_overrides, load_run_config, save_config)
+    from multimodal_rssm_torch.data.buffer import build_buffer, load_dataset
+    from multimodal_rssm_torch.eval import imagination
+    from multimodal_rssm_torch.eval import state_estimation as se
+    from multimodal_rssm_torch.eval.streaming import OnlineFilter
+    from multimodal_rssm_torch.io.checkpoint import find_model_checkpoint
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.train import trainer as tr
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = load_run_config(run_dir)
+    D = build_buffer(cfg)
+    load_dataset(tmp, D, cfg.train.train_data_path)
+    n_epi = D.episodes
+    # the same weights under the shipped default, K1 off in training
+    twin = run_dir.rstrip(os.sep) + "_trained_without_k1"
+    os.makedirs(twin)
+    save_config(apply_overrides(load_run_config(run_dir),
+                                ["train.pallas_normalize=false"]),
+                os.path.join(twin, "hydra_config.yaml"))
+    os.link(os.path.join(run_dir, f"models_{EVAL_ITR}.pt"),
+            os.path.join(twin, f"models_{EVAL_ITR}.pt"))
+    if load_run_config(twin).train.pallas_normalize is not False:
+        raise AssertionError("the twin run's config does not turn K1 off")
+
+    # cli.estimate_state, each episode's estimate timed to its end
+    episode_ms = []
+    estimate = se.estimate_episode
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = estimate(*args, **kwargs)
+        torch.cuda.synchronize()
+        episode_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ck.reset_launch_counts()
+    se.estimate_episode = timed
+    try:
+        t0 = time.perf_counter()
+        saved = estimate_state.main(["--targets", os.path.dirname(run_dir),
+                                     "--itr", str(EVAL_ITR), "--cwd", tmp])
+        estimate_s = time.perf_counter() - t0
+    finally:
+        se.estimate_episode = estimate
+    est_launches = {k: v for k, v in ck.launch_counts().items() if v}
+    want_saved = {os.path.join(d, f"states_models_{EVAL_ITR}.npy")
+                  for d in (run_dir, twin)}
+    if len(saved) != 2 or set(saved) != want_saved:
+        raise AssertionError(f"estimate_state saved {saved}")
+    states, twin_states = (
+        np.load(os.path.join(d, f"states_models_{EVAL_ITR}.npy"),
+                allow_pickle=True).item() for d in (run_dir, twin))
+    experts = {"prior_expert", "image_horizon", "sound"}
+    bad = [name for name, s in states.items()
+           if s["beliefs"].shape != (EVAL_T - 1, 1, 1024)
+           or s["posterior_means"].shape != (EVAL_T - 1, 1, 128)
+           or set(s["expert_means"]) != experts or not _all_finite(s)]
+    if list(states) != D.file_names or list(twin_states) != D.file_names or bad:
+        raise AssertionError(f"states of {list(states)} / {list(twin_states)}"
+                             f" (want {D.file_names}); wrong or not finite: "
+                             f"{bad}")
+    twin_err = {f"{name}/{k}": _eval_err(torch.from_numpy(twin_states[name][k]),
+                                         torch.from_numpy(s[k]))
+                for name, s in states.items()
+                for k in ("beliefs", "posterior_means")}
+    if not all(e["ok"] for e in twin_err.values()):
+        raise AssertionError(f"the twin run's states differ: {twin_err}")
+    if est_launches != {"normalize_image": 2 * n_epi}:
+        raise AssertionError(f"estimate_state over 2 runs of {n_epi} "
+                             f"episodes launched {est_launches}")
+
+    # cli.check_model, on the run whose config turns K1 off
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = check_model.main(["--run", twin, "--itr", str(EVAL_ITR),
+                               "--episode", "0", "--t-start",
+                               str(EVAL_T_START), "--horizon",
+                               str(EVAL_HORIZON), "--cwd", tmp])
+    check_s = time.perf_counter() - t0
+    check_launches = {k: v for k, v in ck.launch_counts().items() if v}
+    files = set(report["files"])
+    missing = [f for f in ("pca_beliefs.npy", "pca_posterior_means.npy",
+                           "expert_distributions.npy", "imagination_mse.json")
+               if f not in files]
+    missing += [f"{tag}_image_horizon.png|.npy"
+                for tag in ("reconstruction", "imagination")
+                if not files & {f"{tag}_image_horizon.png",
+                                f"{tag}_image_horizon.npy"}]
+    quality = report["metrics"]
+    if (missing or not _all_finite(report["mse"])
+            or not _all_finite(quality) or "ssim" not in quality["image_horizon"]
+            or (report["t_start"], report["horizon"])
+            != (EVAL_T_START, EVAL_HORIZON)):
+        raise AssertionError(f"check_model: missing {missing}; {report}")
+    if check_launches != {"normalize_image": n_epi}:
+        raise AssertionError(f"check_model launched {check_launches}")
+
+    # the card against the CPU: same weights, same prepared episode
+    path = find_model_checkpoint(run_dir, EVAL_ITR)
+    card = se.load_eval_model(cfg, path, dev)
+    cpu = se.load_eval_model(cfg, path, torch.device("cpu"))
+    spec = tr.build_aug_spec(D)
+    obs, act, _, nt = se.get_episode_data(
+        D, 0, spec, se.fixed_draws(D, spec), int(cfg.env.bit_depth),
+        torch.Generator(dev).manual_seed(0), dev)
+    obs = {k: v[1:] for k, v in obs.items()}
+    act, nt = act[:-1], nt[:-1]
+
+    def evaluate(model, to):
+        with torch.no_grad():
+            s = model.estimate_state({k: v.to(to) for k, v in obs.items()},
+                                     act.to(to), nt.to(to))
+        _, preds = imagination.imagine(model, s, act.to(to), EVAL_T_START,
+                                       EVAL_HORIZON)
+        return s, imagination.reconstruct(model, s), preds
+
+    t0 = time.perf_counter()
+    c_states, c_recon, c_preds = evaluate(cpu, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    g_states, g_recon, g_preds = evaluate(card, dev)
+    parity = {k: _eval_err(g_states[k], c_states[k])
+              for k in ("beliefs", "posterior_means")}
+    for tag, g, c in (("reconstruct", g_recon, c_recon),
+                      ("imagine", g_preds, c_preds)):
+        for name in g:
+            parity[f"{tag}/{name}"] = _eval_err(g[name]["loc"], c[name]["loc"])
+    del cpu, c_states, c_recon, c_preds
+
+    # the streaming filter, frame by frame on the card
+    filt = OnlineFilter(card)
+    filt.reset(1)
+    frame_ms, steps = [], []
+    for t in range(act.shape[0]):
+        frame = {k: v[t] for k, v in obs.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.append(filt.step(act[t], frame, nt[t]))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    timed_frames = frame_ms[5:]
+    filt_err = {k: _eval_err(torch.stack([s[k] for s in steps]), g_states[k])
+                for k in ("beliefs", "posterior_means", "posterior_states")}
+    # of a frame: the encoders on one frame (the rest is the core step)
+    frame0 = {k: v[:1] for k, v in obs.items()}
+    with torch.no_grad():
+        encode_frame_ms = _host_ms(
+            lambda i: (card.encode(frame0), torch.cuda.synchronize()), 20)
+
+    # K1 at an episode's shape (one launch of cli.estimate_state); device
+    # times from CUDA graphs: at this size the wrapper's host enqueue
+    # (host_enqueue_ms) is longer than the kernel
+    x = torch.randint(0, 256, (EVAL_T, 1, 64, 64, 3), device=dev,
+                      generator=torch.Generator(dev).manual_seed(1),
+                      dtype=torch.uint8).float()
+    seed = torch.tensor(7, dtype=torch.int64, device=dev)
+    if not torch.equal(ck.normalize_image(x, BIT_DEPTH, seed),
+                       ck.normalize_image_plain(x, BIT_DEPTH, seed)):
+        raise AssertionError("K1 != its plain version at an episode's shape")
+    k1_ms = graph_time_ms(lambda: ck.normalize_image(x, BIT_DEPTH, seed), 20)
+    k1_plain_ms = graph_time_ms(
+        lambda: ck.normalize_image_plain(x, BIT_DEPTH, seed), 5)
+    # the wrapper's host time to enqueue one launch (checks, allocation,
+    # the ctypes call), no synchronisation
+    k1_host_ms = _host_ms(lambda i: ck.normalize_image(x, BIT_DEPTH, seed), 50)
+    torch.cuda.synchronize()
+    k1_bound_ms = x.numel() * 8 / hbm_rate(device_name) * 1e3
+    record = {
+        "phase": "eval", "itr": EVAL_ITR, "episodes": n_epi,
+        "episode_steps": EVAL_T, "dtype": "float32",
+        "estimate_state": {"runs": 2, "states_entries": len(states),
+                           "twin_run_max_rel": max(
+                               e["max_rel"] for e in twin_err.values()),
+                           "episode_ms": episode_ms,
+                           "median_episode_ms": statistics.median(episode_ms),
+                           "seconds": estimate_s, "launches": est_launches},
+        "check_model": {"seconds": check_s, "files": sorted(files),
+                        "mse": report["mse"], "metrics": quality,
+                        "launches": check_launches},
+        "card_vs_cpu": {"rtol": PARITY_RTOL, "atol": EVAL_ATOL,
+                        "cpu_seconds": cpu_s, "errors": parity},
+        "filter": {"frames": len(frame_ms), "timed_frames": len(timed_frames),
+                   "median_frame_ms": statistics.median(timed_frames),
+                   "encode_frame_ms": encode_frame_ms,
+                   "rtol": PARITY_RTOL, "atol": EVAL_ATOL,
+                   "errors": filt_err},
+        "k1_episode_shape": {"shape": list(x.shape), "ms": k1_ms,
+                             "plain_ms": k1_plain_ms,
+                             "host_enqueue_ms": k1_host_ms,
+                             "bound_ms": k1_bound_ms},
+        "wall_seconds": time.perf_counter() - t_phase}
     emit(record)
-    return record
+    failed = {k: e for k, e in {**parity, **{f"filter/{k}": e for k, e in
+                                            filt_err.items()}}.items()
+              if not e["ok"]}
+    if failed or len(timed_frames) < 100:
+        raise AssertionError(f"eval: outside rtol {PARITY_RTOL} + atol "
+                             f"{EVAL_ATOL}: {failed}; {len(timed_frames)} "
+                             "timed frames")
+    return {"estimate_state": est_launches["normalize_image"],
+            "check_model": check_launches["normalize_image"],
+            "episode_shape_ms": k1_ms}
 
 
 def budget_run(reserve_bytes: Optional[int]) -> dict:
@@ -942,11 +1243,18 @@ def main() -> int:
     kernel = phase_kernel(name)
     launches = phase_train()
     phase_feed(name)
-    phase_checkpoint()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = phase_checkpoint(tmp)
+        eval_k1 = phase_eval(tmp, run_dir, name)
     phase_budget()
     phase_parity()
     fused = phase_fused_codec(name, launches)
     kernel["launches"] = launches["normalize_image"]
+    kernel["launches_by_path"] = {
+        "train": launches["normalize_image"],
+        "estimate_state": eval_k1["estimate_state"],
+        "check_model": eval_k1["check_model"]}
+    kernel["eval_episode_shape_ms"] = eval_k1["episode_shape_ms"]
     emit({"kernels": [kernel, *fused]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

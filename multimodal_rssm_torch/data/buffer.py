@@ -59,6 +59,7 @@ class ExperienceReplay:
         self.full = False
         self.steps = 0
         self.episodes = 0
+        self.file_names: List[str] = []   # loaded episode files, in order
         self.lambd_eigen_values: Dict[str, Optional[np.ndarray]] = {}
         self.p_eigen_vectors: Dict[str, Optional[np.ndarray]] = {}
         self.observations: Dict[str, np.ndarray] = {}
@@ -138,6 +139,7 @@ class ExperienceReplay:
             raise FileNotFoundError(
                 f"no episode files (*.npy) in {dataset_dir} — point "
                 "train.*_data_path at the episode directory itself")
+        self.file_names += file_names
         n = self.load_workers if workers is None else int(workers)
         read = functools.partial(get_data, n_crop=self.n_crop,
                                  dh_base=self.dh_base, dw_base=self.dw_base)

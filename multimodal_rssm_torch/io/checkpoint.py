@@ -10,6 +10,8 @@ for ``--resume``; ``load_checkpoint`` restores strictly.
 
 ``load_reference_checkpoint`` reads a reference ``models_{itr}.pth`` (the
 nested ``model_dicts`` layout) into the port's model.
+``find_model_checkpoint`` / ``load_model_weights`` give evaluation a run
+dir's ``models_{itr}`` weights, from a ``.pt`` or a ``.pth``.
 """
 
 from __future__ import annotations
@@ -228,3 +230,38 @@ def load_reference_checkpoint(path: str, model) -> None:
     model_dicts = {k: v for k, v in model_dicts.items()
                    if k != "model_optimizer"}
     model.load_state_dict(_flatten_reference(model_dicts), strict=True)
+
+
+# the weight files a run dir may hold, in the order evaluation takes them
+MODEL_SUFFIXES = (".pt", ".pth", ".msgpack")
+
+
+def load_model_weights(path: str, model) -> None:
+    """The model's weights (running stats included) for evaluation,
+    strictly: from a port checkpoint ``.pt`` (its ``model`` entry) or a
+    reference ``.pth``.  A JAX package ``.msgpack`` raises
+    ``NotImplementedError``."""
+    if path.endswith(".pt"):
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        model.load_state_dict(payload["model"], strict=True)
+    elif path.endswith(".pth"):
+        load_reference_checkpoint(path, model)
+    elif path.endswith(".msgpack"):
+        raise NotImplementedError(
+            f"{path}: the JAX package's .msgpack checkpoints need flax to "
+            "read; loading them waits for ROADMAP queue 1 item 10 (convert "
+            "with the JAX package's bridge)")
+    else:
+        raise ValueError(f"{path}: not a .pth or .pt file")
+
+
+def find_model_checkpoint(run_dir: str, itr: int) -> str:
+    """``{run_dir}/models_{itr}`` with the first suffix of
+    ``MODEL_SUFFIXES`` that exists; raises ``FileNotFoundError`` if none
+    does."""
+    for ext in MODEL_SUFFIXES:
+        path = os.path.join(run_dir, f"models_{itr}{ext}")
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"no models_{itr}{{{','.join(MODEL_SUFFIXES)}}} "
+                            f"checkpoint in {run_dir}")

@@ -127,7 +127,8 @@ def build_encoder(name: str, observation_shapes: Mapping[str, Sequence[int]],
 
 class MultimodalEncoder(nn.ModuleDict):
     """Dict-in/dict-out encoder, one child per modality, keyed by its name
-    as in the reference's ``encoder[name]`` state dicts (ref :746-810)."""
+    as in the reference's ``encoder[name]`` state dicts (ref :746-810).  It
+    encodes the modalities it is given."""
 
     def __init__(self, observation_names_enc: Sequence[str],
                  observation_shapes: Mapping[str, Sequence[int]],
@@ -141,4 +142,4 @@ class MultimodalEncoder(nn.ModuleDict):
 
     def forward(self, observations: Mapping[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-        return {name: enc(observations[name]) for name, enc in self.items()}
+        return {name: self[name](x) for name, x in observations.items()}

@@ -9,6 +9,15 @@ configuration: multimodal MoPoE over ``q(st|ht,ot)`` experts with a
 Gaussian latent and, as in the reference, a relu core (reference quirk:
 its multimodal transition models never receive
 ``activation_function.dense``).
+
+Beside ``train_forward`` it serves evaluation and streaming inference:
+``estimate_state_from`` (any initial belief and state), ``filter_step``
+(one frame), ``rollout_prior`` (open loop) and ``decode``.  The posterior
+entry points take ``names``, the modalities whose encoders and experts run
+(default: all; a cross-modal estimate passes a subset).  Their mode is the
+caller's:
+evaluation runs the model in ``eval()`` mode, so the norms read their
+running statistics.
 """
 
 from __future__ import annotations
@@ -69,44 +78,121 @@ class WorldModel(nn.Module):
         self.reward_model = RewardModel(belief_size, state_size, hidden_size,
                                         activation_function["dense"])
 
-    def encode(self, observations: Mapping[str, torch.Tensor]
+    def resolve_names(self, names: Optional[Sequence[str]] = None
+                      ) -> Tuple[str, ...]:
+        """``names`` as a tuple (default: every encoded modality); raises
+        on a modality this model does not encode."""
+        if names is None:
+            return self.observation_names_enc
+        unknown = set(names) - set(self.observation_names_enc)
+        if unknown:
+            raise ValueError(f"{sorted(unknown)} are not encoded modalities "
+                             f"{self.observation_names_enc}")
+        return tuple(names)
+
+    def encode(self, observations: Mapping[str, torch.Tensor],
+               names: Optional[Sequence[str]] = None
                ) -> Dict[str, torch.Tensor]:
-        """Encoder over the folded (T*B) batch -> {name: [T, B, E]}."""
-        T, B = next(iter(observations.values())).shape[:2]
-        obs = {n: observations[n] for n in self.observation_names_enc}
+        """Encoder over the folded (T*B) batch -> {name: [T, B, E]}, for
+        the modalities ``names`` (default: all)."""
+        obs = {n: observations[n] for n in self.resolve_names(names)}
+        T, B = next(iter(obs.values())).shape[:2]
         return bottle(self.encoder, obs, T, B)
+
+    def noise_shape(self, T: int, B: int) -> Tuple[int, int, int]:
+        """Shape of one rollout's reparameterisation noise: standard normal
+        [T, B, S] (the Gaussian latent; zeros are the deterministic
+        rollout)."""
+        return (T, B, self.state_size)
 
     def draw_state_noise(self, generator: torch.Generator, T: int, B: int
                          ) -> torch.Tensor:
-        return torch.randn((T, B, self.state_size), generator=generator,
+        return torch.randn(self.noise_shape(T, B), generator=generator,
                            device=generator.device)
+
+    def _noise(self, generator: Optional[torch.Generator], T: int, B: int,
+               device: torch.device) -> torch.Tensor:
+        if generator is None:
+            return torch.zeros(self.noise_shape(T, B), device=device)
+        return self.draw_state_noise(generator, T, B)
 
     def estimate_state(self, observations: Mapping[str, torch.Tensor],
                        actions: torch.Tensor,
                        nonterminals: Optional[torch.Tensor],
-                       generator: Optional[torch.Generator] = None
+                       generator: Optional[torch.Generator] = None,
+                       names: Optional[Sequence[str]] = None
                        ) -> Dict[str, torch.Tensor]:
         """Posterior rollout from zero belief/state over [T, B] targets.
         ``generator=None`` is the deterministic rollout (zero noise)."""
+        B = actions.shape[1]
+        return self.estimate_state_from(
+            torch.zeros(B, self.belief_size, device=actions.device),
+            torch.zeros(B, self.state_size, device=actions.device),
+            observations, actions, nonterminals, generator, names)
+
+    def estimate_state_from(self, init_belief: torch.Tensor,
+                            init_state: torch.Tensor,
+                            observations: Mapping[str, torch.Tensor],
+                            actions: torch.Tensor,
+                            nonterminals: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None,
+                            names: Optional[Sequence[str]] = None
+                            ) -> Dict[str, torch.Tensor]:
+        """``estimate_state`` from a given (belief [B, H], state [B, S]):
+        the building block of streaming and warm-started inference.  The
+        state dict holds the experts twice: stacked [T, K, B, S] and as
+        dicts keyed by 'prior_expert' + modality."""
+        names = self.resolve_names(names)
         T, B = actions.shape[:2]
-        obs_emb = self.encode(observations)
-        if generator is None:
-            eps_prior = eps_post = torch.zeros(T, B, self.state_size,
-                                               device=actions.device)
-        else:
-            eps_prior = self.draw_state_noise(generator, T, B)
-            eps_post = self.draw_state_noise(generator, T, B)
-        init_h = torch.zeros(B, self.belief_size, device=actions.device)
-        init_s = torch.zeros(B, self.state_size, device=actions.device)
-        states = self.transition_model(init_h, init_s, actions, nonterminals,
-                                       obs_emb, eps_prior, eps_post)
+        obs_emb = self.encode(observations, names)
+        eps_prior = self._noise(generator, T, B, actions.device)
+        eps_post = self._noise(generator, T, B, actions.device)
+        states = self.transition_model(init_belief, init_state, actions,
+                                       nonterminals, obs_emb, eps_prior,
+                                       eps_post, names)
         states["expert_means_stacked"] = states["expert_means"]
         states["expert_std_devs_stacked"] = states["expert_std_devs"]
         states["expert_means"] = expert_dict(states["expert_means_stacked"],
-                                             self.observation_names_enc)
+                                             names)
         states["expert_std_devs"] = expert_dict(
-            states["expert_std_devs_stacked"], self.observation_names_enc)
+            states["expert_std_devs_stacked"], names)
         return states
+
+    def filter_step(self, belief: torch.Tensor, state: torch.Tensor,
+                    action: torch.Tensor,
+                    observations: Mapping[str, torch.Tensor],
+                    nonterminal: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    names: Optional[Sequence[str]] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """One online posterior update: ``estimate_state_from`` over one
+        frame (belief [B, H], state [B, S], action [B, A], observations
+        {name: [B, ...]}, nonterminal [B, 1]), the time axis squeezed.
+        Carry ``beliefs`` and ``posterior_states`` forward."""
+        states = self.estimate_state_from(
+            belief, state, {k: v[None] for k, v in observations.items()},
+            action[None], None if nonterminal is None else nonterminal[None],
+            generator, names)
+        return {k: ({n: x[0] for n, x in v.items()} if isinstance(v, dict)
+                    else v[0]) for k, v in states.items()}
+
+    def rollout_prior(self, init_belief: torch.Tensor,
+                      init_state: torch.Tensor, actions: torch.Tensor,
+                      nonterminals: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """Open-loop prior rollout over [T, B, A] actions (imagination);
+        ``generator=None`` is the deterministic (mean) rollout."""
+        T, B = actions.shape[:2]
+        return self.transition_model.prior_rollout(
+            init_belief, init_state, actions, nonterminals,
+            self._noise(generator, T, B, actions.device))
+
+    def decode(self, beliefs: torch.Tensor, states: torch.Tensor
+               ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Per-modality reconstructions {name: {loc, scale}} of [T, B, .]
+        beliefs and states."""
+        return self.observation_model(beliefs, states)
 
     def train_forward(self, observations_target: Mapping[str, torch.Tensor],
                       actions: torch.Tensor,

@@ -122,17 +122,10 @@ def load_model_path(cfg, cwd: str, model, optimizer, scheduler) -> None:
     path = os.path.join(cwd, str(cfg.train.model_path))
     if not os.path.exists(path):
         raise FileNotFoundError(f"train.model_path {path} does not exist")
-    if path.endswith(".pth"):
-        ckpt.load_reference_checkpoint(path, model)
-    elif path.endswith(".pt"):
+    if path.endswith(".pt"):
         ckpt.load_checkpoint(path, model, optimizer, scheduler)
-    elif path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"train.model_path {path}: the JAX package's .msgpack "
-            "checkpoints need flax to read; loading them waits for ROADMAP "
-            "queue 1 item 10 (convert with the JAX package's bridge)")
     else:
-        raise ValueError(f"train.model_path {path}: not a .pth or .pt file")
+        ckpt.load_model_weights(path, model)
     print(f"model weights from {path}")
 
 

@@ -369,3 +369,135 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     step(m2, o2, s2, g2)
     for k, v in m2.state_dict().items():
         assert torch.equal(v, model.state_dict()[k]), k
+
+
+# -- offline evaluation ---------------------------------------------------------
+
+
+@pytest.fixture
+def eval_models(cuda):
+    """A seeded small model on the CPU and its copy on the card, both in
+    eval mode, float32 with TF32 off."""
+    import copy
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.core.device import configure_float32
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+
+    configure_float32()
+    model = WorldModel.from_config(compose(overrides=SMALL))
+    init_parameters(model, torch.Generator().manual_seed(0))
+    return model.eval(), copy.deepcopy(model).to(cuda).eval()
+
+
+def _assert_states_close(got, want, rtol=1e-4, atol=1e-4):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if isinstance(w, dict):
+            _assert_states_close(got[k], w, rtol, atol)
+        else:
+            torch.testing.assert_close(got[k].cpu(), w.cpu(), rtol=rtol,
+                                       atol=atol, msg=k)
+
+
+@pytest.mark.gpu
+def test_estimate_episode_on_card_matches_cpu(cuda, host_buffer, eval_models):
+    """One episode's det estimate through K1 on the card against the CPU
+    model on the same prepared observations (the card's generator,
+    seeded alike, draws the same normalise seed): rtol 1e-4, TF32 off."""
+    from multimodal_rssm_torch.eval import state_estimation as se
+    from multimodal_rssm_torch.train import trainer as tr
+
+    cpu_model, card_model = eval_models
+    D = host_buffer
+    spec = tr.build_aug_spec(D)
+    obs, act, _, nt = se.get_episode_data(
+        D, 1, spec, se.fixed_draws(D, spec), 5,
+        torch.Generator(cuda).manual_seed(3), cuda)
+    got = se.estimate_episode(card_model, D, 1, spec, 5,
+                              torch.Generator(cuda).manual_seed(3), det=True)
+    with torch.no_grad():
+        want = cpu_model.estimate_state({k: v[1:].cpu() for k, v in obs.items()},
+                                        act[:-1].cpu(), nt[:-1].cpu())
+    assert got["beliefs"].device.type == cuda.type
+    assert got["beliefs"].shape == (29, 1, 64)
+    _assert_states_close(got, want)
+
+
+@pytest.mark.gpu
+def test_get_states_on_card_launches_k1_once_per_episode(cuda, host_buffer,
+                                                          eval_models):
+    from multimodal_rssm_torch.eval import state_estimation as se
+
+    _, card_model = eval_models
+    ck.reset_launch_counts()
+    states = se.get_states(card_model, host_buffer)
+    assert ck.launch_counts()["normalize_image"] == host_buffer.episodes == 3
+    assert list(states) == host_buffer.file_names
+    assert all(s["posterior_means"].shape == (29, 1, 16)
+               for s in states.values())
+
+
+@pytest.mark.gpu
+def test_online_filter_on_card_matches_sequence(cuda, host_buffer,
+                                                eval_models):
+    """The streaming filter over an episode, frame by frame on the card,
+    equals the card's own det ``estimate_state`` (rtol 1e-4)."""
+    from multimodal_rssm_torch.eval import state_estimation as se
+    from multimodal_rssm_torch.eval.streaming import OnlineFilter
+    from multimodal_rssm_torch.train import trainer as tr
+
+    _, card_model = eval_models
+    D = host_buffer
+    spec = tr.build_aug_spec(D)
+    obs, act, _, nt = se.get_episode_data(
+        D, 2, spec, se.fixed_draws(D, spec), 5,
+        torch.Generator(cuda).manual_seed(4), cuda)
+    obs = {k: v[1:] for k, v in obs.items()}
+    act, nt = act[:-1], nt[:-1]
+    with torch.no_grad():
+        seq = card_model.estimate_state(obs, act, nt)
+    filt = OnlineFilter(card_model)
+    steps = [filt.step(act[t], {k: v[t] for k, v in obs.items()}, nt[t])
+             for t in range(act.shape[0])]
+    for key in ("beliefs", "posterior_means", "prior_means"):
+        torch.testing.assert_close(torch.stack([s[key] for s in steps]),
+                                   seq[key], rtol=1e-4, atol=1e-4, msg=key)
+    assert filt.decode()["image_horizon"]["loc"].shape == (1, 64, 64, 3)
+
+
+@pytest.mark.gpu
+def test_estimate_state_cli_launches_k1_for_a_run_trained_without_it(
+        cuda, tmp_path):
+    """A run trained on the card with the shipped default
+    ``train.pallas_normalize=false`` (K1 never launched in training), then
+    ``cli.estimate_state`` and ``cli.check_model`` on the card: each
+    normalises every episode through K1, once per episode."""
+    import os
+
+    from multimodal_rssm_torch.cli import check_model, estimate_state, train
+    from multimodal_rssm_torch.core.config import load_run_config
+    from multimodal_rssm_torch.data.synthetic import write_synthetic_dataset
+
+    shapes = {"image_horizon": [3, 64, 64], "sound": [128, 20]}
+    write_synthetic_dataset(str(tmp_path / "train"), 3, 30, shapes)
+    write_synthetic_dataset(str(tmp_path / "val"), 1, 30, shapes, seed=9)
+    ck.reset_launch_counts()
+    run_dir = train.main(SMALL + [
+        f"train.train_data_path=[{tmp_path}/train]",
+        f"train.validation_data_path=[{tmp_path}/val]", "train.batch_size=2",
+        "train.chunk_size=4", "train.train_iteration=2",
+        "train.validation_interval=2", "train.checkpoint_interval=2",
+        "train.experience_size=200", "main.experiment_name=eval_k1",
+        "--cwd", str(tmp_path)])["results_dir"]
+    assert load_run_config(run_dir).train.pallas_normalize is False
+    assert ck.launch_counts()["normalize_image"] == 0
+    saved = estimate_state.main(["--targets", os.path.dirname(run_dir),
+                                 "--itr", "2", "--cwd", str(tmp_path)])
+    assert len(saved) == 1
+    assert ck.launch_counts()["normalize_image"] == 3
+    ck.reset_launch_counts()
+    check_model.main(["--run", run_dir, "--itr", "2", "--t-start", "5",
+                      "--horizon", "10", "--cwd", str(tmp_path)])
+    assert ck.launch_counts()["normalize_image"] == 3

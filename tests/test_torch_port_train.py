@@ -369,18 +369,28 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 FEED_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
     "core.runtime", "data.native", "data.device_buffer", "train.prefetch",
     "io.checkpoint", "train.loop", "cli.train")]
+# offline evaluation and its entry points
+EVAL_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
+    "eval.state_estimation", "eval.imagination", "eval.metrics",
+    "eval.streaming", "eval.visualize", "cli.estimate_state",
+    "cli.check_model")]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Nor, at import, scikit-learn, PIL or matplotlib, which the card's
+    machine lacks (the eval CLIs import PIL and matplotlib only where they
+    write images, and skip those without them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import multimodal_rssm_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
-        "'jaxlib', 'flax', 'optax', 'multimodal_rssm_tpu'))]\n"
-        f"missing = [m for m in {FEED_MODULES!r} if m not in sys.modules]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'sklearn', 'PIL', "
+        "'matplotlib') or m.startswith(('jax.', 'jaxlib', 'flax', 'optax', "
+        "'multimodal_rssm_tpu'))]\n"
+        f"missing = [m for m in {FEED_MODULES + EVAL_MODULES!r} "
+        "if m not in sys.modules]\n"
         "print(len(sys.modules), bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
