@@ -66,6 +66,21 @@ each printed as one JSON line:
 4. parity   -- the same weights on the card and on the CPU, float32,
                deterministic (generator=None), batch 2 x chunk 4 at full
                width: loss, every metric and the gradient norms agree;
+4b. variants -- the RSSM's model variants at full width (VARIANT_RUNS:
+               rssm=unimodal, PoE fusion, PoE with q(st|ot) experts,
+               categorical latents 32 x 32, overshooting at D = 50 with
+               beta 1, the log-prob ELBO with predict_reward), each 4 steps
+               and one validation through the train CLI at batch 50 x
+               chunk 50, bf16, K1 on: finite metrics, the step count, K1
+               exactly once per train and validation step, steps/s (the
+               median after the first two steps) and peak memory; an
+               overshooting run that runs out of memory is recorded and
+               retried at D = 25, then 12.  Then each of them and NN
+               fusion on the card against the CPU as phase parity (chunk
+               6), and estimate_state / check_model on the unimodal and
+               categorical runs' models_4.pt (K1 once per episode, the
+               states' widths, finite imagination MSE / PSNR, expert
+               artifacts for the categorical run only);
 5. fused_codec -- the fused conv + InstanceNorm + GLU op (kernels K2, K3a,
                K3b, K3c) at its stage shapes, N = 2450, bf16: each kernel
                against its plain version (f32 arithmetic from the same
@@ -140,6 +155,26 @@ EVAL_T_START, EVAL_HORIZON = 20, 20
 # |diff| <= PARITY_RTOL |want| + EVAL_ATOL (float32, TF32 off; beliefs,
 # posterior means and decoded means are O(0.1-1))
 EVAL_ATOL = 1e-4
+# the variants phase: each run's overrides of the default configuration
+# (full width; batch 50 x chunk 50, bf16, K1 on, as phase train)
+VARIANT_STEPS = 4
+VARIANT_RUNS = {
+    "unimodal": ["rssm=unimodal"],
+    "poe": ["rssm.multimodal_params.fusion_method=PoE"],
+    "qot_poe": ["rssm.multimodal_params.fusion_method=PoE",
+                "rssm.multimodal_params.expert_dist=q(st|ot)"],
+    "categorical": ["rssm.latent_dist=categorical"],   # 32 x 32, unimix 0.01
+    "overshoot": ["rssm.overshooting_kl_beta=1"],      # + the distance
+    "log_prob": ["rssm.worldmodel_LogProbLoss=true",
+                 "rssm.predict_reward=true"],
+}
+OVERSHOOT_D = (50, 25, 12)     # the whole chunk first; smaller only on OOM
+VARIANT_EVAL = ("unimodal", "categorical")
+# card against CPU: every variant above and NN fusion, batch 2 x chunk 6
+VARIANT_PARITY = {**VARIANT_RUNS,
+                  "overshoot": ["rssm.overshooting_kl_beta=1",
+                                "rssm.overshooting_distance=50"],
+                  "nn": ["rssm.multimodal_params.fusion_method=NN"]}
 
 
 def emit(obj) -> None:
@@ -914,7 +949,11 @@ def phase_budget(reserves=(None,)):
                                  f"{record['losses']}")
 
 
-def phase_parity():
+def card_against_cpu(overrides, L: int, B: int = 2, seed: int = 0):
+    """The same weights on the card and on the CPU, float32, TF32 off,
+    deterministic (generator=None), batch B x chunk L at full width: loss,
+    every metric and the gradient norms of one step.  Returns (cpu, card,
+    max relative error, the metrics outside PARITY_RTOL)."""
     import numpy as np
     import torch
 
@@ -924,16 +963,16 @@ def phase_parity():
     from multimodal_rssm_torch.ops.image import normalize_image_deterministic
     from multimodal_rssm_torch.train import trainer as tr
 
-    cfg = compose(overrides=["train.use_amp=False"])
-    L, B = 4, 2
-    rng = np.random.default_rng(0)
+    cfg = compose(overrides=["train.use_amp=False", f"train.chunk_size={L}",
+                             *overrides])
+    rng = np.random.default_rng(seed)
     raw = ({"image_horizon": rng.integers(0, 256, (L, B, 64, 64, 3), np.uint8),
             "sound": rng.normal(size=(L, B, 128, 20)).astype(np.float32)},
            rng.normal(size=(L, B, 3)).astype(np.float32),
            rng.normal(size=(L, B)).astype(np.float32),
            np.ones((L, B, 1), np.float32))
     cpu_model = WorldModel.from_config(cfg)
-    init_parameters(cpu_model, torch.Generator().manual_seed(0))
+    init_parameters(cpu_model, torch.Generator().manual_seed(seed))
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
 
     def run(model, dev):
@@ -953,10 +992,134 @@ def phase_parity():
     rel = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
     bad = {k: (cpu[k], gpu[k]) for k, r in rel.items()
            if r > PARITY_RTOL and abs(gpu[k] - cpu[k]) > 1e-6}
+    return cpu, gpu, max(rel.values()), bad
+
+
+def phase_parity():
+    L, B = 4, 2
+    cpu, gpu, max_rel, bad = card_against_cpu([], L, B)
     emit({"phase": "parity", "batch": B, "chunk": L, "rtol": PARITY_RTOL,
-          "max_rel_err": max(rel.values()), "cpu": cpu, "cuda": gpu})
+          "max_rel_err": max_rel, "cpu": cpu, "cuda": gpu})
     if bad:
         raise AssertionError(f"card and CPU disagree: {bad}")
+
+
+def phase_variants(tmp: str, device_name: str) -> dict:
+    """The RSSM's model variants on the card (``VARIANT_RUNS``): each
+    trains VARIANT_STEPS steps and one validation at full width through the
+    train CLI (finite metrics, the step count, K1 once per train and
+    validation step; steps/s, the median of the steps after the first two;
+    peak memory), overshooting at the whole chunk (D = 50) unless that runs
+    out of memory, then smaller; every variant and NN fusion on the card
+    against the CPU (``card_against_cpu``, chunk 6); ``estimate_state`` and
+    ``check_model`` on the unimodal and the categorical runs' last
+    checkpoint (K1 once per episode, finite imagination MSE / PSNR, the
+    experts each has).  Returns K1's launches by path."""
+    import numpy as np
+    import torch
+
+    from multimodal_rssm_torch.cli import check_model, estimate_state
+    from multimodal_rssm_torch.core.config import load_run_config
+    from multimodal_rssm_torch.models.world_model import effective_state_size
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    write_dataset(tmp, 4)
+    n_epi = 4
+    common = [f"train.train_iteration={VARIANT_STEPS}",
+              f"train.validation_interval={VARIANT_STEPS}"]
+    runs, launches, run_dirs = {}, {}, {}
+    for name, overrides in VARIANT_RUNS.items():
+        extra = [*overrides, f"main.experiment_name=variant_{name}"]
+        if name in VARIANT_EVAL:
+            extra.append(f"train.checkpoint_interval={VARIANT_STEPS}")
+        distances = OVERSHOOT_D if name == "overshoot" else (None,)
+        oom = []
+        for d in distances:
+            args = [*common, *extra] + (
+                [] if d is None else [f"rssm.overshooting_distance={d}"])
+            try:
+                rec, result, counts = train_run(
+                    f"variants/{name}", tmp, args, VARIANT_STEPS,
+                    "device_resident")
+            except torch.cuda.OutOfMemoryError as e:
+                oom.append({"distance": d, "max_memory_allocated_GiB":
+                            torch.cuda.max_memory_allocated() / 2 ** 30,
+                            "error": str(e)[:300]})
+                emit({"phase": f"variants/{name}", "note": "out of memory",
+                      **oom[-1]})
+                continue
+            break
+        else:
+            raise AssertionError(f"variants/{name}: no distance fits: {oom}")
+        want = VARIANT_STEPS + 1   # one image modality: one K1 per step
+        if counts["normalize_image"] != want:
+            raise AssertionError(f"variants/{name}: K1 launched "
+                                 f"{counts['normalize_image']} times, not "
+                                 f"{want}")
+        after = result["step_seconds"][2:]
+        runs[name] = {
+            "overrides": args[len(common):],
+            "steps_per_s_median_after_2": 1.0 / statistics.median(after),
+            "max_memory_allocated_GiB": rec["max_memory_allocated_GiB"],
+            "step_seconds": rec["step_seconds"],
+            "loss": rec["loss"], "validation_loss": rec["validation_loss"],
+            "out_of_memory_at": oom}
+        launches[name] = counts["normalize_image"]
+        run_dirs[name] = result["results_dir"]
+        del result
+
+    parity = {}
+    for name, overrides in VARIANT_PARITY.items():
+        _, _, max_rel, bad = card_against_cpu(overrides, 6)
+        parity[name] = max_rel
+        if bad:
+            raise AssertionError(f"variants/{name}: card and CPU disagree: "
+                                 f"{bad}")
+
+    evals = {}
+    for name in VARIANT_EVAL:
+        run_dir = run_dirs[name]
+        ck.reset_launch_counts()
+        saved = estimate_state.main(["--targets", os.path.dirname(run_dir),
+                                     "--itr", str(VARIANT_STEPS), "--cwd",
+                                     tmp])
+        est = ck.launch_counts()["normalize_image"]
+        states = np.load(saved[0], allow_pickle=True).item()
+        width = effective_state_size(load_run_config(run_dir))  # 1024, 128
+        bad = [k for k, s in states.items()
+               if s["posterior_means"].shape != (EVAL_T - 1, 1, width)
+               or ("expert_logits" in s) != (name == "categorical")
+               or not _all_finite(s)]
+        ck.reset_launch_counts()
+        report = check_model.main(["--run", run_dir, "--itr",
+                                   str(VARIANT_STEPS), "--t-start",
+                                   str(EVAL_T_START), "--horizon",
+                                   str(EVAL_HORIZON), "--cwd", tmp])
+        chk = ck.launch_counts()["normalize_image"]
+        has_experts = "expert_distributions.npy" in report["files"]
+        if (len(saved) != 1 or len(states) != n_epi or bad
+                or est != n_epi or chk != n_epi
+                or has_experts != (name == "categorical")
+                or not _all_finite(report["mse"])
+                or not _all_finite(report["metrics"])):
+            raise AssertionError(f"variants/{name} eval: {saved}, states "
+                                 f"wrong or not finite for {bad}; K1 "
+                                 f"{est} / {chk}; {report}")
+        evals[name] = {"mse": report["mse"], "metrics": report["metrics"],
+                       "launches": {"estimate_state": est,
+                                    "check_model": chk}}
+    record = {"phase": "variants", "device": device_name,
+              "batch": SHAPE[1], "chunk": SHAPE[0], "steps": VARIANT_STEPS,
+              "runs": runs, "card_vs_cpu_max_rel": parity,
+              "card_vs_cpu_rtol": PARITY_RTOL, "eval": evals,
+              "wall_seconds": time.perf_counter() - t_phase}
+    emit(record)
+    by_path = {f"variants/{k}": v for k, v in launches.items()}
+    for name, e in evals.items():
+        for cli, n in e["launches"].items():
+            by_path[f"variants/{name}/{cli}"] = n
+    return by_path
 
 
 def conv_flops(n, h, wd, cin, kh, kw, cout, ph, pw) -> int:
@@ -1248,12 +1411,14 @@ def main() -> int:
         eval_k1 = phase_eval(tmp, run_dir, name)
     phase_budget()
     phase_parity()
+    with tempfile.TemporaryDirectory() as tmp:
+        variants_k1 = phase_variants(tmp, name)
     fused = phase_fused_codec(name, launches)
     kernel["launches"] = launches["normalize_image"]
     kernel["launches_by_path"] = {
         "train": launches["normalize_image"],
         "estimate_state": eval_k1["estimate_state"],
-        "check_model": eval_k1["check_model"]}
+        "check_model": eval_k1["check_model"], **variants_k1}
     kernel["eval_episode_shape_ms"] = eval_k1["episode_shape_ms"]
     emit({"kernels": [kernel, *fused]})
     smi = subprocess.run(

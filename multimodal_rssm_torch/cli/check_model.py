@@ -6,7 +6,8 @@
 - PCA trajectories of every episode's beliefs and posterior means (cells
   25-29);
 - per-expert posterior distributions and every expert subset's PoE (cells
-  39-48);
+  39-48): means and std devs of a Gaussian latent, logits of a categorical
+  one; none for the unimodal RSSM, which has no experts;
 - open-loop imagination from ``--t-start`` over ``--horizon`` steps, with
   its MSE, PSNR and SSIM against the observations (cells 55-58).
 
@@ -102,7 +103,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     _plot_pca(out_dir, proj_b, proj_s)
 
     # -- expert distributions ---------------------------------------------
-    _save_expert_artifacts(out_dir, states)
+    if model.multimodal:
+        _save_expert_artifacts(out_dir, states)
 
     # -- open-loop imagination --------------------------------------------
     t_start = min(args.t_start, actions_in.shape[0] - 2)
@@ -181,12 +183,23 @@ def _plot_pca(out_dir: str, proj_beliefs, proj_states) -> None:
 def _save_expert_artifacts(out_dir: str, states) -> None:
     """Per-expert posterior (mean, std) series of batch entry 0 and every
     expert subset's PoE, to ``expert_distributions.npy``; with matplotlib
-    also mean +- std bands of the first four state dimensions."""
-    from multimodal_rssm_torch.ops import fusion
+    also mean +- std bands of the first four state dimensions.  For a
+    categorical latent: the experts' and the subset products' logits
+    [T, V, K]."""
+    from multimodal_rssm_torch.ops import categorical, fusion
 
     def host(x):
         return torch.as_tensor(x)[:, 0].cpu().numpy()
 
+    if "expert_logits" in states:
+        subsets = categorical.subset_poe_logits(   # experts first
+            torch.as_tensor(states["expert_logits_stacked"]).movedim(1, 0))
+        np.save(os.path.join(out_dir, "expert_distributions.npy"),
+                {"expert_logits": {k: host(v) for k, v in
+                                   states["expert_logits"].items()},
+                 "subset_logits": [host(lg) for lg in subsets]},
+                allow_pickle=True)
+        return
     expert_means = {k: host(v) for k, v in states["expert_means"].items()}
     expert_stds = {k: host(v) for k, v in states["expert_std_devs"].items()}
     sub_m, sub_s = fusion.subset_poe_states(   # experts first: [K, T, B, S]

@@ -12,9 +12,11 @@ check_model.ipynb cells 33-36 and 55-58):
 - ``cross_modal_model``: the same parameters with a posterior over a subset
   of the modalities' experts.
 
-Gaussian latents only, as the port's ``WorldModel``: the det state is the
-mean (``*_means``, equal to ``*_states`` at zero noise).  Everything runs in
-``eval()`` mode under ``torch.no_grad``.
+The det state is the mean for a Gaussian latent (``*_means``, equal to
+``*_states`` at zero noise) and the mode one-hot for a categorical one
+(``*_states`` at zero noise, not the class probabilities ``*_means``
+holds: the dynamics carry and the decoders were trained on one-hots).
+Everything runs in ``eval()`` mode under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -42,19 +44,22 @@ def imagine(model, states, actions: torch.Tensor, t_start: int,
     states: ``estimate_state`` over a chunk with T - 1 outputs; actions:
     the chunk's [T - 1, B, A] actions, aligned with the states.  Returns
     (the prior rollout's dict, the decoded predictions per modality), both
-    over times ``t_start + 1 .. t_start + horizon``.  det: start from
-    ``posterior_means`` and decode ``prior_means`` (pass the states of a
-    det estimate); otherwise the samples, with the rollout's noise from
+    over times ``t_start + 1 .. t_start + horizon``.  det: start from the
+    det posterior state and decode the det prior state (the means, or the
+    mode one-hots of a categorical latent: pass the states of a det
+    estimate); otherwise the samples, with the rollout's noise from
     ``generator``."""
     model.eval()
     T = actions.shape[0]
     horizon = horizon if horizon is not None else T - t_start - 1
+    det_stat = "states" if model.latent_dist == "categorical" else "means"
     h0 = states["beliefs"][t_start]
-    s0 = states["posterior_means" if det else "posterior_states"][t_start]
+    s0 = states[f"posterior_{det_stat}" if det else "posterior_states"]
+    s0 = s0[t_start]
     acts = actions[t_start + 1: t_start + 1 + horizon]
     roll = model.rollout_prior(h0, s0, acts, None, None if det else generator)
     preds = model.decode(roll["beliefs"],
-                         roll["prior_means" if det else "prior_states"])
+                         roll[f"prior_{det_stat}" if det else "prior_states"])
     return roll, preds
 
 

@@ -221,15 +221,18 @@ def _flatten_reference(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
 def load_reference_checkpoint(path: str, model) -> None:
     """Load a reference ``models_{itr}.pth`` into ``model`` (strictly).
 
-    The file nests ``model_dicts`` by module (``transition_model: {main,
-    obs_encoder: {...}}``, ``observation_model``, ``reward_model``,
+    A multimodal file nests ``model_dicts`` by module (``transition_model:
+    {main, obs_encoder: {...}}``, ``observation_model``, ``reward_model``,
     ``encoder``); ``transition_model.main.*`` flattens into
-    ``transition_model.*``, the port's names.  Its ``model_optimizer`` (a
-    fresh Adam state the reference discards on load) is dropped."""
+    ``transition_model.*``, the port's names, and its ``model_optimizer``
+    (a fresh Adam state the reference discards on load) is dropped.  A
+    unimodal file is the reference ``RSSM``'s flat ``state_dict()``, whose
+    keys are the port's unimodal names already."""
     model_dicts = torch.load(path, map_location="cpu", weights_only=True)
-    model_dicts = {k: v for k, v in model_dicts.items()
-                   if k != "model_optimizer"}
-    model.load_state_dict(_flatten_reference(model_dicts), strict=True)
+    if "transition_model" in model_dicts:
+        model_dicts = _flatten_reference(
+            {k: v for k, v in model_dicts.items() if k != "model_optimizer"})
+    model.load_state_dict(model_dicts, strict=True)
 
 
 # the weight files a run dir may hold, in the order evaluation takes them

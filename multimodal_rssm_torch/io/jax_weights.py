@@ -1,9 +1,10 @@
 """JAX ``{params, batch_stats}`` trees -> the port's ``state_dict``.
 
-Takes the trees of the JAX package's ``WorldModel`` as nested dicts of
-numpy arrays and returns a flat dict for ``WorldModel.load_state_dict(...,
-strict=True)``.  Its keys are the reference torch schema's, with
-``transition_model.main.*`` flattened into ``transition_model.*``.  The
+Takes the trees of the JAX package's ``WorldModel`` (any variant) as
+nested dicts of numpy arrays and returns a flat dict for
+``WorldModel.load_state_dict(..., strict=True)``.  Its keys are the
+reference torch schema's, with ``transition_model.main.*`` flattened into
+``transition_model.*``.  The
 layout inversions are the port's own copy of the JAX package's torch
 exporter:
 
@@ -137,8 +138,14 @@ def _sound_decoder(sd, prefix, params, stats):
 
 def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
                         ) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a multimodal Gaussian ``q(st|ht,ot)``
-    JAX ``WorldModel``'s ``params`` / ``batch_stats`` trees."""
+    """The port's ``state_dict`` for a JAX ``WorldModel``'s ``params`` /
+    ``batch_stats`` trees, for every variant: multimodal (any fusion;
+    ``q(st|ht,ot)`` experts in the core, or ``q(st|ot)`` heads in the
+    encoder, ``encoder.<name>_head``), or unimodal in the reference's flat
+    schema (``encoder`` and ``observation_model`` the one modality's
+    modules, ``transition_model.obs_encoder`` its posterior head).  A
+    categorical model has the Gaussian one's names, its heads' ``fc2`` V * K
+    wide."""
     stats = batch_stats or {}
     sd: Dict[str, np.ndarray] = {}
     core, cell = params["core"], params["core"]["cell"]
@@ -148,24 +155,45 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
     _emit(sd, f"{tm}.rnn", _gru(cell["rnn"]))
     _emit(sd, f"{tm}.stochastic_state_model.fc1", _dense(cell["ssm_fc1"]))
     _emit(sd, f"{tm}.stochastic_state_model.fc2", _dense(cell["ssm_fc2"]))
-    _emit(sd, f"{tm}.obs_encoder.prior_expert.fc1",
-          _dense(cell["prior_expert_fc1"]))
-    _emit(sd, f"{tm}.obs_encoder.prior_expert.fc2",
-          _dense(cell["prior_expert_fc2"]))
-
     enc_stats = stats.get("encoder", {})
-    for name, p in params["encoder"].items():
-        _emit(sd, f"{tm}.obs_encoder.{name}.fc1",
-              _join_dense(cell[f"obs_{name}_fc1_h"], core[f"obs_proj_{name}"]))
-        _emit(sd, f"{tm}.obs_encoder.{name}.fc2", _dense(cell[f"obs_{name}_fc2"]))
-        build = _image_encoder if "image" in name else _sound_encoder
-        build(sd, f"encoder.{name}", p, enc_stats.get(name, {}))
-
     dec_stats = stats.get("observation_model", {})
-    for key, p in params["observation_model"].items():
-        name = key[len("models_"):]
-        build = _image_decoder if "image" in name else _sound_decoder
-        build(sd, f"observation_model.{name}", p, dec_stats.get(key, {}))
+
+    def encoder(prefix, name, p):
+        build = _image_encoder if "image" in name else _sound_encoder
+        build(sd, prefix, p, enc_stats.get(name, {}))
+
+    def decoder(prefix, key, p):
+        build = _image_decoder if "image" in key else _sound_decoder
+        build(sd, prefix, p, dec_stats.get(key, {}))
+
+    if "obs_proj_fused" in core:   # unimodal
+        _emit(sd, f"{tm}.obs_encoder.fc1",
+              _join_dense(cell["obs_fc1_h"], core["obs_proj_fused"]))
+        _emit(sd, f"{tm}.obs_encoder.fc2", _dense(cell["obs_fc2"]))
+        ((name, p),) = params["encoder"].items()
+        encoder("encoder", name, p)
+        ((key, p),) = params["observation_model"].items()
+        decoder("observation_model", key, p)
+    else:
+        _emit(sd, f"{tm}.obs_encoder.prior_expert.fc1",
+              _dense(cell["prior_expert_fc1"]))
+        _emit(sd, f"{tm}.obs_encoder.prior_expert.fc2",
+              _dense(cell["prior_expert_fc2"]))
+        enc = params["encoder"]
+        for name in (n for n in enc if f"obs_proj_{n}" in core):
+            _emit(sd, f"{tm}.obs_encoder.{name}.fc1",
+                  _join_dense(cell[f"obs_{name}_fc1_h"],
+                              core[f"obs_proj_{name}"]))
+            _emit(sd, f"{tm}.obs_encoder.{name}.fc2",
+                  _dense(cell[f"obs_{name}_fc2"]))
+            encoder(f"encoder.{name}", name, enc[name])
+        for name in (n for n in enc if f"{n}_head" in enc):   # q(st|ot)
+            for k in ("fc1", "fc2"):
+                _emit(sd, f"encoder.{name}_head.{k}",
+                      _dense(enc[f"{name}_head"][k]))
+            encoder(f"encoder.{name}", name, enc[name])
+        for key, p in params["observation_model"].items():
+            decoder(f"observation_model.{key[len('models_'):]}", key, p)
 
     for k in ("fc1", "fc2", "fc3"):
         _emit(sd, f"reward_model.{k}", _dense(params["reward_model"][k]))

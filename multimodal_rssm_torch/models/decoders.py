@@ -7,6 +7,10 @@ package's layout), sound outputs [T, B, 128, 20].
 
 Reference quirk kept for weight compatibility: the sound decoder's input is
 cat([state, belief]), the opposite of every other head.
+
+Every decoder gives per-element losses of its mean against a target:
+``get_mse`` (squared error) and ``get_log_prob`` (the unit-scale Gaussian
+log density, the log-prob ELBO's term; ref :9-31).
 """
 
 from __future__ import annotations
@@ -19,13 +23,29 @@ from torch import nn
 from multimodal_rssm_torch.models.encoders import GLU, has_norm
 from multimodal_rssm_torch.models.layers import (
     BatchNorm, InstanceNorm, fold_tb, unfold_tb)
+from multimodal_rssm_torch.ops import gaussian
 
 
 def _fold(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cat([fold_tb(a), fold_tb(b)], -1)
 
 
-class ImageDecoder64(nn.Module):
+class Decoder(nn.Module):
+    """Per-element losses of a decoder's ``{loc, scale}`` output."""
+
+    def get_mse(self, h: torch.Tensor, s: torch.Tensor, o: torch.Tensor
+                ) -> torch.Tensor:
+        return torch.square(self(h, s)["loc"] - o)
+
+    def get_log_prob(self, h: torch.Tensor, s: torch.Tensor, o: torch.Tensor
+                     ) -> torch.Tensor:
+        out = self(h, s)
+        scale = torch.as_tensor(out["scale"], dtype=torch.float32,
+                                device=o.device)
+        return gaussian.log_prob(out["loc"], scale, o)
+
+
+class ImageDecoder64(Decoder):
     """64px decoder: fc1 to a 1x1 seed (no nonlinearity), then k5/k5/k6/k6
     s2 ConvTranspose stack; every ConvT but the last is followed by the norm
     and relu (ref :58-105)."""
@@ -62,7 +82,7 @@ class ImageDecoder64(nn.Module):
         return {"loc": unfold_tb(x, T, B), "scale": 1.0}
 
 
-class SoundDecoderV2(nn.Module):
+class SoundDecoderV2(Decoder):
     """GLU up-sampling sound decoder (ref :420-472): a 1x1 ``up_conversion``
     to a [2cb, 32, 4] map, three ConvT + InstanceNorm + GLU stages, and a
     7x7 single-channel ``out`` conv (the JAX package's
@@ -114,7 +134,8 @@ def build_observation_model(name: str,
 
 
 class MultimodalObservationModel(nn.ModuleDict):
-    """Dict of decoders keyed by modality name, with per-modality MSE."""
+    """Dict of decoders keyed by modality name, with per-modality
+    per-element losses."""
 
     def __init__(self, observation_names_rec: Sequence[str],
                  observation_shapes: Mapping[str, Sequence[int]],
@@ -134,5 +155,12 @@ class MultimodalObservationModel(nn.ModuleDict):
     def get_mse(self, h: torch.Tensor, s: torch.Tensor,
                 targets: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Per-element squared error of each modality's mean."""
-        return {name: torch.square(dec(h, s)["loc"] - targets[name])
+        return {name: dec.get_mse(h, s, targets[name])
+                for name, dec in self.items()}
+
+    def get_log_prob(self, h: torch.Tensor, s: torch.Tensor,
+                     targets: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """Per-element log density of each modality's target."""
+        return {name: dec.get_log_prob(h, s, targets[name])
                 for name, dec in self.items()}

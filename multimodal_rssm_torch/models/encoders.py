@@ -1,5 +1,5 @@
-"""Observation encoders for the default configuration (reference
-utils/models/encoder.py:307-360, 661-810).
+"""Observation encoders (reference utils/models/encoder.py:307-360,
+661-810, 882-973).
 
 - ``ImageEncoder64``: four k4 s2 convs (32 -> 256 channels), each followed
   by the configured norm and relu, flattened in NCHW order to 1024 (plus
@@ -8,6 +8,11 @@ utils/models/encoder.py:307-360, 661-810).
   [128, 20] spectrogram.  The JAX package's ``PackedWidthConv`` and
   ``GroupedDownConversion`` are TPU reshapes of the plain convs used here;
   the parameters keep the reference's layout.
+
+``MultimodalStochasticEncoder`` (``expert_dist="q(st|ot)"``) puts a
+q(s_t | o_t) head after each modality's encoder, so the experts come out of
+the encoder; its children are ``<name>`` and ``<name>_head``, the JAX
+package's module paths.
 
 Inputs follow the JAX package: images [N, H, W, C], sound [N, 128, 20].
 """
@@ -19,6 +24,7 @@ from typing import Dict, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
+from multimodal_rssm_torch.models.heads import ObsEncoderNoBelief
 from multimodal_rssm_torch.models.layers import (
     BatchNorm, InstanceNorm, act_fn, glu)
 
@@ -105,6 +111,16 @@ class SoundEncoderV2(nn.Module):
         return x.reshape(N, self.embedding_size)  # channel-major flatten
 
 
+def modality_embedding_size(name: str, embedding_size: Mapping[str, int]
+                            ) -> int:
+    """The embedding width of a modality's encoder."""
+    if "image" in name:
+        return embedding_size["image"]
+    if "sound" in name:
+        return embedding_size["sound"]
+    return embedding_size["other"]
+
+
 def build_encoder(name: str, observation_shapes: Mapping[str, Sequence[int]],
                   embedding_size: Mapping[str, int],
                   activation_function: Mapping[str, str],
@@ -143,3 +159,31 @@ class MultimodalEncoder(nn.ModuleDict):
     def forward(self, observations: Mapping[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         return {name: self[name](x) for name, x in observations.items()}
+
+
+class MultimodalStochasticEncoder(nn.ModuleDict):
+    """Per-modality experts q(s_t | o_t): each modality's encoder, then its
+    ``ObsEncoderNoBelief`` head (activation ``dense``), as
+    ``{name: {loc, scale}}`` for the modalities it is given (ref
+    :882-973)."""
+
+    def __init__(self, observation_names_enc: Sequence[str],
+                 observation_shapes: Mapping[str, Sequence[int]],
+                 embedding_size: Mapping[str, int],
+                 activation_function: Mapping[str, str],
+                 normalization: Optional[str], state_size: int,
+                 hidden_size: int, min_std_dev: float = 0.1):
+        modules = {}
+        for name in observation_names_enc:
+            modules[name] = build_encoder(name, observation_shapes,
+                                          embedding_size, activation_function,
+                                          normalization)
+            modules[f"{name}_head"] = ObsEncoderNoBelief(
+                modality_embedding_size(name, embedding_size), hidden_size,
+                state_size, activation_function["dense"], min_std_dev)
+        super().__init__(modules)
+
+    def forward(self, observations: Mapping[str, torch.Tensor]
+                ) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {name: self[f"{name}_head"](self[name](x))
+                for name, x in observations.items()}

@@ -4,11 +4,25 @@ One ``nn.Module`` whose children carry the reference's names
 (``encoder``, ``transition_model``, ``observation_model``,
 ``reward_model``), so its ``state_dict`` keys are the reference torch
 schema's (with ``transition_model.main.*`` flattened into
-``transition_model.*``).  ``from_config`` builds the default
-configuration: multimodal MoPoE over ``q(st|ht,ot)`` experts with a
-Gaussian latent and, as in the reference, a relu core (reference quirk:
-its multimodal transition models never receive
-``activation_function.dense``).
+``transition_model.*``).  ``from_config`` builds every variant of the JAX
+package's config schema, dispatched as its ``from_config``:
+
+- multimodal (``rssm.multimodal``): one encoder and one decoder per
+  modality (dicts keyed by name), the prior expert plus one expert per
+  modality fused by ``multimodal_params.fusion_method`` (MoPoE, PoE; "NN"
+  runs PoE, as in the reference), the experts q(s|h, o) in the core or,
+  for ``expert_dist="q(st|ot)"``, q(s|o) heads in the encoder;
+- unimodal (``rssm=unimodal``): the reference's ``RSSM``, which encodes
+  only ``observation_names_enc[0]`` and decodes only
+  ``observation_names_rec[0]``; ``encoder`` and ``observation_model`` are
+  then that one module, as in the reference's flat state dict;
+- ``rssm.latent_dist``: gaussian, or categorical (V x K one-hot variables,
+  ``state_size`` = V * K; ``rssm.state_size`` is ignored).
+
+The core's activation follows the reference: relu for the multimodal
+transition models (they never receive ``activation_function.dense``), the
+configured ``dense`` for the unimodal one; ``rssm.core_activation``
+overrides both.
 
 Beside ``train_forward`` it serves evaluation and streaming inference:
 ``estimate_state_from`` (any initial belief and state), ``filter_step``
@@ -27,25 +41,28 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from multimodal_rssm_torch.models.decoders import MultimodalObservationModel
-from multimodal_rssm_torch.models.encoders import MultimodalEncoder
+from multimodal_rssm_torch.models.decoders import (
+    MultimodalObservationModel, build_observation_model)
+from multimodal_rssm_torch.models.encoders import (
+    MultimodalEncoder, MultimodalStochasticEncoder, build_encoder,
+    modality_embedding_size)
 from multimodal_rssm_torch.models.heads import RewardModel
 from multimodal_rssm_torch.models.layers import fold_tb, unfold_tb
+from multimodal_rssm_torch.ops import categorical
 from multimodal_rssm_torch.rssm.core import TransitionModel, expert_dict
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def bottle(fn, tree: Mapping[str, torch.Tensor], T: int, B: int):
-    """Fold the leading (T, B) dims of every entry, apply, unfold."""
+    """Fold the leading (T, B) dims of every entry, apply, unfold every
+    tensor of the (nested) output."""
     out = fn({k: fold_tb(v) for k, v in tree.items()})
-    return {k: unfold_tb(v, T, B) for k, v in out.items()}
-
-
-def modality_embedding_size(name: str, embedding_size: Mapping[str, int]) -> int:
-    if "image" in name:
-        return embedding_size["image"]
-    if "sound" in name:
-        return embedding_size["sound"]
-    return embedding_size["other"]
+    return _tree_map(lambda y: unfold_tb(y, T, B), out)
 
 
 class WorldModel(nn.Module):
@@ -56,25 +73,54 @@ class WorldModel(nn.Module):
                  activation_function: Mapping[str, str],
                  belief_size: int, state_size: int, hidden_size: int,
                  action_size: int, normalization: Optional[str] = "BatchNorm",
-                 fusion_method: str = "MoPoE", core_activation: str = "relu",
-                 min_std_dev: float = 0.1):
+                 multimodal: bool = True, fusion_method: str = "MoPoE",
+                 expert_dist: str = "q(st|ht,ot)",
+                 core_activation: str = "relu", min_std_dev: float = 0.1,
+                 latent_dist: str = "gaussian", latent_variables: int = 0,
+                 latent_classes: int = 0, unimix: float = 0.0):
         super().__init__()
+        if not multimodal:
+            observation_names_enc = tuple(observation_names_enc)[:1]
+            observation_names_rec = tuple(observation_names_rec)[:1]
+        if latent_dist == "categorical" and (
+                state_size != latent_variables * latent_classes):
+            raise ValueError(f"categorical state_size {state_size} != "
+                             f"{latent_variables} x {latent_classes}")
         self.observation_names_enc = tuple(observation_names_enc)
         self.observation_names_rec = tuple(observation_names_rec)
         self.belief_size = belief_size
         self.state_size = state_size
-        self.encoder = MultimodalEncoder(
-            self.observation_names_enc, observation_shapes, embedding_size,
-            activation_function, normalization)
+        self.multimodal = multimodal
+        self.latent_dist = latent_dist
+        self.latent_variables = latent_variables
+        self.latent_classes = latent_classes
         self.transition_model = TransitionModel(
             belief_size, state_size, action_size, hidden_size,
             {n: modality_embedding_size(n, embedding_size)
              for n in self.observation_names_enc},
-            self.observation_names_enc, fusion_method, core_activation,
-            min_std_dev)
-        self.observation_model = MultimodalObservationModel(
-            self.observation_names_rec, observation_shapes, belief_size,
-            state_size, embedding_size, normalization)
+            self.observation_names_enc, multimodal=multimodal,
+            fusion_method=fusion_method, expert_dist=expert_dist,
+            activation_function=core_activation, min_std_dev=min_std_dev,
+            latent_dist=latent_dist, latent_variables=latent_variables,
+            latent_classes=latent_classes, unimix=unimix)
+        enc_args = (observation_shapes, embedding_size, activation_function,
+                    normalization)
+        if not multimodal:
+            self.encoder = build_encoder(self.observation_names_enc[0],
+                                         *enc_args)
+            self.observation_model = build_observation_model(
+                self.observation_names_rec[0], observation_shapes,
+                belief_size, state_size, embedding_size, normalization)
+        else:
+            self.encoder = (
+                MultimodalStochasticEncoder(
+                    self.observation_names_enc, *enc_args, state_size,
+                    hidden_size, min_std_dev)
+                if expert_dist == "q(st|ot)" else
+                MultimodalEncoder(self.observation_names_enc, *enc_args))
+            self.observation_model = MultimodalObservationModel(
+                self.observation_names_rec, observation_shapes, belief_size,
+                state_size, embedding_size, normalization)
         self.reward_model = RewardModel(belief_size, state_size, hidden_size,
                                         activation_function["dense"])
 
@@ -91,22 +137,29 @@ class WorldModel(nn.Module):
         return tuple(names)
 
     def encode(self, observations: Mapping[str, torch.Tensor],
-               names: Optional[Sequence[str]] = None
-               ) -> Dict[str, torch.Tensor]:
-        """Encoder over the folded (T*B) batch -> {name: [T, B, E]}, for
-        the modalities ``names`` (default: all)."""
+               names: Optional[Sequence[str]] = None) -> Dict:
+        """Encoder over the folded (T*B) batch -> {name: [T, B, E]} (for
+        ``q(st|ot)``: {name: {loc, scale}} experts), for the modalities
+        ``names`` (default: all)."""
         obs = {n: observations[n] for n in self.resolve_names(names)}
         T, B = next(iter(obs.values())).shape[:2]
+        if not self.multimodal:
+            return bottle(lambda o: {k: self.encoder(v) for k, v in o.items()},
+                          obs, T, B)
         return bottle(self.encoder, obs, T, B)
 
-    def noise_shape(self, T: int, B: int) -> Tuple[int, int, int]:
-        """Shape of one rollout's reparameterisation noise: standard normal
-        [T, B, S] (the Gaussian latent; zeros are the deterministic
-        rollout)."""
+    def noise_shape(self, T: int, B: int) -> Tuple[int, ...]:
+        """Shape of one rollout's noise: standard normal [T, B, S] for the
+        Gaussian latent, Gumbel [T, B, V, K] for the categorical one (zeros
+        are the deterministic rollout: the mean, the mode)."""
+        if self.latent_dist == "categorical":
+            return (T, B, self.latent_variables, self.latent_classes)
         return (T, B, self.state_size)
 
     def draw_state_noise(self, generator: torch.Generator, T: int, B: int
                          ) -> torch.Tensor:
+        if self.latent_dist == "categorical":
+            return categorical.gumbel_noise(generator, self.noise_shape(T, B))
         return torch.randn(self.noise_shape(T, B), generator=generator,
                            device=generator.device)
 
@@ -139,9 +192,11 @@ class WorldModel(nn.Module):
                             names: Optional[Sequence[str]] = None
                             ) -> Dict[str, torch.Tensor]:
         """``estimate_state`` from a given (belief [B, H], state [B, S]):
-        the building block of streaming and warm-started inference.  The
-        state dict holds the experts twice: stacked [T, K, B, S] and as
-        dicts keyed by 'prior_expert' + modality."""
+        the building block of streaming and warm-started inference.  A
+        multimodal state dict holds the experts twice: stacked [T, K, B, .]
+        (``expert_means_stacked`` / ``expert_std_devs_stacked``, or
+        ``expert_logits_stacked``) and as dicts keyed by 'prior_expert' +
+        modality."""
         names = self.resolve_names(names)
         T, B = actions.shape[:2]
         obs_emb = self.encode(observations, names)
@@ -150,12 +205,12 @@ class WorldModel(nn.Module):
         states = self.transition_model(init_belief, init_state, actions,
                                        nonterminals, obs_emb, eps_prior,
                                        eps_post, names)
-        states["expert_means_stacked"] = states["expert_means"]
-        states["expert_std_devs_stacked"] = states["expert_std_devs"]
-        states["expert_means"] = expert_dict(states["expert_means_stacked"],
-                                             names)
-        states["expert_std_devs"] = expert_dict(
-            states["expert_std_devs_stacked"], names)
+        if self.multimodal:
+            keys = (("expert_logits",) if self.latent_dist == "categorical"
+                    else ("expert_means", "expert_std_devs"))
+            for k in keys:
+                states[f"{k}_stacked"] = states[k]
+                states[k] = expert_dict(states[k], names)
         return states
 
     def filter_step(self, belief: torch.Tensor, state: torch.Tensor,
@@ -182,7 +237,8 @@ class WorldModel(nn.Module):
                       generator: Optional[torch.Generator] = None
                       ) -> Dict[str, torch.Tensor]:
         """Open-loop prior rollout over [T, B, A] actions (imagination);
-        ``generator=None`` is the deterministic (mean) rollout."""
+        ``generator=None`` is the deterministic rollout (the mean, or the
+        mode one-hot)."""
         T, B = actions.shape[:2]
         return self.transition_model.prior_rollout(
             init_belief, init_state, actions, nonterminals,
@@ -192,38 +248,51 @@ class WorldModel(nn.Module):
                ) -> Dict[str, Dict[str, torch.Tensor]]:
         """Per-modality reconstructions {name: {loc, scale}} of [T, B, .]
         beliefs and states."""
+        if not self.multimodal:
+            return {self.observation_names_rec[0]:
+                    self.observation_model(beliefs, states)}
         return self.observation_model(beliefs, states)
+
+    def observation_losses(self, beliefs: torch.Tensor, states: torch.Tensor,
+                           targets: Mapping[str, torch.Tensor],
+                           use_log_prob: bool = False
+                           ) -> Dict[str, torch.Tensor]:
+        """Per-modality per-element reconstruction terms: the squared error
+        or (``use_log_prob``) the log density of the targets."""
+        method = "get_log_prob" if use_log_prob else "get_mse"
+        if not self.multimodal:
+            name = self.observation_names_rec[0]
+            return {name: getattr(self.observation_model, method)(
+                beliefs, states, targets[name])}
+        return getattr(self.observation_model, method)(beliefs, states,
+                                                       targets)
 
     def train_forward(self, observations_target: Mapping[str, torch.Tensor],
                       actions: torch.Tensor,
                       nonterminals: Optional[torch.Tensor],
-                      generator: Optional[torch.Generator] = None
-                      ) -> Tuple[Dict, Dict, Dict]:
-        """States, per-element reconstruction MSE and the reward
-        prediction in one pass."""
+                      generator: Optional[torch.Generator] = None,
+                      use_log_prob: bool = False) -> Tuple[Dict, Dict, Dict]:
+        """States, per-element reconstruction terms (squared error, or the
+        log density with ``use_log_prob``) and the reward prediction in one
+        pass."""
         states = self.estimate_state(observations_target, actions,
                                      nonterminals, generator)
         h, s = states["beliefs"], states["posterior_states"]
-        per_elem = self.observation_model.get_mse(h, s, observations_target)
+        per_elem = self.observation_losses(h, s, observations_target,
+                                           use_log_prob)
         return states, per_elem, self.reward_model(h, s)
 
     @staticmethod
     def from_config(cfg) -> "WorldModel":
-        """Build the configured model; raises on what the port does not run
-        yet (unimodal, PoE/NN fusion, q(st|ot) experts, categorical
-        latents, log-prob losses)."""
+        """Build the configured model: unimodal or multimodal, PoE / NN /
+        MoPoE fusion, q(st|ht,ot) or q(st|ot) experts, Gaussian or
+        categorical latents.  Raises on what the port does not run yet
+        (image sizes other than 64, GroupNorm / InstanceNorm image codecs,
+        sound v1 and symbolic modalities)."""
         rssm = cfg.rssm
+        multimodal = bool(rssm.multimodal)
         mp = rssm.multimodal_params
-        unsupported = {
-            "rssm.multimodal": (bool(rssm.multimodal), True),
-            "rssm.multimodal_params.fusion_method": (mp.fusion_method, "MoPoE"),
-            "rssm.multimodal_params.expert_dist": (mp.expert_dist, "q(st|ht,ot)"),
-            "rssm.latent_dist": (rssm.get("latent_dist", "gaussian"), "gaussian"),
-        }
-        for key, (got, want) in unsupported.items():
-            if got != want:
-                raise NotImplementedError(
-                    f"{key}={got!r}: the port runs {want!r} so far")
+        latent_dist, latent_v, latent_k, unimix = resolve_latent(rssm)
         return WorldModel(
             observation_names_enc=tuple(rssm.observation_names_enc),
             observation_names_rec=tuple(rssm.observation_names_rec),
@@ -232,13 +301,51 @@ class WorldModel(nn.Module):
             embedding_size=dict(rssm.embedding_size),
             activation_function=dict(rssm.activation_function),
             belief_size=int(rssm.belief_size),
-            state_size=int(rssm.state_size),
+            state_size=effective_state_size(cfg),
             hidden_size=int(rssm.hidden_size),
             action_size=int(cfg.env.action_size),
             normalization=rssm.normalization,
-            fusion_method="MoPoE",
-            core_activation=rssm.get("core_activation") or "relu",
+            multimodal=multimodal,
+            fusion_method=mp.fusion_method if multimodal else "PoE",
+            expert_dist=mp.expert_dist if multimodal else "q(st|ht,ot)",
+            # the reference's multimodal transition models run relu, its
+            # unimodal one activation_function.dense
+            core_activation=(rssm.get("core_activation")
+                             or ("relu" if multimodal
+                                 else rssm.activation_function["dense"])),
+            latent_dist=latent_dist, latent_variables=latent_v,
+            latent_classes=latent_k, unimix=unimix,
         )
+
+
+def resolve_latent(rssm) -> Tuple[str, int, int, float]:
+    """``rssm.latent_dist`` (+ ``rssm.categorical_params``) ->
+    (latent_dist, variables, classes, unimix); zeros for the Gaussian
+    latent."""
+    latent_dist = str(rssm.get("latent_dist", "gaussian") or "gaussian")
+    if latent_dist == "gaussian":
+        return latent_dist, 0, 0, 0.0
+    if latent_dist != "categorical":
+        raise ValueError(f"rssm.latent_dist={latent_dist!r} not in "
+                         "('gaussian', 'categorical')")
+    cp = rssm.get("categorical_params", None) or {}
+    variables = int(cp.get("variables", 32))
+    classes = int(cp.get("classes", 32))
+    unimix = float(cp.get("unimix", 0.01))
+    if variables < 1 or classes < 2:
+        raise ValueError(f"categorical_params needs variables >= 1 and "
+                         f"classes >= 2, got {variables} x {classes}")
+    if not 0.0 <= unimix < 1.0:
+        raise ValueError(f"categorical_params.unimix={unimix} not in [0, 1)")
+    return latent_dist, variables, classes, unimix
+
+
+def effective_state_size(cfg) -> int:
+    """The flattened state width the belief, decoders and reward read:
+    ``rssm.state_size`` for the Gaussian latent, V * K for the categorical
+    one."""
+    latent_dist, v, k, _ = resolve_latent(cfg.rssm)
+    return v * k if latent_dist == "categorical" else int(cfg.rssm.state_size)
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:

@@ -72,10 +72,18 @@ def mopoe_posterior(expert_means: torch.Tensor, expert_stds: torch.Tensor
     return mean, std
 
 
+def poe_posterior(expert_means: torch.Tensor, expert_stds: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-product posterior over all experts (the reference's
+    ``get_poe_state`` without the sample)."""
+    return poe(expert_means, expert_stds)
+
+
 def fuse(method: str, expert_means: torch.Tensor, expert_stds: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """"MoPoE" -> MoPoE; anything else ("PoE", "NN") -> PoE over all
-    experts (the reference's transition-model routing)."""
+    experts (the reference's transition-model routing), so "NN" equals
+    "PoE" at the posterior."""
     if method == "MoPoE":
         return mopoe_posterior(expert_means, expert_stds)
-    return poe(expert_means, expert_stds)
+    return poe_posterior(expert_means, expert_stds)

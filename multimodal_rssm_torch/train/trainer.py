@@ -1,7 +1,7 @@
 """Optimizer, input pipeline, ELBO and the train / eval steps.
 
-Port of the JAX package's ``train/trainer.py`` for the default
-configuration:
+Port of the JAX package's ``train/trainer.py`` (one batch per step:
+``train.grad_accum`` other than 1 raises):
 
 - Adam (eps from the config) after clipping by global norm with optax's
   rule ``g * max_norm / ||g||`` when ``||g|| >= max_norm``
@@ -31,6 +31,7 @@ import torch
 from multimodal_rssm_torch.data import augment as aug
 from multimodal_rssm_torch.data.device_buffer import gather_batch
 from multimodal_rssm_torch.losses import elbo
+from multimodal_rssm_torch.losses.overshoot import overshooting_losses
 from multimodal_rssm_torch.models.world_model import WorldModel
 from multimodal_rssm_torch.ops import cuda_kernels
 from multimodal_rssm_torch.ops.image import normalize_image
@@ -233,19 +234,33 @@ def make_loss_fn(model: WorldModel, cfg) -> Callable:
     """The ELBO over a prepared batch: ``loss_fn(batch, generator, train)``
     -> (total, metrics).  The model's forward runs under the configured
     autocast; ``train`` selects batch statistics (and updates the running
-    stats) or the running statistics."""
+    stats) or the running statistics.  Every branch of the JAX package's
+    loss: the KL by fusion and latent (MoPoE: the mean over subset
+    products; PoE / NN and unimodal: balanced by ``kl_balancing_alpha``),
+    the global KL, latent overshooting and the log-prob reconstruction and
+    reward terms.  The overshooting rollout draws its noise from the
+    step's generator after the posterior rollout's: the JAX package splits
+    its key instead, but a torch generator is a stream already, and
+    seeding a second one from a device generator would synchronise the
+    host every step."""
     rssm = cfg.rssm
-    if bool(rssm.worldmodel_LogProbLoss):
-        raise NotImplementedError("rssm.worldmodel_LogProbLoss: the port "
-                                  "runs the MSE loss so far")
-    if float(rssm.overshooting_kl_beta) != 0 and int(
-            rssm.overshooting_distance or 0) > 0:
-        raise NotImplementedError("latent overshooting waits for a later "
-                                  "slice of the port")
+    use_log_prob = bool(rssm.worldmodel_LogProbLoss)
+    kl_alpha = rssm.get("kl_balancing_alpha")
+    kl_alpha = None if kl_alpha is None else float(kl_alpha)
     free_nats = float(rssm.free_nats)
     global_kl_beta = float(rssm.global_kl_beta)
     kl_beta = float(rssm.kl_beta)
+    overshooting_kl_beta = float(rssm.overshooting_kl_beta or 0)
+    chunk_size = int(cfg.train.chunk_size)
+    # the reference clamps the distance to the chunk (utils/logger.py:42-43)
+    overshooting_distance = min(int(rssm.overshooting_distance or 0),
+                                chunk_size)
+    overshooting_reward_scale = float(rssm.overshooting_reward_scale or 0)
     predict_reward = bool(rssm.predict_reward)
+    mopoe = model.multimodal and (
+        rssm.multimodal_params.fusion_method == "MoPoE")
+    categorical = model.latent_dist == "categorical"
+    overshoot = overshooting_kl_beta != 0 and overshooting_distance > 0
     dtype = compute_dtype(cfg)
 
     def loss_fn(batch, generator: Optional[torch.Generator], train: bool):
@@ -254,21 +269,53 @@ def make_loss_fn(model: WorldModel, cfg) -> Callable:
         model.train(train)
         with autocast(actions.device, dtype):
             states, per_elem, rew = model.train_forward(
-                obs_target, actions[:-1], nonterminals[:-1], generator)
+                obs_target, actions[:-1], nonterminals[:-1], generator,
+                use_log_prob)
 
-        observations_loss = elbo.observation_losses(per_elem, negate=False)
+        observations_loss = elbo.observation_losses(per_elem,
+                                                    negate=use_log_prob)
         observations_loss_sum = sum(observations_loss.values())
         reward_l = elbo.reward_loss(rew["loc"], rew["scale"], rewards[:-1],
-                                    False)
+                                    use_log_prob)
         if not predict_reward:
             reward_l = torch.zeros_like(reward_l)
-        kl_loss = elbo.mopoe_kl(
-            states["expert_means_stacked"], states["expert_std_devs_stacked"],
-            states["prior_means"], states["prior_std_devs"], free_nats)
+        if mopoe and categorical:
+            kl_loss = elbo.mopoe_kl_categorical(
+                states["expert_logits_stacked"], states["prior_logits"],
+                free_nats)
+        elif mopoe:
+            kl_loss = elbo.mopoe_kl(
+                states["expert_means_stacked"],
+                states["expert_std_devs_stacked"], states["prior_means"],
+                states["prior_std_devs"], free_nats)
+        elif categorical:
+            kl_loss = elbo.kl_balanced_categorical(
+                states["posterior_logits"], states["prior_logits"], kl_alpha,
+                free_nats)
+        else:
+            kl_loss = elbo.kl_balanced(
+                states["posterior_means"], states["posterior_std_devs"],
+                states["prior_means"], states["prior_std_devs"], kl_alpha,
+                free_nats)
         kl_loss_sum = kl_loss
         if global_kl_beta != 0:
-            kl_loss_sum = kl_loss_sum + global_kl_beta * elbo.global_kl(
-                states["posterior_means"], states["posterior_std_devs"])
+            kl_loss_sum = kl_loss_sum + global_kl_beta * (
+                elbo.global_kl_categorical(states["posterior_logits"])
+                if categorical else
+                elbo.global_kl(states["posterior_means"],
+                               states["posterior_std_devs"]))
+        if overshoot:
+            with autocast(actions.device, dtype):
+                kl_os, reward_os = overshooting_losses(
+                    model.transition_model.prior_rollout,
+                    model.reward_model if overshooting_reward_scale != 0
+                    else None, states, actions, rewards, nonterminals,
+                    chunk_size, overshooting_distance, free_nats,
+                    overshooting_reward_scale, generator,
+                    "MoPoE" if mopoe else "PoE", model.latent_dist)
+            kl_loss_sum = kl_loss_sum + overshooting_kl_beta * kl_os
+            if predict_reward:
+                reward_l = reward_l + reward_os
         total = observations_loss_sum + reward_l + kl_beta * kl_loss_sum
 
         metrics = {"observations_loss_sum": observations_loss_sum}
@@ -309,12 +356,24 @@ def apply_gradients(model: torch.nn.Module, optimizer, scheduler,
     return norms
 
 
+def check_grad_accum(cfg) -> None:
+    """``train.grad_accum``: the port runs 1 (or null); any other value
+    raises rather than train a different run than the JAX package's, which
+    splits the batch into that many micro-batches."""
+    raw = cfg.train.get("grad_accum", 1)
+    if raw is not None and int(raw) != 1:
+        raise NotImplementedError(
+            f"train.grad_accum={raw}: the port steps on the whole batch; "
+            "micro-batch accumulation waits for ROADMAP.md queue 1 item 12")
+
+
 def make_train_step(model: WorldModel, cfg, optimizer, scheduler,
                     aug_spec: AugSpec, device: torch.device):
     """(train_step, eval_step), each ``step(raw_batch, draws, generator) ->
     metrics`` (0-d device tensors; nothing synchronises).  ``train_step``
     updates the parameters, the optimizer state and the norms' running
     stats in place."""
+    check_grad_accum(cfg)
     loss_fn = make_loss_fn(model, cfg)
     bit_depth = int(cfg.env.bit_depth)
     use_kernel = kernel_normalize_enabled(cfg, device)

@@ -501,3 +501,78 @@ def test_estimate_state_cli_launches_k1_for_a_run_trained_without_it(
     check_model.main(["--run", run_dir, "--itr", "2", "--t-start", "5",
                       "--horizon", "10", "--cwd", str(tmp_path)])
     assert ck.launch_counts()["normalize_image"] == 3
+
+
+# -- the RSSM's model variants -------------------------------------------------
+
+_CAT = ["rssm.latent_dist=categorical", "rssm.categorical_params.variables=4",
+        "rssm.categorical_params.classes=4"]
+_POE = ["rssm.multimodal_params.fusion_method=PoE"]
+_QOT = ["rssm.multimodal_params.expert_dist=q(st|ot)"]
+_OVERSHOOT = ["rssm.overshooting_distance=3", "rssm.overshooting_kl_beta=1",
+              "rssm.overshooting_reward_scale=1", "rssm.predict_reward=true"]
+GPU_VARIANTS = {
+    "unimodal": ["rssm=unimodal"],
+    "poe": _POE,
+    "nn": ["rssm.multimodal_params.fusion_method=NN"],
+    "qot_poe": _POE + _QOT,
+    "qot_mopoe": _QOT,
+    "cat_mopoe": _CAT,
+    "cat_poe": _CAT + _POE,
+    "cat_unimodal": ["rssm=unimodal"] + _CAT,
+    "overshoot_mopoe": _OVERSHOOT,
+    "overshoot_cat": _OVERSHOOT + _CAT,
+    "log_prob": ["rssm.worldmodel_LogProbLoss=true",
+                 "rssm.predict_reward=true"],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(GPU_VARIANTS))
+def test_variant_step_on_card_matches_cpu(cuda, variant):
+    """One deterministic loss step (generator=None) of each model variant,
+    batch 2 x chunk 6, on the card against the CPU on the same weights,
+    float32 with TF32 off: loss, every metric and the gradient norms within
+    rtol 1e-4; then a step with the card's own generator (Gaussian or
+    Gumbel noise drawn there) gives finite values."""
+    import copy
+
+    import numpy as np
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.core.device import configure_float32
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.ops.image import normalize_image_deterministic
+    from multimodal_rssm_torch.train import trainer as tr
+
+    configure_float32()
+    cfg = compose(overrides=SMALL + ["train.chunk_size=6"]
+                  + GPU_VARIANTS[variant])
+    L, B = 6, 2
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.integers(0, 256, (L, B, 64, 64, 3), np.uint8))
+    raw = ({"image_horizon": normalize_image_deterministic(img, 5),
+            "sound": torch.from_numpy(
+                rng.normal(size=(L, B, 128, 20)).astype(np.float32))},
+           *(torch.from_numpy(rng.normal(size=s).astype(np.float32))
+             for s in ((L, B, 3), (L, B))), torch.ones(L, B, 1))
+    cpu_model = WorldModel.from_config(cfg)
+    init_parameters(cpu_model, torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+
+    def step(model, dev, generator=None):
+        batch = ({k: v.to(dev) for k, v in raw[0].items()},
+                 *(x.to(dev) for x in raw[1:]))
+        model.zero_grad(set_to_none=True)
+        loss, metrics = tr.make_loss_fn(model, cfg)(batch, generator, True)
+        loss.backward()
+        metrics.update(tr.grad_norms(model))
+        return {k: float(v) for k, v in metrics.items()}
+
+    want, got = step(cpu_model, torch.device("cpu")), step(card_model, cuda)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
+    noisy = step(card_model, cuda, torch.Generator(cuda).manual_seed(1))
+    assert np.isfinite(list(noisy.values())).all()
