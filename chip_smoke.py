@@ -57,12 +57,15 @@ each printed as one JSON line:
                once per step, and prints its median steps/s over the steps
                after the first two, without the last (which also
                validates), and its peak memory;
-3d. budget  -- in a fresh process, as the CLI starts: a device-resident
-               replay as large as hbm_budget_bytes allows (rows tiled from
-               a small dataset), 6 full-width steps with an async
-               checkpoint after step 3: no out-of-memory, finite losses,
-               and what the run needed beyond the replay (peak reserved,
-               memory outside the allocator) against the budget's reserve;
+3d. budget  -- in a fresh process, as the CLI starts, for the default
+               configuration and for the 256 px GroupNorm one: a
+               device-resident replay as large as hbm_budget_bytes allows
+               at the configuration's reserve (step_reserve_bytes; rows
+               tiled from a small dataset), 6 full-width steps with an
+               async checkpoint after step 3: no out-of-memory, finite
+               losses, and what the run needed beyond the replay (peak
+               reserved, memory outside the allocator) against the
+               reserve;
 4. parity   -- the same weights on the card and on the CPU, float32,
                deterministic (generator=None), batch 2 x chunk 4 at full
                width: loss, every metric and the gradient norms agree;
@@ -81,6 +84,27 @@ each printed as one JSON line:
                categorical runs' models_4.pt (K1 once per episode, the
                states' widths, finite imagination MSE / PSNR, expert
                artifacts for the categorical run only);
+4c. codecs -- the world model's remaining codecs and training options at
+               full width (CODEC_RUNS: the COBOTTA 128 px camera + sound +
+               pose_quat_v2 as an observation, MoPoE over 7 subsets; 256 px
+               with GroupNorm; 64 px InstanceNorm with the draw_target
+               label head; 84 px with no norm and the crop off; the
+               default with train.grad_accum=2, rssm.remat=true and
+               rssm.remat=conv), each 4 steps and one validation through
+               the train CLI at batch 50 x chunk 50, bf16, K1 on, on a
+               synthetic set holding every modality: finite metrics, the
+               step count, K1 exactly once per train and validation step
+               and non-bin image modality, steps/s (the steps after the
+               first two, without the validating last) and peak memory
+               against phase train's; a
+               run out of memory at batch 50 is recorded and retried at
+               grad_accum 2, then 5.  Then each on the card against the
+               CPU as phase parity (chunk 6), estimate_state /
+               check_model on the 128 px run's models_4.pt (K1 once per
+               episode, grids and SSIM only for the image, MSE / PSNR for
+               every modality), and K1 at [50, 50, 128, 128, 3] and
+               [50, 50, 256, 256, 3]: equal to its plain version, device
+               time from a CUDA graph against the bytes bound;
 5. fused_codec -- the fused conv + InstanceNorm + GLU op (kernels K2, K3a,
                K3b, K3c) at its stage shapes, N = 2450, bf16: each kernel
                against its plain version (f32 arithmetic from the same
@@ -175,6 +199,49 @@ VARIANT_PARITY = {**VARIANT_RUNS,
                   "overshoot": ["rssm.overshooting_kl_beta=1",
                                 "rssm.overshooting_distance=50"],
                   "nn": ["rssm.multimodal_params.fusion_method=NN"]}
+
+
+# the codecs phase: each run's overrides of the default configuration (full
+# width; batch 50 x chunk 50, bf16, K1 on, as phase train), on a synthetic
+# set that holds every modality they name
+CODEC_STEPS = 4
+CODEC_SHAPES = {"image_horizon": [3, 64, 64], "image_horizon_84": [3, 84, 84],
+                "image_horizon_128": [3, 128, 128],
+                "image_horizon_256": [3, 256, 256], "sound": [128, 20],
+                "pose_quat_v2": [3], "draw_target": [2]}
+
+
+def _modalities(enc, rec=None, extra=()):
+    return [f"rssm.observation_names_enc=[{','.join(enc)}]",
+            f"rssm.observation_names_rec=[{','.join(rec or enc)}]", *extra]
+
+
+CODEC_RUNS = {
+    # the COBOTTA set's 128 px camera, sound and the pose as an observation
+    # (BatchNorm; MoPoE over 7 subsets)
+    "cobotta128": _modalities(("image_horizon_128", "sound", "pose_quat_v2")),
+    "img256_groupnorm": _modalities(("image_horizon_256", "sound"),
+                                    extra=["rssm.normalization=GroupNorm"]),
+    "img64_instancenorm_label": _modalities(
+        ("image_horizon", "sound"), ("image_horizon", "sound", "draw_target"),
+        ["rssm.normalization=InstanceNorm",
+         "env.observation_shapes.draw_target=[2]"]),
+    # 84 px is not in the COBOTTA schema, and the default crop (to 64 px at
+    # load, by the name) does not fit its replay: the JAX package's train
+    # CLI needs the crop off too
+    "img84_nonorm": _modalities(
+        ("image_horizon_84", "sound"),
+        extra=["rssm.normalization=None",
+               "env.observation_shapes.image_horizon_84=[3,84,84]",
+               "train.augmentation.n_crop=null"]),
+    "grad_accum2": ["train.grad_accum=2"],
+    "remat_true": ["rssm.remat=true"],
+    "remat_conv": ["rssm.remat=conv"],
+}
+CODEC_ACCUM = (2, 5)   # a run that does not fit one card at batch 50 takes
+                       # these grad_accum values, in order
+CODEC_EVAL = "cobotta128"
+K1_SHAPES = ((50, 50, 128, 128, 3), (50, 50, 256, 256, 3))
 
 
 def emit(obj) -> None:
@@ -276,12 +343,13 @@ def phase_kernel(device_name: str):
     return result
 
 
-def write_dataset(root: str, train_episodes: int) -> None:
+def write_dataset(root: str, train_episodes: int, shapes=None) -> None:
     """Synthetic COBOTTA-schema episodes of 120 steps under root/train and
-    2 of 80 under root/validation."""
+    2 of 80 under root/validation, holding ``shapes`` (default: the default
+    configuration's image_horizon and sound)."""
     from multimodal_rssm_torch.data.synthetic import write_synthetic_dataset
 
-    shapes = {"image_horizon": [3, 64, 64], "sound": [128, 20]}
+    shapes = shapes or {"image_horizon": [3, 64, 64], "sound": [128, 20]}
     write_synthetic_dataset(os.path.join(root, "train"), train_episodes, 120,
                             shapes)
     write_synthetic_dataset(os.path.join(root, "validation"), 2, 80, shapes,
@@ -356,12 +424,12 @@ def phase_train():
         write_dataset(tmp, 4)
         while True:
             try:
-                _, _, launches = train_run(
+                record, _, launches = train_run(
                     "train", tmp, [f"train.train_iteration={TRAIN_STEPS}",
                                    f"train.validation_interval={TRAIN_STEPS}",
                                    "main.experiment_name=chip_smoke"],
                     TRAIN_STEPS, "device_resident", batch=batch)
-                return launches
+                return launches, record
             except torch.cuda.OutOfMemoryError as e:
                 if batch == 1:
                     raise
@@ -827,12 +895,15 @@ def phase_eval(tmp: str, run_dir: str, device_name: str) -> dict:
             "episode_shape_ms": k1_ms}
 
 
-def budget_run(reserve_bytes: Optional[int]) -> dict:
-    """In a fresh process, as the train CLI starts: the model on the card,
-    then a device-resident replay as large as ``hbm_budget_bytes`` allows
-    (rows tiled from a small synthetic set), then six full-width steps from
-    it with an async checkpoint after step 3 (its clones on the card inside
-    the window).  Returns the memory readings; ``oom`` if a step ran out."""
+def budget_run(reserve_bytes: Optional[int], overrides=()) -> dict:
+    """In a fresh process, as the train CLI starts: the model of the
+    default configuration with ``overrides`` on the card, then a
+    device-resident replay as large as ``hbm_budget_bytes`` allows at
+    ``reserve_bytes`` (None: the port's ``step_reserve_bytes`` of the
+    configuration; rows tiled from a small synthetic set), then six
+    full-width steps from it with an async checkpoint after step 3 (its
+    clones on the card inside the window).  Returns the memory readings;
+    ``oom`` if a step ran out."""
     import numpy as np
     import torch
 
@@ -849,13 +920,17 @@ def budget_run(reserve_bytes: Optional[int]) -> dict:
     dev = torch.device("cuda")
     L, B = SHAPE[0], SHAPE[1]
     gib = 2 ** 30
-    reserve = (db._DEFAULT_RESERVE_BYTES if reserve_bytes is None
-               else reserve_bytes)
     cfg = compose(overrides=["train.pallas_normalize=true",
-                             "train.experience_size=1000"])
-    record = {"reserve_GiB": reserve / gib, "oom": None}
+                             "train.experience_size=1000", *overrides])
+    reserve = (db.step_reserve_bytes(cfg) if reserve_bytes is None
+               else reserve_bytes)
+    record = {"overrides": list(overrides), "reserve_GiB": reserve / gib,
+              "oom": None}
+    names = (set(cfg.rssm.observation_names_enc)
+             | set(cfg.rssm.observation_names_rec))
     with tempfile.TemporaryDirectory() as tmp:
-        write_dataset(tmp, 4)
+        write_dataset(tmp, 4, {n: cfg.env.observation_shapes[n]
+                               for n in names})
         D = buffer.build_buffer(cfg)
         buffer.load_dataset(tmp, D, "train")
         model = WorldModel.from_config(cfg)
@@ -923,19 +998,20 @@ def budget_run(reserve_bytes: Optional[int]) -> dict:
     return record
 
 
-def phase_budget(reserves=(None,)):
-    """``budget_run`` in a fresh process for each reserve (None: the
-    port's default).  Raises on an out-of-memory or a non-finite loss."""
+def phase_budget(runs=((None, ()),)):
+    """``budget_run`` in a fresh process for each (reserve, overrides)
+    (reserve None: the port's ``step_reserve_bytes``).  Raises on an
+    out-of-memory or a non-finite loss."""
     import gc
 
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()   # this process's cached blocks back to the card
-    for reserve in reserves:
+    for reserve, overrides in runs:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--budget-run",
-             "" if reserve is None else str(reserve)],
+             "" if reserve is None else str(reserve), *overrides],
             capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise AssertionError(f"budget run failed ({proc.returncode}):\n"
@@ -952,8 +1028,10 @@ def phase_budget(reserves=(None,)):
 def card_against_cpu(overrides, L: int, B: int = 2, seed: int = 0):
     """The same weights on the card and on the CPU, float32, TF32 off,
     deterministic (generator=None), batch B x chunk L at full width: loss,
-    every metric and the gradient norms of one step.  Returns (cpu, card,
-    max relative error, the metrics outside PARITY_RTOL)."""
+    every metric and the gradient norms of one step (over
+    ``train.grad_accum`` micro-batches), on random inputs of every
+    modality the configuration names.  Returns (cpu, card, max relative
+    error, the metrics outside PARITY_RTOL)."""
     import numpy as np
     import torch
 
@@ -966,24 +1044,32 @@ def card_against_cpu(overrides, L: int, B: int = 2, seed: int = 0):
     cfg = compose(overrides=["train.use_amp=False", f"train.chunk_size={L}",
                              *overrides])
     rng = np.random.default_rng(seed)
-    raw = ({"image_horizon": rng.integers(0, 256, (L, B, 64, 64, 3), np.uint8),
-            "sound": rng.normal(size=(L, B, 128, 20)).astype(np.float32)},
-           rng.normal(size=(L, B, 3)).astype(np.float32),
+    shapes = cfg.env.observation_shapes
+    obs = {}
+    for name in sorted(set(cfg.rssm.observation_names_enc)
+                       | set(cfg.rssm.observation_names_rec)):
+        c, *hw = shapes[name]
+        obs[name] = (rng.integers(0, 256, (L, B, *hw, c), np.uint8)
+                     if "image" in name else
+                     rng.normal(size=(L, B, *shapes[name])).astype(np.float32))
+    raw = (obs, rng.normal(size=(L, B, 3)).astype(np.float32),
            rng.normal(size=(L, B)).astype(np.float32),
            np.ones((L, B, 1), np.float32))
     cpu_model = WorldModel.from_config(cfg)
     init_parameters(cpu_model, torch.Generator().manual_seed(seed))
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    accum = tr.resolve_grad_accum(cfg)
 
     def run(model, dev):
         obs, act, rew, nt = raw
-        obs = {"image_horizon": normalize_image_deterministic(
-                   torch.from_numpy(obs["image_horizon"]).to(dev), BIT_DEPTH),
-               "sound": torch.from_numpy(obs["sound"]).to(dev)}
+        obs = {k: (normalize_image_deterministic(
+                       torch.from_numpy(v).to(dev), BIT_DEPTH)
+                   if "image" in k else torch.from_numpy(v).to(dev))
+               for k, v in obs.items()}
         batch = (obs, torch.from_numpy(act).to(dev),
                  torch.from_numpy(rew).to(dev), torch.from_numpy(nt).to(dev))
-        loss, metrics = tr.make_loss_fn(model, cfg)(batch, None, True)
-        loss.backward()
+        metrics = tr.accumulated_backward(tr.make_loss_fn(model, cfg), model,
+                                          batch, None, accum)
         metrics.update(tr.grad_norms(model))
         return {k: float(v) for k, v in metrics.items()}
 
@@ -1120,6 +1206,183 @@ def phase_variants(tmp: str, device_name: str) -> dict:
         for cli, n in e["launches"].items():
             by_path[f"variants/{name}/{cli}"] = n
     return by_path
+
+
+def k1_at_codec_shapes(device_name: str) -> dict:
+    """K1 at the larger image codecs' train shapes (``K1_SHAPES``): equal to
+    its plain version, and its device time from a CUDA graph (10 calls at
+    128 px, 4 at 256 px: each graph call holds its own output) against its
+    bytes bound; the plain version's time by CUDA events."""
+    import torch
+
+    from multimodal_rssm_torch.core.device import cuda_time_ms
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+
+    dev = torch.device("cuda")
+    seed = torch.tensor(987654321, dtype=torch.int64, device=dev)
+    out = {}
+    for shape in K1_SHAPES:
+        g = torch.Generator(dev).manual_seed(1)
+        x = torch.randint(0, 256, shape, generator=g, device=dev,
+                          dtype=torch.uint8).float()
+        got = ck.normalize_image(x, BIT_DEPTH, seed)
+        want = ck.normalize_image_plain(x, BIT_DEPTH, seed)
+        equal = bool(torch.equal(got, want))
+        err = float((got - want).abs().max())
+        del got, want
+        if not equal:
+            raise AssertionError(f"K1 at {shape}: kernel != plain version, "
+                                 f"max |diff| {err}")
+        ms = graph_time_ms(lambda: ck.normalize_image(x, BIT_DEPTH, seed),
+                           10 if shape[2] == 128 else 4)
+        plain_ms = cuda_time_ms(
+            lambda: ck.normalize_image_plain(x, BIT_DEPTH, seed), 2,
+            warmup=1)
+        n = x.numel()
+        bound = n * 8 / hbm_rate(device_name) * 1e3
+        out[str(shape[2])] = {"shape": list(shape), "exact": equal,
+                              "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound,
+                              "bound_by": "bytes"}
+        del x
+        torch.cuda.empty_cache()
+    emit({"phase": "codecs_k1", "device": device_name, **out})
+    return out
+
+
+def phase_codecs(tmp: str, device_name: str, default: dict) -> dict:
+    """The world model's remaining codecs and training options on the card
+    (``CODEC_RUNS``): each trains CODEC_STEPS steps and one validation at
+    full width through the train CLI (finite metrics, the step count, K1
+    exactly once per train and validation step and non-bin image modality;
+    steps/s, the median of the steps after the first two without the
+    validating last; peak memory), a
+    run that runs out of memory at batch 50 retried at ``CODEC_ACCUM``; each
+    on the card against the CPU (``card_against_cpu``, chunk 6);
+    ``estimate_state`` and ``check_model`` on the 128 px + pose run's last
+    checkpoint (K1 once per episode, image grids and SSIM only for the
+    image); K1 at the 128 px and 256 px shapes.  ``default``: phase train's
+    record in this call, the reference for steps/s and peak memory.
+    Returns (K1's launches by path, K1's codec-shape record)."""
+    import numpy as np
+    import torch
+
+    from multimodal_rssm_torch.cli import check_model, estimate_state
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    write_dataset(tmp, 4, CODEC_SHAPES)
+    common = [f"train.train_iteration={CODEC_STEPS}",
+              f"train.validation_interval={CODEC_STEPS}"]
+    runs, launches, run_dirs = {}, {}, {}
+    for name, overrides in CODEC_RUNS.items():
+        extra = [*overrides, f"main.experiment_name=codec_{name}"]
+        if name == CODEC_EVAL:
+            extra.append(f"train.checkpoint_interval={CODEC_STEPS}")
+        oom = []
+        for accum in (None, *CODEC_ACCUM):
+            args = [*common, *extra] + (
+                [] if accum is None else [f"train.grad_accum={accum}"])
+            try:
+                rec, result, counts = train_run(
+                    f"codecs/{name}", tmp, args, CODEC_STEPS,
+                    "device_resident")
+            except torch.cuda.OutOfMemoryError as e:
+                oom.append({"grad_accum": accum, "max_memory_allocated_GiB":
+                            torch.cuda.max_memory_allocated() / 2 ** 30,
+                            "error": str(e)[:300]})
+                emit({"phase": f"codecs/{name}", "note": "out of memory",
+                      **oom[-1]})
+                continue
+            break
+        else:
+            raise AssertionError(f"codecs/{name}: no grad_accum fits: {oom}")
+        model = result["model"]
+        n_images = sum(1 for n in set(model.observation_names_enc)
+                       | set(model.observation_names_rec)
+                       if "image" in n and "bin" not in n)
+        want = (CODEC_STEPS + 1) * n_images   # one K1 per step and image
+        del model
+        if counts["normalize_image"] != want:
+            raise AssertionError(f"codecs/{name}: K1 launched "
+                                 f"{counts['normalize_image']} times, not "
+                                 f"{want}")
+        runs[name] = {
+            "overrides": args[len(common):],
+            # the steps after the first two, without the validating last
+            "steps_per_s": rec["median_steps_per_s_after_warmup"],
+            "max_memory_allocated_GiB": rec["max_memory_allocated_GiB"],
+            "x_default_steps_per_s": rec["median_steps_per_s_after_warmup"]
+            / default["median_steps_per_s_after_warmup"],
+            "x_default_peak": rec["max_memory_allocated_GiB"]
+            / default["max_memory_allocated_GiB"],
+            "step_seconds": rec["step_seconds"],
+            "loss": rec["loss"], "validation_loss": rec["validation_loss"],
+            "out_of_memory_at": oom}
+        launches[name] = counts["normalize_image"]
+        run_dirs[name] = result["results_dir"]
+        del result
+    torch.cuda.empty_cache()
+
+    parity = {}
+    for name, overrides in CODEC_RUNS.items():
+        cpu, gpu, max_rel, bad = card_against_cpu(overrides, 6)
+        worst = max(cpu, key=lambda k: abs(gpu[k] - cpu[k])
+                    / max(abs(cpu[k]), 1e-12))
+        parity[name] = {"max_rel": max_rel, "metric": worst,
+                        "cpu": cpu[worst], "cuda": gpu[worst]}
+        if bad:
+            raise AssertionError(f"codecs/{name}: card and CPU disagree: "
+                                 f"{bad}")
+
+    run_dir, n_epi = run_dirs[CODEC_EVAL], 4
+    ck.reset_launch_counts()
+    saved = estimate_state.main(["--targets", os.path.dirname(run_dir),
+                                 "--itr", str(CODEC_STEPS), "--cwd", tmp])
+    est = ck.launch_counts()["normalize_image"]
+    states = np.load(saved[0], allow_pickle=True).item()
+    names = {"image_horizon_128", "sound", "pose_quat_v2"}
+    bad = [k for k, st in states.items()
+           if st["posterior_means"].shape != (EVAL_T - 1, 1, 128)
+           or set(st["expert_means"]) != {"prior_expert", *names}
+           or not _all_finite(st)]
+    ck.reset_launch_counts()
+    report = check_model.main(["--run", run_dir, "--itr", str(CODEC_STEPS),
+                               "--t-start", str(EVAL_T_START), "--horizon",
+                               str(EVAL_HORIZON), "--cwd", tmp])
+    chk = ck.launch_counts()["normalize_image"]
+    grids = sorted(os.path.splitext(f)[0] for f in report["files"]
+                   if f.startswith(("reconstruction_", "imagination_"))
+                   and not f.endswith(".json"))
+    if (len(saved) != 1 or len(states) != n_epi or bad or est != n_epi
+            or chk != n_epi or set(report["metrics"]) != names
+            or grids != ["imagination_image_horizon_128",
+                         "reconstruction_image_horizon_128"]
+            or "ssim" not in report["metrics"]["image_horizon_128"]
+            or any("ssim" in report["metrics"][n]
+                   for n in ("sound", "pose_quat_v2"))
+            or not _all_finite(report["metrics"])):
+        raise AssertionError(f"codecs/{CODEC_EVAL} eval: {saved}, states "
+                             f"wrong or not finite for {bad}; K1 {est} / "
+                             f"{chk}; grids {grids}; {report}")
+    k1 = k1_at_codec_shapes(device_name)
+    record = {"phase": "codecs", "device": device_name,
+              "batch": SHAPE[1], "chunk": SHAPE[0], "steps": CODEC_STEPS,
+              "default": {k: default[k] for k in (
+                  "median_steps_per_s_after_warmup",
+                  "max_memory_allocated_GiB")},
+              "runs": runs, "card_vs_cpu_max_rel": parity,
+              "card_vs_cpu_rtol": PARITY_RTOL,
+              "eval": {"run": CODEC_EVAL, "mse": report["mse"],
+                       "metrics": report["metrics"],
+                       "launches": {"estimate_state": est,
+                                    "check_model": chk}},
+              "wall_seconds": time.perf_counter() - t_phase}
+    emit(record)
+    by_path = {f"codecs/{k}": v for k, v in launches.items()}
+    by_path[f"codecs/{CODEC_EVAL}/estimate_state"] = est
+    by_path[f"codecs/{CODEC_EVAL}/check_model"] = chk
+    return by_path, k1
 
 
 def conv_flops(n, h, wd, cin, kh, kw, cout, ph, pw) -> int:
@@ -1404,22 +1667,25 @@ def main() -> int:
                          "cudnn": torch.backends.cudnn.allow_tf32}})
     phase_build()
     kernel = phase_kernel(name)
-    launches = phase_train()
+    launches, default = phase_train()
     phase_feed(name)
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = phase_checkpoint(tmp)
         eval_k1 = phase_eval(tmp, run_dir, name)
-    phase_budget()
+    phase_budget(((None, ()), (None, tuple(CODEC_RUNS["img256_groupnorm"]))))
     phase_parity()
     with tempfile.TemporaryDirectory() as tmp:
         variants_k1 = phase_variants(tmp, name)
+    with tempfile.TemporaryDirectory() as tmp:
+        codecs_k1, k1_shapes = phase_codecs(tmp, name, default)
     fused = phase_fused_codec(name, launches)
     kernel["launches"] = launches["normalize_image"]
     kernel["launches_by_path"] = {
         "train": launches["normalize_image"],
         "estimate_state": eval_k1["estimate_state"],
-        "check_model": eval_k1["check_model"], **variants_k1}
+        "check_model": eval_k1["check_model"], **variants_k1, **codecs_k1}
     kernel["eval_episode_shape_ms"] = eval_k1["episode_shape_ms"]
+    kernel["codec_shapes"] = k1_shapes
     emit({"kernels": [kernel, *fused]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1434,6 +1700,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--budget-run"]:   # phase_budget's fresh process
         sys.path.insert(0, REPO)
         arg = sys.argv[2] if len(sys.argv) > 2 else ""
-        emit(budget_run(int(arg) if arg else None))
+        emit(budget_run(int(arg) if arg else None, sys.argv[3:]))
         sys.exit(0)
     sys.exit(main())

@@ -33,6 +33,14 @@ import torch
 _DEFAULT_RESERVE_BYTES = 40 << 30
 _MIN_BUDGET_BYTES = 2 << 30
 _CPU_BUDGET_BYTES = 4 << 30
+# Bytes a step holds per image-codec activation element of a sample beyond
+# the default configuration's one 64 px image codec (the input, the conv /
+# ConvT outputs, the norms' and activations' saved tensors, and the
+# float32 target and mean).  chip_smoke.py's budget phase on an NVIDIA
+# H100 80GB HBM3, 700 W: the 256 px GroupNorm step needs 61.66 GiB beside
+# its replay, the default 37.08 GiB, over 2,450 x 983,336 more elements:
+# 10.96 bytes each.  12 leaves that run 5.26 GiB of margin at 66.92 GiB.
+_BYTES_PER_CODEC_ELEMENT = 12
 
 
 def hbm_budget_bytes(device: torch.device,
@@ -50,6 +58,45 @@ def hbm_budget_bytes(device: torch.device,
         return _CPU_BUDGET_BYTES
     free, _ = torch.cuda.mem_get_info(device)
     return max(_MIN_BUDGET_BYTES, int(free) - int(reserve_bytes))
+
+
+def image_codec_elements(shape) -> int:
+    """Activation elements of one sample through an image modality's codec
+    at ``shape`` (C, H, W): the image, every encoder conv's output and
+    every decoder ConvT's output."""
+    from multimodal_rssm_torch.models.decoders import IMAGE_DECODERS
+    from multimodal_rssm_torch.models.encoders import IMAGE_ENCODERS
+
+    c, size = int(shape[0]), int(shape[1])
+    n, hw = c * size * size, size
+    for features, k, s in IMAGE_ENCODERS[size].layer_defs:
+        hw = (hw - k) // s + 1
+        n += features * hw * hw
+    hw = 1
+    for features, k, s in IMAGE_DECODERS[size].layer_defs:
+        hw = (hw - 1) * s + k
+        n += (features or c) * hw * hw
+    return n
+
+
+def step_reserve_bytes(cfg) -> int:
+    """The reserve ``hbm_budget_bytes`` keeps for the configured step: the
+    default configuration's measured 40 GiB, plus ``_BYTES_PER_CODEC_ELEMENT``
+    per image-codec activation element that the configured image
+    modalities add over one 64 px codec, for each sample of a micro-batch
+    (batch x (chunk - 1) / ``train.grad_accum``)."""
+    rssm = cfg.rssm
+    shapes = cfg.env.observation_shapes
+    names = set(rssm.observation_names_enc) | set(rssm.observation_names_rec)
+    if not bool(rssm.get("multimodal", True)):
+        names = {rssm.observation_names_enc[0], rssm.observation_names_rec[0]}
+    elements = sum(image_codec_elements(shapes[n]) for n in names
+                   if "image" in n)
+    extra = max(0, elements - image_codec_elements((3, 64, 64)))
+    accum = int(cfg.train.get("grad_accum", 1) or 1)
+    samples = int(cfg.train.batch_size) * (int(cfg.train.chunk_size) - 1)
+    return _DEFAULT_RESERVE_BYTES + (
+        samples // accum * extra * _BYTES_PER_CODEC_ELEMENT)
 
 
 def _used_rows(host_buffer) -> int:

@@ -15,12 +15,17 @@ exporter:
   ``up_conversion`` columns are stored (h, w, c) and go back to (c, h, w);
 - GRU [in, 3H] -> [3H, in];
 - norms: scale/bias -> weight/bias, mean/var -> running_mean/running_var,
-  ``num_batches_tracked`` = 0.
+  ``num_batches_tracked`` = 0 (GroupNorm has no running stats);
+- the 84 px image decoder's Linear is ``fc``, the others' ``fc1``; the
+  dense decoders and the ``draw_target`` head share ``fc1..fc3``.
+
+``codec_state_dict`` converts one codec on its own, the codecs no world
+model builds (sound v1, ``EncoderNN``) too.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -116,12 +121,60 @@ def _sound_encoder(sd, prefix, params, stats):
 def _image_decoder(sd, prefix, params, stats):
     n = _count("deconv", params)
     step = 3 if "norm0" in params else 2
-    _emit(sd, f"{prefix}.fc1", _dense(params["fc1"]))
+    # the 84 px decoder, the only one whose first ConvT is 3 x 3, keeps the
+    # reference's name for its Linear
+    fc = "fc" if np.shape(params["deconv0"]["kernel"])[0] == 3 else "fc1"
+    _emit(sd, f"{prefix}.{fc}", _dense(params["fc1"]))
     for i in range(n):
         _emit(sd, f"{prefix}.conv.{i * step}", _conv_transpose(params[f"deconv{i}"]))
         if step == 3 and i < n - 1:
             _emit(sd, f"{prefix}.conv.{i * step + 1}",
                   _norm(params[f"norm{i}"], stats.get(f"norm{i}")))
+
+
+def _mlp(sd, prefix, params, stats):
+    for k in ("fc1", "fc2", "fc3"):
+        _emit(sd, f"{prefix}.{k}", _dense(params[k]))
+
+
+def _sound_encoder_v1(sd, prefix, params, stats):
+    for i in range(_count("conv", params)):
+        _emit(sd, f"{prefix}.conv.{i * 3}", _conv(params[f"conv{i}"]))
+        _emit(sd, f"{prefix}.conv.{i * 3 + 1}",
+              _norm(params[f"norm{i}"], stats.get(f"norm{i}")))
+    if "fc" in params:
+        _emit(sd, f"{prefix}.fc", _dense(params["fc"]))
+
+
+def _sound_decoder_v1(sd, prefix, params, stats):
+    _emit(sd, f"{prefix}.fc1.0", _dense(params["fc1_0"]))
+    _emit(sd, f"{prefix}.fc1.2", _dense(params["fc1_1"]))
+    n = _count("deconv", params)
+    for i in range(n):
+        _emit(sd, f"{prefix}.conv.{i * 3}", _conv_transpose(params[f"deconv{i}"]))
+        if i < n - 1:
+            _emit(sd, f"{prefix}.conv.{i * 3 + 1}",
+                  _norm(params[f"norm{i}"], stats.get(f"norm{i}")))
+
+
+def _encoder_nn(sd, prefix, params, stats):
+    enc, enc_stats = params["multimodal_encoder"], stats.get("multimodal_encoder", {})
+    for name, p in enc.items():
+        _encoder_for(name)(sd, f"{prefix}.multimodal_encoder.{name}", p,
+                           enc_stats.get(name, {}))
+    _emit(sd, f"{prefix}.mixer.fc", _dense(params["mixer"]["fc"]))
+
+
+def _encoder_for(name: str) -> Callable:
+    if "image" in name:
+        return _image_encoder
+    return _sound_encoder if "sound" in name else _mlp
+
+
+def _decoder_for(name: str) -> Callable:
+    if "image" in name:
+        return _image_decoder
+    return _sound_decoder if "sound" in name else _mlp
 
 
 def _sound_decoder(sd, prefix, params, stats):
@@ -159,12 +212,10 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
     dec_stats = stats.get("observation_model", {})
 
     def encoder(prefix, name, p):
-        build = _image_encoder if "image" in name else _sound_encoder
-        build(sd, prefix, p, enc_stats.get(name, {}))
+        _encoder_for(name)(sd, prefix, p, enc_stats.get(name, {}))
 
     def decoder(prefix, key, p):
-        build = _image_decoder if "image" in key else _sound_decoder
-        build(sd, prefix, p, dec_stats.get(key, {}))
+        _decoder_for(key)(sd, prefix, p, dec_stats.get(key, {}))
 
     if "obs_proj_fused" in core:   # unimodal
         _emit(sd, f"{tm}.obs_encoder.fc1",
@@ -195,6 +246,29 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
         for key, p in params["observation_model"].items():
             decoder(f"observation_model.{key[len('models_'):]}", key, p)
 
-    for k in ("fc1", "fc2", "fc3"):
-        _emit(sd, f"reward_model.{k}", _dense(params["reward_model"][k]))
+    _mlp(sd, "reward_model", params["reward_model"], {})
+    return _to_torch(sd)
+
+
+def _to_torch(sd: Mapping) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+_CODECS = {"image_encoder": _image_encoder, "image_decoder": _image_decoder,
+           "sound_encoder": _sound_encoder, "sound_decoder": _sound_decoder,
+           "sound_encoder_v1": _sound_encoder_v1,
+           "sound_decoder_v1": _sound_decoder_v1,
+           "symbolic_encoder": _mlp, "dense_decoder": _mlp,
+           "discriminator": _mlp, "encoder_nn": _encoder_nn}
+
+
+def codec_state_dict(kind: str, params: Mapping,
+                     batch_stats: Optional[Mapping] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of one codec from its JAX ``params`` /
+    ``batch_stats`` subtrees; ``kind`` is a key of ``_CODECS`` (the image
+    codecs at any size and norm, the sound codecs v1 and v2, the symbolic
+    encoder, the dense decoder, the Discriminator, ``EncoderNN``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _CODECS[kind](sd, "", params, batch_stats or {})
+    return _to_torch({k[1:]: v for k, v in sd.items()})

@@ -1,32 +1,43 @@
-"""Observation encoders (reference utils/models/encoder.py:307-360,
-661-810, 882-973).
+"""Observation encoders (reference utils/models/encoder.py:282-973), every
+variant the JAX package's ``models/encoders.py`` builds:
 
-- ``ImageEncoder64``: four k4 s2 convs (32 -> 256 channels), each followed
-  by the configured norm and relu, flattened in NCHW order to 1024 (plus
-  ``fc`` + activation when the embedding is not 1024);
+- ``SymbolicEncoder``: a 3-layer MLP for low-dimensional modalities
+  (``pose_*``, ``weight_*``);
+- ``ImageEncoder64 / 84 / 128 / 256``: VALID conv stacks (k4 s2, the 84 px
+  one k4/k5/k5/k6), each conv followed by the configured norm (BatchNorm,
+  InstanceNorm, GroupNorm or none; a conv has no bias under a norm) and
+  relu, flattened in NCHW order to 1024 (plus ``fc`` + activation when the
+  embedding is not 1024);
+- ``SoundEncoder`` (v1): the GLU + BatchNorm conv stack; no factory builds
+  it, in either package;
 - ``SoundEncoderV2``: StarGAN-VC2-style GLU down-sampling over a
   [128, 20] spectrogram.  The JAX package's ``PackedWidthConv`` and
   ``GroupedDownConversion`` are TPU reshapes of the plain convs used here;
-  the parameters keep the reference's layout.
+  the parameters keep the reference's layout;
+- ``MultimodalEncoder`` (one child per modality) and ``Mixer`` /
+  ``EncoderNN`` (concat + Linear fusion into one vector; no factory builds
+  them either).
 
 ``MultimodalStochasticEncoder`` (``expert_dist="q(st|ot)"``) puts a
 q(s_t | o_t) head after each modality's encoder, so the experts come out of
 the encoder; its children are ``<name>`` and ``<name>_head``, the JAX
-package's module paths.
+package's module paths.  Every codec is ``Rematerialised``: its forward is
+checkpointed as ``rssm.remat`` says (``models/remat.py``).
 
 Inputs follow the JAX package: images [N, H, W, C], sound [N, 128, 20].
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from multimodal_rssm_torch.models.heads import ObsEncoderNoBelief
 from multimodal_rssm_torch.models.layers import (
-    BatchNorm, InstanceNorm, act_fn, glu)
+    BatchNorm, InstanceNorm, act_fn, glu, make_norm)
+from multimodal_rssm_torch.models.remat import Rematerialised
 
 
 class GLU(nn.Module):
@@ -36,33 +47,43 @@ class GLU(nn.Module):
         return glu(x, dim=1)
 
 
-def has_norm(normalization: Optional[str]) -> bool:
-    if normalization in (None, "None"):
-        return False
-    if normalization != "BatchNorm":
-        raise NotImplementedError(
-            f"normalization {normalization!r}: the port runs BatchNorm and "
-            "None so far")
-    return True
+class SymbolicEncoder(nn.Module):
+    """3-layer MLP encoder, an activation after each layer (ref
+    :282-305)."""
+
+    def __init__(self, observation_size: int, embedding_size: int,
+                 activation_function: str = "relu"):
+        super().__init__()
+        self.fc1 = nn.Linear(observation_size, embedding_size)
+        self.fc2 = nn.Linear(embedding_size, embedding_size)
+        self.fc3 = nn.Linear(embedding_size, embedding_size)
+        self.act = act_fn(activation_function)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.act(self.fc1(x))
+        return self.act(self.fc3(self.act(self.fc2(x))))
 
 
-class ImageEncoder64(nn.Module):
-    """64px image encoder (ref encoder.py:307-360)."""
+class ImageEncoder(Rematerialised):
+    """VALID conv stack over ``layer_defs`` (features, kernel, stride), each
+    conv followed by the norm and relu; NCHW flatten to 1024, then ``fc`` +
+    activation when the embedding is not 1024 (ref :307-615)."""
 
-    layer_defs = ((32, 4, 2), (64, 4, 2), (128, 4, 2), (256, 4, 2))
+    layer_defs: Tuple[Tuple[int, int, int], ...] = ()
 
     def __init__(self, embedding_size: int = 1024,
                  activation_function: str = "relu",
                  normalization: Optional[str] = "BatchNorm",
                  in_channels: int = 3):
         super().__init__()
-        norm = has_norm(normalization)
         layers = []
         c = in_channels
         for features, kernel, stride in self.layer_defs:
-            layers.append(nn.Conv2d(c, features, kernel, stride, bias=not norm))
-            if norm:
-                layers.append(BatchNorm(features))
+            norm = make_norm(normalization, features)
+            layers.append(nn.Conv2d(c, features, kernel, stride,
+                                    bias=norm is None))
+            if norm is not None:
+                layers.append(norm)
             layers.append(nn.ReLU())
             c = features
         self.conv = nn.Sequential(*layers)
@@ -79,7 +100,67 @@ class ImageEncoder64(nn.Module):
         return x
 
 
-class SoundEncoderV2(nn.Module):
+class ImageEncoder64(ImageEncoder):
+    """64 px: channels 32 -> 256, k4 s2 (ref :307-360)."""
+
+    layer_defs = ((32, 4, 2), (64, 4, 2), (128, 4, 2), (256, 4, 2))
+
+
+class ImageEncoder84(ImageEncoder):
+    """84 px: k4/k5/k5/k6 s2 (ref :362-413)."""
+
+    layer_defs = ((32, 4, 2), (64, 5, 2), (128, 5, 2), (256, 6, 2))
+
+
+class ImageEncoder128(ImageEncoder):
+    """128 px: five k4 s2 convs, channels 16 -> 256 (ref :415-509)."""
+
+    layer_defs = ((16, 4, 2), (32, 4, 2), (64, 4, 2), (128, 4, 2),
+                  (256, 4, 2))
+
+
+class ImageEncoder256(ImageEncoder):
+    """256 px: six k4 s2 convs, channels 8 -> 256 (ref :511-615)."""
+
+    layer_defs = ((8, 4, 2), (16, 4, 2), (32, 4, 2), (64, 4, 2),
+                  (128, 4, 2), (256, 4, 2))
+
+
+IMAGE_ENCODERS = {64: ImageEncoder64, 84: ImageEncoder84,
+                  128: ImageEncoder128, 256: ImageEncoder256}
+
+
+class SoundEncoder(Rematerialised):
+    """v1 GLU + BatchNorm conv encoder (ref :617-658): [N, 128, 20] ->
+    [N, 5, 10, 5] -> NCHW flatten to 250 (plus ``fc`` when the embedding is
+    not 250)."""
+
+    # (in, out, kernel, stride, padding); each conv is followed by
+    # BatchNorm and a GLU that halves the channels
+    layer_defs = ((1, 64, (3, 9), (1, 1), (1, 4)),
+                  (32, 128, (4, 8), (2, 2), (1, 3)),
+                  (64, 256, (4, 8), (2, 2), (1, 3)),
+                  (128, 128, (3, 5), (1, 1), (1, 2)),
+                  (64, 10, (5, 5), (3, 1), (1, 2)))
+
+    def __init__(self, embedding_size: int = 250):
+        super().__init__()
+        layers = []
+        for cin, cout, k, s, p in self.layer_defs:
+            layers += [nn.Conv2d(cin, cout, k, s, p, bias=False),
+                       BatchNorm(cout), GLU()]
+        self.conv = nn.Sequential(*layers)
+        self.embedding_size = embedding_size
+        if embedding_size != 250:
+            self.fc = nn.Linear(250, embedding_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x[:, None])
+        x = x.reshape(x.shape[0], -1)
+        return self.fc(x) if self.embedding_size != 250 else x
+
+
+class SoundEncoderV2(Rematerialised):
     """GLU down-sampling sound encoder (ref encoder.py:661-721):
     [N, 128, 20] -> [N, embedding_size]."""
 
@@ -121,24 +202,39 @@ def modality_embedding_size(name: str, embedding_size: Mapping[str, int]
     return embedding_size["other"]
 
 
+def build_image_encoder(observation_shape: Sequence[int], embedding_size: int,
+                        activation_function: str,
+                        normalization: Optional[str]) -> ImageEncoder:
+    """Dispatch on the image's height (ref ``build_ImageEncoder``,
+    :723-734): 64, 84, 128 or 256 px."""
+    size = int(observation_shape[1])
+    if size not in IMAGE_ENCODERS:
+        raise ValueError(f"image size {size} not in {sorted(IMAGE_ENCODERS)}")
+    return IMAGE_ENCODERS[size](embedding_size, activation_function,
+                                normalization,
+                                in_channels=int(observation_shape[0]))
+
+
 def build_encoder(name: str, observation_shapes: Mapping[str, Sequence[int]],
                   embedding_size: Mapping[str, int],
                   activation_function: Mapping[str, str],
-                  normalization: Optional[str]) -> nn.Module:
-    """Name-dispatch factory (ref ``build_Encoder``): "image" -> image
-    encoder, "sound" -> SoundEncoderV2."""
+                  normalization: Optional[str],
+                  remat_mode: Optional[str] = None) -> nn.Module:
+    """Name-dispatch factory (ref ``build_Encoder``, :736-744): "image" ->
+    image encoder by size, "sound" -> SoundEncoderV2, else SymbolicEncoder
+    (activation ``dense``); ``remat_mode`` as ``remat.encoder_mode`` (the
+    SymbolicEncoder is never rematerialised, as in the JAX package)."""
     shape = observation_shapes[name]
     if "image" in name:
-        if tuple(shape[1:]) != (64, 64):
-            raise NotImplementedError(
-                f"{name} {tuple(shape)}: the port runs 64px images so far")
-        return ImageEncoder64(embedding_size["image"],
-                              activation_function["cnn"], normalization,
-                              in_channels=shape[0])
-    if "sound" in name:
-        return SoundEncoderV2(embedding_size["sound"])
-    raise NotImplementedError(
-        f"{name}: the port has no encoder for symbolic modalities yet")
+        enc = build_image_encoder(shape, embedding_size["image"],
+                                  activation_function["cnn"], normalization)
+    elif "sound" in name:
+        enc = SoundEncoderV2(embedding_size["sound"])
+    else:
+        return SymbolicEncoder(int(shape[0]), embedding_size["other"],
+                               activation_function["dense"])
+    enc.remat_mode = remat_mode
+    return enc
 
 
 class MultimodalEncoder(nn.ModuleDict):
@@ -150,15 +246,57 @@ class MultimodalEncoder(nn.ModuleDict):
                  observation_shapes: Mapping[str, Sequence[int]],
                  embedding_size: Mapping[str, int],
                  activation_function: Mapping[str, str],
-                 normalization: Optional[str] = "BatchNorm"):
+                 normalization: Optional[str] = "BatchNorm",
+                 remat_mode: Optional[str] = None):
         super().__init__({
             name: build_encoder(name, observation_shapes, embedding_size,
-                                activation_function, normalization)
+                                activation_function, normalization,
+                                remat_mode)
             for name in observation_names_enc})
 
     def forward(self, observations: Mapping[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         return {name: self[name](x) for name, x in observations.items()}
+
+
+class Mixer(nn.Module):
+    """Concat (in the hiddens' order) + Linear + activation (ref
+    :812-828)."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 activation_function: str = "relu"):
+        super().__init__()
+        self.fc = nn.Linear(input_size, output_size)
+        self.act = act_fn(activation_function)
+
+    def forward(self, hiddens: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        return self.act(self.fc(torch.cat(list(hiddens.values()), -1)))
+
+
+class EncoderNN(nn.Module):
+    """``MultimodalEncoder`` + ``Mixer`` into one fused embedding of width
+    ``embedding_size["fusion"]`` (ref ``MultimodalEncoderNN``, :830-880, the
+    JAX package's ``EncoderNN``, which repairs the reference's undefined
+    attribute at :848).  Children ``multimodal_encoder`` and ``mixer``, the
+    JAX package's names."""
+
+    def __init__(self, observation_names_enc: Sequence[str],
+                 observation_shapes: Mapping[str, Sequence[int]],
+                 embedding_size: Mapping[str, int],
+                 activation_function: Mapping[str, str],
+                 normalization: Optional[str] = "BatchNorm"):
+        super().__init__()
+        self.multimodal_encoder = MultimodalEncoder(
+            observation_names_enc, observation_shapes, embedding_size,
+            activation_function, normalization)
+        width = sum(modality_embedding_size(n, embedding_size)
+                    for n in observation_names_enc)
+        self.mixer = Mixer(width, embedding_size["fusion"],
+                           activation_function["fusion"])
+
+    def forward(self, observations: Mapping[str, torch.Tensor]
+                ) -> torch.Tensor:
+        return self.mixer(self.multimodal_encoder(observations))
 
 
 class MultimodalStochasticEncoder(nn.ModuleDict):
@@ -172,12 +310,13 @@ class MultimodalStochasticEncoder(nn.ModuleDict):
                  embedding_size: Mapping[str, int],
                  activation_function: Mapping[str, str],
                  normalization: Optional[str], state_size: int,
-                 hidden_size: int, min_std_dev: float = 0.1):
+                 hidden_size: int, min_std_dev: float = 0.1,
+                 remat_mode: Optional[str] = None):
         modules = {}
         for name in observation_names_enc:
             modules[name] = build_encoder(name, observation_shapes,
                                           embedding_size, activation_function,
-                                          normalization)
+                                          normalization, remat_mode)
             modules[f"{name}_head"] = ObsEncoderNoBelief(
                 modality_embedding_size(name, embedding_size), hidden_size,
                 state_size, activation_function["dense"], min_std_dev)

@@ -6,21 +6,28 @@ Dense layers and convolutions are ``nn.Linear``, ``nn.Conv2d`` and
 the same math).  Image tensors are NCHW inside the modules; the world
 model's public inputs and outputs keep the JAX package's NHWC layout.
 
-Two norms differ from their ``torch.nn`` namesakes on purpose:
+The norms differ from their ``torch.nn`` namesakes on purpose:
 
 - ``BatchNorm`` tracks the BIASED batch variance in its running stats
   (``nn.BatchNorm2d`` tracks the unbiased one);
 - ``InstanceNorm`` updates its running stats in train mode from the batch
-  mean of the per-instance statistics.
+  mean of the per-instance statistics;
+- ``GroupNorm`` (4 groups) is ``nn.GroupNorm``: its variance is the mean
+  squared deviation, flax's E[x^2] - mean^2.
 
-Both compute ``var = max(E[x^2] - mean^2, 0)`` in float32 and apply
-``y = x * a + b`` in the input's dtype, as the JAX package does.
+BatchNorm and InstanceNorm compute ``var = max(E[x^2] - mean^2, 0)`` in
+float32 and apply ``y = x * a + b`` in the input's dtype, as the JAX
+package does.  ``make_norm`` builds the one ``rssm.normalization`` names.
+Inside ``frozen_running_stats(module)`` no norm of ``module`` updates its
+running stats (the recompute of a rematerialised codec runs the forward a
+second time).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,7 +82,10 @@ def _moments(x: torch.Tensor, dims: Tuple[int, ...]):
 
 
 class _Norm(nn.Module):
-    """Affine norm over channel axis 1 with torch's parameter names."""
+    """Affine norm over channel axis 1 with torch's parameter names.
+    ``frozen``: train mode updates no running stats."""
+
+    frozen = False
 
     def __init__(self, num_features: int, track_running_stats: bool = True,
                  momentum: float = 0.1, eps: float = 1e-5):
@@ -94,6 +104,8 @@ class _Norm(nn.Module):
 
     @torch.no_grad()
     def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if self.frozen:
+            return
         m = self.momentum
         self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
         self.running_var.copy_((1 - m) * self.running_var + m * var)
@@ -132,6 +144,54 @@ class InstanceNorm(_Norm):
             if self.track_running_stats:
                 self._update(mean.mean(0).reshape(-1), var.mean(0).reshape(-1))
         return _normalize(x, mean, var, self.weight, self.bias, self.eps, shape)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """No norm inside ``module`` updates its running stats (or
+    ``num_batches_tracked``) within this block; train mode still normalises
+    with batch statistics."""
+    norms = [m for m in module.modules() if isinstance(m, _Norm)]
+    for m in norms:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.frozen = False
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` with flax's ``nn.GroupNorm(num_groups=4,
+    epsilon=1e-5)`` configuration, taking ``num_features`` as the port's
+    other norms do.  Flax computes the variance as E[x^2] - E[x]^2, torch
+    as the mean squared deviation: they agree to float32 rounding of
+    E[x^2] (the tests state the tolerance).  Under bf16 autocast it
+    normalises in float32, as flax does."""
+
+    def __init__(self, num_features: int, num_groups: int = 4,
+                 eps: float = 1e-5):
+        super().__init__(num_groups, num_features, eps=eps)
+        self.num_features = num_features
+
+
+NORMALIZATIONS = ("BatchNorm", "InstanceNorm", "GroupNorm", None, "None")
+
+
+def make_norm(normalization: Optional[str], num_features: int
+              ) -> Optional[nn.Module]:
+    """The norm ``rssm.normalization`` names for ``num_features`` channels,
+    or None for ``None`` / ``"None"``; raises ``ValueError`` on a value the
+    JAX package does not build.  InstanceNorm tracks running stats and
+    reads them in ``eval()``, as the JAX package's
+    ``use_running_average=not train``."""
+    if normalization not in NORMALIZATIONS:
+        raise ValueError(f"rssm.normalization={normalization!r} not in "
+                         f"{NORMALIZATIONS}")
+    if normalization in (None, "None"):
+        return None
+    return {"BatchNorm": BatchNorm, "InstanceNorm": InstanceNorm,
+            "GroupNorm": GroupNorm}[normalization](num_features)
 
 
 class GRUCell(nn.Module):

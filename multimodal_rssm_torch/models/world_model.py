@@ -17,7 +17,12 @@ package's config schema, dispatched as its ``from_config``:
   ``observation_names_rec[0]``; ``encoder`` and ``observation_model`` are
   then that one module, as in the reference's flat state dict;
 - ``rssm.latent_dist``: gaussian, or categorical (V x K one-hot variables,
-  ``state_size`` = V * K; ``rssm.state_size`` is ignored).
+  ``state_size`` = V * K; ``rssm.state_size`` is ignored);
+- the codecs by modality name and shape (``models/encoders.py``,
+  ``models/decoders.py``): images at 64 / 84 / 128 / 256 px under
+  ``rssm.normalization`` (BatchNorm, InstanceNorm, GroupNorm, None),
+  sound, symbolic modalities (``pose_*``) and the ``draw_target`` label
+  head; ``rssm.remat`` checkpoints the codecs (``models/remat.py``).
 
 The core's activation follows the reference: relu for the multimodal
 transition models (they never receive ``activation_function.dense``), the
@@ -48,6 +53,8 @@ from multimodal_rssm_torch.models.encoders import (
     modality_embedding_size)
 from multimodal_rssm_torch.models.heads import RewardModel
 from multimodal_rssm_torch.models.layers import fold_tb, unfold_tb
+from multimodal_rssm_torch.models.remat import (
+    check_remat, decoder_mode, encoder_mode)
 from multimodal_rssm_torch.ops import categorical
 from multimodal_rssm_torch.rssm.core import TransitionModel, expert_dict
 
@@ -77,7 +84,8 @@ class WorldModel(nn.Module):
                  expert_dist: str = "q(st|ht,ot)",
                  core_activation: str = "relu", min_std_dev: float = 0.1,
                  latent_dist: str = "gaussian", latent_variables: int = 0,
-                 latent_classes: int = 0, unimix: float = 0.0):
+                 latent_classes: int = 0, unimix: float = 0.0,
+                 remat=False):
         super().__init__()
         if not multimodal:
             observation_names_enc = tuple(observation_names_enc)[:1]
@@ -103,24 +111,27 @@ class WorldModel(nn.Module):
             activation_function=core_activation, min_std_dev=min_std_dev,
             latent_dist=latent_dist, latent_variables=latent_variables,
             latent_classes=latent_classes, unimix=unimix)
+        remat = check_remat(remat)
         enc_args = (observation_shapes, embedding_size, activation_function,
                     normalization)
+        dec_args = (observation_shapes, belief_size, state_size, hidden_size,
+                    embedding_size, activation_function, normalization,
+                    decoder_mode(remat))
         if not multimodal:
             self.encoder = build_encoder(self.observation_names_enc[0],
-                                         *enc_args)
+                                         *enc_args, encoder_mode(remat))
             self.observation_model = build_observation_model(
-                self.observation_names_rec[0], observation_shapes,
-                belief_size, state_size, embedding_size, normalization)
+                self.observation_names_rec[0], *dec_args)
         else:
             self.encoder = (
                 MultimodalStochasticEncoder(
                     self.observation_names_enc, *enc_args, state_size,
-                    hidden_size, min_std_dev)
+                    hidden_size, min_std_dev, encoder_mode(remat))
                 if expert_dist == "q(st|ot)" else
-                MultimodalEncoder(self.observation_names_enc, *enc_args))
+                MultimodalEncoder(self.observation_names_enc, *enc_args,
+                                  encoder_mode(remat)))
             self.observation_model = MultimodalObservationModel(
-                self.observation_names_rec, observation_shapes, belief_size,
-                state_size, embedding_size, normalization)
+                self.observation_names_rec, *dec_args)
         self.reward_model = RewardModel(belief_size, state_size, hidden_size,
                                         activation_function["dense"])
 
@@ -284,11 +295,12 @@ class WorldModel(nn.Module):
 
     @staticmethod
     def from_config(cfg) -> "WorldModel":
-        """Build the configured model: unimodal or multimodal, PoE / NN /
-        MoPoE fusion, q(st|ht,ot) or q(st|ot) experts, Gaussian or
-        categorical latents.  Raises on what the port does not run yet
-        (image sizes other than 64, GroupNorm / InstanceNorm image codecs,
-        sound v1 and symbolic modalities)."""
+        """Build the configured model, dispatched as the JAX package's
+        ``from_config``: unimodal or multimodal, PoE / NN / MoPoE fusion,
+        q(st|ht,ot) or q(st|ot) experts, Gaussian or categorical latents,
+        every codec and norm by modality, ``rssm.remat`` (false when the
+        key is absent; a value outside ``remat.REMAT_VALUES`` raises
+        ``ValueError``)."""
         rssm = cfg.rssm
         multimodal = bool(rssm.multimodal)
         mp = rssm.multimodal_params
@@ -315,6 +327,7 @@ class WorldModel(nn.Module):
                                  else rssm.activation_function["dense"])),
             latent_dist=latent_dist, latent_variables=latent_v,
             latent_classes=latent_k, unimix=unimix,
+            remat=rssm.get("remat", False),
         )
 
 

@@ -41,7 +41,7 @@ from multimodal_rssm_torch.core.runtime import GracefulShutdown
 from multimodal_rssm_torch.data.buffer import (
     HostBatchFeed, build_buffer, load_dataset, to_device)
 from multimodal_rssm_torch.data.device_buffer import (
-    DeviceReplay, StreamingDeviceReplay, hbm_budget_bytes)
+    DeviceReplay, StreamingDeviceReplay, hbm_budget_bytes, step_reserve_bytes)
 from multimodal_rssm_torch.io import checkpoint as ckpt
 from multimodal_rssm_torch.io.metrics import MetricLogger, make_run_dir
 from multimodal_rssm_torch.models.world_model import WorldModel, init_parameters
@@ -77,7 +77,8 @@ def select_feed(cfg, D, device: torch.device, seed: int):
                          "(auto, true, stream, false)")
     gib = 1 << 30
     rb = cfg.train.get("replay_budget_gb")
-    budget = int(float(rb) * gib) if rb else hbm_budget_bytes(device)
+    budget = (int(float(rb) * gib) if rb
+              else hbm_budget_bytes(device, step_reserve_bytes(cfg)))
     nbytes = DeviceReplay.nbytes(D)
     if mode == "true" or (mode == "auto" and DeviceReplay.fits(D, budget)):
         print(f"feed path: device-resident replay (train.device_replay="

@@ -1,7 +1,6 @@
 """Optimizer, input pipeline, ELBO and the train / eval steps.
 
-Port of the JAX package's ``train/trainer.py`` (one batch per step:
-``train.grad_accum`` other than 1 raises):
+Port of the JAX package's ``train/trainer.py``:
 
 - Adam (eps from the config) after clipping by global norm with optax's
   rule ``g * max_norm / ||g||`` when ``||g|| >= max_norm``
@@ -13,7 +12,10 @@ Port of the JAX package's ``train/trainer.py`` (one batch per step:
   the bit-depth normalise, through the hand-written kernel when
   ``train.pallas_normalize`` is on);
 - metric names of the reference's wandb keys plus ``grad_norm`` and
-  ``grad_norm_<module>`` (the JAX package's module names).
+  ``grad_norm_<module>`` (the JAX package's module names);
+- ``train.grad_accum``: the prepared batch split into equal micro-batches
+  along axis 1, their gradients and metrics averaged before one clip and
+  one Adam step.
 
 Randomness comes from an explicit ``torch.Generator`` on the data's device;
 ``generator=None`` in the loss is the deterministic path (posterior and
@@ -356,15 +358,56 @@ def apply_gradients(model: torch.nn.Module, optimizer, scheduler,
     return norms
 
 
-def check_grad_accum(cfg) -> None:
-    """``train.grad_accum``: the port runs 1 (or null); any other value
-    raises rather than train a different run than the JAX package's, which
-    splits the batch into that many micro-batches."""
+def resolve_grad_accum(cfg) -> int:
+    """``train.grad_accum``: the number of micro-batches a train step splits
+    its batch into (1, or null: off); below 1 raises ``ValueError``."""
     raw = cfg.train.get("grad_accum", 1)
-    if raw is not None and int(raw) != 1:
-        raise NotImplementedError(
-            f"train.grad_accum={raw}: the port steps on the whole batch; "
-            "micro-batch accumulation waits for ROADMAP.md queue 1 item 12")
+    accum = 1 if raw is None else int(raw)
+    if accum < 1:
+        raise ValueError(f"train.grad_accum={accum} must be >= 1")
+    return accum
+
+
+def slice_microbatch(batch, start: int, size: int):
+    """Rows ``start:start + size`` of every tensor's batch axis (axis 1:
+    [L, B, ...])."""
+    observations, *rest = batch
+    return ({k: v[:, start:start + size] for k, v in observations.items()},
+            *(x[:, start:start + size] for x in rest))
+
+
+def accumulated_backward(loss_fn: Callable, model: torch.nn.Module, batch,
+                         generator: Optional[torch.Generator], accum: int
+                         ) -> Dict[str, torch.Tensor]:
+    """Backward of ``loss_fn`` over ``accum`` equal micro-batches of the
+    (already prepared) batch, in order, into the parameters' ``.grad``,
+    which end as the mean of the micro-batches' gradients; returns the
+    metrics' mean over the micro-batches.  The crop, noise and PCA draws
+    of the batch are shared; the norms' running stats thread through the
+    micro-batches in order (the JAX package's
+    ``accumulated_value_and_grad``).  Raises ``ValueError`` when ``accum``
+    does not divide the batch."""
+    B = batch[1].shape[1]
+    if B % accum:
+        raise ValueError(
+            f"batch size {B} not divisible by train.grad_accum={accum}")
+    if accum == 1:
+        loss, metrics = loss_fn(batch, generator, True)
+        loss.backward()
+        return metrics
+    mb = B // accum
+    per_micro = []
+    for i in range(accum):
+        loss, metrics = loss_fn(slice_microbatch(batch, i * mb, mb),
+                                generator, True)
+        loss.backward()
+        per_micro.append(metrics)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(accum)
+    return {k: torch.stack([m[k] for m in per_micro]).mean(0)
+            for k in per_micro[0]}
 
 
 def make_train_step(model: WorldModel, cfg, optimizer, scheduler,
@@ -372,8 +415,12 @@ def make_train_step(model: WorldModel, cfg, optimizer, scheduler,
     """(train_step, eval_step), each ``step(raw_batch, draws, generator) ->
     metrics`` (0-d device tensors; nothing synchronises).  ``train_step``
     updates the parameters, the optimizer state and the norms' running
-    stats in place."""
-    check_grad_accum(cfg)
+    stats in place, over ``train.grad_accum`` micro-batches (which must
+    divide ``train.batch_size``: ``ValueError`` here otherwise)."""
+    accum = resolve_grad_accum(cfg)
+    if int(cfg.train.batch_size) % accum:
+        raise ValueError(f"train.batch_size={cfg.train.batch_size} not "
+                         f"divisible by train.grad_accum={accum}")
     loss_fn = make_loss_fn(model, cfg)
     bit_depth = int(cfg.env.bit_depth)
     use_kernel = kernel_normalize_enabled(cfg, device)
@@ -388,8 +435,8 @@ def make_train_step(model: WorldModel, cfg, optimizer, scheduler,
     def train_step(raw_batch, draws, generator):
         batch = _prepare(raw_batch, draws, generator)
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, generator, True)
-        loss.backward()
+        metrics = accumulated_backward(loss_fn, model, batch, generator,
+                                       accum)
         metrics.update(apply_gradients(model, optimizer, scheduler, max_norm))
         return metrics
 

@@ -37,6 +37,21 @@ def test_normalize_kernel_matches_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("size", [128, 256])
+def test_normalize_kernel_matches_plain_at_codec_sizes(cuda, size):
+    """K1 equals its plain version bit for bit at the 128 px and 256 px
+    codecs' image shapes."""
+    g = torch.Generator(cuda).manual_seed(size)
+    x = torch.randint(0, 256, (2, 3, size, size, 3), generator=g,
+                      device=cuda, dtype=torch.uint8).float()
+    seed = torch.tensor(7, device=cuda)
+    before = ck.normalize_image.launches
+    assert torch.equal(ck.normalize_image(x, 5, seed),
+                       ck.normalize_image_plain(x, 5, seed))
+    assert ck.normalize_image.launches == before + 1
+
+
+@pytest.mark.gpu
 def test_normalize_kernel_rejects_what_it_does_not_take(cuda):
     """A seed on another device or a float64 image raises before launch."""
     x = torch.zeros(64, device=cuda)
@@ -527,10 +542,33 @@ GPU_VARIANTS = {
 }
 
 
+def _names(enc, rec=None):
+    return [f"rssm.observation_names_enc=[{','.join(enc)}]",
+            f"rssm.observation_names_rec=[{','.join(rec or enc)}]"]
+
+
+# the world model's remaining codecs and training options
+GPU_VARIANTS.update({
+    "cobotta128": _names(("image_horizon_128", "sound", "pose_quat_v2")),
+    "img256_groupnorm": _names(("image_horizon_256", "sound"))
+    + ["rssm.normalization=GroupNorm"],
+    "img64_instancenorm_label": _names(
+        ("image_horizon", "sound"), ("image_horizon", "sound", "draw_target"))
+    + ["rssm.normalization=InstanceNorm",
+       "env.observation_shapes.draw_target=[2]"],
+    "img84_nonorm": _names(("image_horizon_84", "sound"))
+    + ["rssm.normalization=None",
+       "env.observation_shapes.image_horizon_84=[3,84,84]"],
+    "grad_accum2": ["train.grad_accum=2"],
+    "remat_conv": ["rssm.remat=conv"],
+})
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", list(GPU_VARIANTS))
 def test_variant_step_on_card_matches_cpu(cuda, variant):
-    """One deterministic loss step (generator=None) of each model variant,
+    """One deterministic loss step (generator=None) of each model variant
+    and codec configuration (over its ``train.grad_accum`` micro-batches),
     batch 2 x chunk 6, on the card against the CPU on the same weights,
     float32 with TF32 off: loss, every metric and the gradient norms within
     rtol 1e-4; then a step with the card's own generator (Gaussian or
@@ -551,12 +589,18 @@ def test_variant_step_on_card_matches_cpu(cuda, variant):
                   + GPU_VARIANTS[variant])
     L, B = 6, 2
     rng = np.random.default_rng(0)
-    img = torch.from_numpy(rng.integers(0, 256, (L, B, 64, 64, 3), np.uint8))
-    raw = ({"image_horizon": normalize_image_deterministic(img, 5),
-            "sound": torch.from_numpy(
-                rng.normal(size=(L, B, 128, 20)).astype(np.float32))},
-           *(torch.from_numpy(rng.normal(size=s).astype(np.float32))
-             for s in ((L, B, 3), (L, B))), torch.ones(L, B, 1))
+    shapes = cfg.env.observation_shapes
+    obs = {}
+    for name in sorted(set(cfg.rssm.observation_names_enc)
+                       | set(cfg.rssm.observation_names_rec)):
+        c, *hw = shapes[name]
+        obs[name] = (normalize_image_deterministic(torch.from_numpy(
+                         rng.integers(0, 256, (L, B, *hw, c), np.uint8)), 5)
+                     if "image" in name else torch.from_numpy(
+                         rng.normal(size=(L, B, *shapes[name])).astype(
+                             np.float32)))
+    raw = (obs, *(torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  for s in ((L, B, 3), (L, B))), torch.ones(L, B, 1))
     cpu_model = WorldModel.from_config(cfg)
     init_parameters(cpu_model, torch.Generator().manual_seed(0))
     card_model = copy.deepcopy(cpu_model).to(cuda)
@@ -565,8 +609,9 @@ def test_variant_step_on_card_matches_cpu(cuda, variant):
         batch = ({k: v.to(dev) for k, v in raw[0].items()},
                  *(x.to(dev) for x in raw[1:]))
         model.zero_grad(set_to_none=True)
-        loss, metrics = tr.make_loss_fn(model, cfg)(batch, generator, True)
-        loss.backward()
+        metrics = tr.accumulated_backward(tr.make_loss_fn(model, cfg), model,
+                                          batch, generator,
+                                          tr.resolve_grad_accum(cfg))
         metrics.update(tr.grad_norms(model))
         return {k: float(v) for k, v in metrics.items()}
 

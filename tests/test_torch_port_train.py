@@ -353,32 +353,6 @@ def test_train_cli_runs_on_cpu_with_plain_normalise(tmp_path, monkeypatch):
     assert len(lines) == 3 + 1 + 1   # train steps, validation, perf
 
 
-def test_grad_accum_other_than_one_raises(tmp_path):
-    """``train.grad_accum`` used to be absent from the port's config, so
-    ``train.grad_accum=2`` was set and never read, while the JAX package
-    splits the batch into 2 micro-batches.  The key is in the config now
-    (1); 1 and null train, 2 raises in the train CLI before a step."""
-    assert compose().train.grad_accum == 1
-    assert jtr.resolve_grad_accum(jax_compose(
-        overrides=["train.grad_accum=2"])) == 2
-    model = WorldModel.from_config(compose(overrides=SMALL))
-    opt, sched = tr.build_optimizer(compose(overrides=SMALL), model)
-    for value in ("1", "null"):
-        cfg = compose(overrides=SMALL + [f"train.grad_accum={value}"])
-        tr.make_train_step(model, cfg, opt, sched, tr.AugSpec(()),
-                           torch.device("cpu"))
-    shapes = {"image_horizon": [3, 64, 64], "sound": [128, 20]}
-    write_synthetic_dataset(str(tmp_path / "train"), 1, 30, shapes)
-    write_synthetic_dataset(str(tmp_path / "val"), 1, 30, shapes, seed=9)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        cli_train.main(SMALL + [
-            f"train.train_data_path=[{tmp_path}/train]",
-            f"train.validation_data_path=[{tmp_path}/val]",
-            "train.batch_size=2", "train.chunk_size=4",
-            "train.experience_size=200", "train.grad_accum=2",
-            "--device", "cpu", "--cwd", str(tmp_path)])
-
-
 def test_entry_points_raise_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -405,6 +379,10 @@ EVAL_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
 # the model variants' own modules
 VARIANT_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
     "ops.categorical", "losses.overshoot")]
+# the codecs, norms and training options
+CODEC_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
+    "models.layers", "models.remat", "models.encoders", "models.decoders",
+    "io.jax_weights")]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -421,7 +399,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'matplotlib') or m.startswith(('jax.', 'jaxlib', 'flax', 'optax', "
         "'multimodal_rssm_tpu'))]\n"
         f"missing = [m for m in "
-        f"{FEED_MODULES + EVAL_MODULES + VARIANT_MODULES!r} "
+        f"{FEED_MODULES + EVAL_MODULES + VARIANT_MODULES + CODEC_MODULES!r} "
         "if m not in sys.modules]\n"
         "print(len(sys.modules), bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
