@@ -57,6 +57,33 @@ each printed as one JSON line:
                once per step, and prints its median steps/s over the steps
                after the first two, without the last (which also
                validates), and its peak memory;
+3f. control -- on 3c's run (models_6.pt) at full width, bf16 autocast for
+               the world model, the heads in f32: the train_behavior CLI
+               (4 iterations, H 15, all 2,450 posterior states of a batch
+               50 x chunk 50 as starts; finite losses, both heads moved,
+               the world model bit-equal to its file, K1 once per
+               iteration under the shipped train.pallas_normalize=false,
+               steps/s after the first two, each step timed between
+               events on the device's stream, peak memory); one
+               behavior step on the card against the CPU (float32, batch
+               2 x chunk 6, the same weights and noise: the losses, the
+               mean return and both heads' gradient norms within
+               PARITY_RTOL); the eval_policy CLI with the actor (2 episodes
+               of 100 steps of the synthetic env, K1 once per frame, median
+               ms per action: filter + actor + the copy to the host) and
+               with CEM at the planner's defaults (1000 candidates, 100
+               elites, H 12, 10 iterations; refused without
+               rssm.predict_reward=true, then 1 episode of 50 steps, ms per
+               planned action); the train_online CLI in both collection
+               modes (2 seed episodes, 2 episodes of 2 updates, env length
+               60, train.experience_size=2000 in place of 500,000, a cut of
+               the ring's 11 GB address-space reservation that changes no
+               work, as sampling stays within the 240 rows written; the
+               shipped train.pallas_normalize=false: the checkpoints at the
+               top and under behavior/, K1 once per world-model step,
+               behavior step and collected frame, wall seconds); and
+               K1 at [1, 1, 64, 64, 3], bit-equal, its graph device time
+               against its bytes bound;
 3d. budget  -- in a fresh process, as the CLI starts, for the default
                configuration and for the 256 px GroupNorm one: a
                device-resident replay as large as hbm_budget_bytes allows
@@ -895,6 +922,285 @@ def phase_eval(tmp: str, run_dir: str, device_name: str) -> dict:
             "episode_shape_ms": k1_ms}
 
 
+ONLINE_ENV_LENGTH = 60
+ONLINE_EXPERIENCE = 2000   # rows, in place of the default 500,000: the
+# ring is np.empty, so its unwritten pages are never resident, and sampling
+# stays within the 240 rows written; the cut changes none of the work and
+# only keeps the buffer's 11 GB address-space reservation out of the run
+CONTROL_ITERS = 4
+
+
+def _finite(values) -> bool:
+    return all(math.isfinite(float(v)) for v in values)
+
+
+def behavior_card_against_cpu(seed: int = 0) -> dict:
+    """One behavior step (``BehaviorStep.update``) of the default
+    configuration at full width, batch 2 x chunk 6, float32, TF32 off, on
+    the same weights, prepared batch and noise (drawn on the CPU) on the
+    card and on the CPU: the losses, the mean return and both heads'
+    gradient norms.  Returns (cpu, card, max relative error, those outside
+    PARITY_RTOL)."""
+    import numpy as np
+    import torch
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.ops.image import normalize_image_deterministic
+    from multimodal_rssm_torch.train import behavior as bh
+
+    L, B = 6, 2
+    cfg = bh.behavior_cfg(compose(overrides=[
+        "train.use_amp=False", f"train.chunk_size={L}",
+        f"train.batch_size={B}", "rssm.predict_reward=true"]))
+    H, N = int(cfg.behavior.horizon), (L - 1) * B
+    S, A = int(cfg.rssm.state_size), int(cfg.env.action_size)
+    rng = np.random.default_rng(seed)
+    batch = ({"image_horizon": normalize_image_deterministic(torch.from_numpy(
+                  rng.integers(0, 256, (L, B, 64, 64, 3), np.uint8)),
+                  BIT_DEPTH),
+              "sound": torch.from_numpy(rng.normal(size=(L, B, 128, 20)
+                                                   ).astype(np.float32))},
+             torch.from_numpy(rng.uniform(-1, 1, (L, B, A)).astype(
+                 np.float32)),
+             torch.from_numpy(rng.normal(size=(L, B)).astype(np.float32)),
+             torch.ones(L, B, 1))
+    g = torch.Generator().manual_seed(seed)
+    noise = bh.BehaviorNoise(
+        posterior=(torch.randn(L - 1, B, S, generator=g),
+                   torch.randn(L - 1, B, S, generator=g)),
+        starts=None, actions=torch.randn(H, N, A, generator=g),
+        states=torch.randn(H, N, S, generator=g))
+    keys = ("actor_loss", "value_loss", "imag_return", "actor_grad_norm",
+            "value_grad_norm")
+    out = []
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        model = WorldModel.from_config(cfg)
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        model.to(dev)
+        bstate = bh.init_behavior_state(cfg, dev, seed)
+        step = bh.BehaviorStep(model, cfg, None, dev)
+        moved = ({k: v.to(dev) for k, v in batch[0].items()},
+                 *(x.to(dev) for x in batch[1:]))
+        metrics = step.update(bstate, moved, None, noise)
+        out.append({k: float(metrics[k]) for k in keys})
+    cpu, card = out
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in keys}
+    bad = {k: (cpu[k], card[k]) for k, r in rel.items()
+           if r > PARITY_RTOL and abs(card[k] - cpu[k]) > 1e-6}
+    return cpu, card, max(rel.values()), bad
+
+
+def _timed_agent_calls(times):
+    """Patch ``LatentAgent.__call__`` (``CEMAgent``'s too) to record each
+    call's ms (filter, actor or planner, and the action's copy to the host,
+    which synchronises); returns the function that undoes it."""
+    from multimodal_rssm_torch.train import agent as agent_mod
+
+    call = agent_mod.LatentAgent.__call__
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = call(self, *args, **kwargs)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    agent_mod.LatentAgent.__call__ = timed
+    return lambda: setattr(agent_mod.LatentAgent, "__call__", call)
+
+
+def phase_control(tmp: str, run_dir: str, device_name: str) -> dict:
+    """Control at full width on the checkpoint phase's run (models_6.pt,
+    the default configuration): the train_behavior CLI (4 iterations, H 15,
+    every posterior state a start: 2,450 at batch 50 x chunk 50; the world
+    model bit-equal to its file after, both heads moved, K1 once per
+    iteration with train.pallas_normalize=false, steps/s after the first
+    two, peak memory), one behavior
+    step on the card against the CPU, the eval_policy CLI with the actor (2
+    episodes of 100 steps of the synthetic env, K1 once per frame, ms per
+    action) and with CEM at the planner's defaults (refused without
+    rssm.predict_reward=true; 1 episode of 50 steps, ms per planned
+    action), the train_online CLI in both collection modes (2 seed
+    episodes, 2 episodes of 2 updates, env length 60, experience size
+    2,000: checkpoints, K1 once per world-model step, behavior step and
+    collected frame), and K1 at the agent's frame shape.  Returns K1's
+    launches by path and its frame-shape record."""
+    import torch
+
+    from multimodal_rssm_torch.cli import eval_policy, train_behavior
+    from multimodal_rssm_torch.cli import train_online
+    from multimodal_rssm_torch.core.config import load_run_config
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.train import behavior as bh
+
+    t_phase = time.perf_counter()
+    record = {"phase": "control", "run": os.path.basename(run_dir)}
+
+    # 1. behavior learning through the CLI
+    saved = torch.load(os.path.join(run_dir, f"models_{EVAL_ITR}.pt"),
+                       map_location="cpu", weights_only=True)["model"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_behavior.main([
+        "--run-dir", run_dir, "--cwd", tmp,
+        f"behavior.train_iteration={CONTROL_ITERS}",
+        f"behavior.checkpoint_interval={CONTROL_ITERS}",
+        # the shipped default, over the run's own true: K1 runs all the same
+        "train.pallas_normalize=false"])
+    behavior_s = time.perf_counter() - t0
+    bh_launches = {k: v for k, v in ck.launch_counts().items() if v}
+    cfg = bh.behavior_cfg(load_run_config(run_dir))
+    fresh = bh.init_behavior_state(cfg, torch.device("cuda"),
+                                   int(cfg.main.seed or 0))
+    moved = [name for name, got, init in (
+        ("actor", result["state"].actor, fresh.actor),
+        ("value", result["state"].value, fresh.value))
+        if any(not torch.equal(v, init.state_dict()[k])
+               for k, v in got.state_dict().items())]
+    changed = [k for k, v in result["model"].state_dict().items()
+               if not torch.equal(v.cpu(), saved[k])]
+    timed = result["step_seconds"][2:]
+    record["train_behavior"] = {
+        "iterations": CONTROL_ITERS, "horizon": int(cfg.behavior.horizon),
+        "starts": (int(cfg.train.chunk_size) - 1) * int(cfg.train.batch_size),
+        "feed": result["feed"], "metrics": result["metrics"],
+        "step_seconds": result["step_seconds"],
+        "median_steps_per_s_after_warmup": 1.0 / statistics.median(timed),
+        "max_memory_allocated_GiB":
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+        "seconds": behavior_s, "launches": bh_launches,
+        "heads_moved": moved, "world_model_tensors_changed": changed}
+    if (not _finite(result["metrics"].values()) or moved != ["actor", "value"]
+            or changed or bh_launches != {"normalize_image": CONTROL_ITERS}):
+        emit(record)
+        raise AssertionError(f"train_behavior: {record['train_behavior']}")
+    del result, fresh, saved
+
+    # 2. one behavior step, the card against the CPU
+    cpu, card, max_rel, bad = behavior_card_against_cpu()
+    record["behavior_card_vs_cpu"] = {"batch": 2, "chunk": 6,
+                                      "rtol": PARITY_RTOL,
+                                      "max_rel_err": max_rel, "cpu": cpu,
+                                      "cuda": card}
+    if bad:
+        emit(record)
+        raise AssertionError(f"behavior step, card and CPU disagree: {bad}")
+
+    # 3-4. policy evaluation, the actor and CEM
+    def evaluate(args, expect_launches):
+        times = []
+        undo = _timed_agent_calls(times)
+        ck.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            stats = eval_policy.main(["--run-dir", run_dir, "--env",
+                                      "synthetic", *args])
+            seconds = time.perf_counter() - t0
+        finally:
+            undo()
+        launches = {k: v for k, v in ck.launch_counts().items() if v}
+        out = {"args": args, "stats": stats, "seconds": seconds,
+               "frames": len(times), "launches": launches,
+               "median_ms_per_action": statistics.median(times[1:]),
+               "first_action_ms": times[0]}
+        if (launches != {"normalize_image": expect_launches}
+                or len(times) != expect_launches
+                or not _finite(stats["returns"])):
+            emit({**record, "failed": out})
+            raise AssertionError(f"eval_policy {args}: {out}")
+        return out
+
+    record["eval_policy_actor"] = evaluate(
+        ["--policy", "actor", "--episodes", "2", "--env-length", "100"], 200)
+    try:
+        eval_policy.main(["--run-dir", run_dir, "--policy", "cem",
+                          "--episodes", "1", "--env-length", "50"])
+    except ValueError as e:
+        if "predict_reward" not in str(e):
+            raise
+    else:
+        raise AssertionError("eval_policy --policy cem ran on a run without "
+                             "a trained reward head")
+    record["eval_policy_cem"] = evaluate(
+        ["--policy", "cem", "--episodes", "1", "--env-length", "50",
+         "rssm.predict_reward=true"], 50)
+
+    # 5. online training in both collection modes
+    record["train_online"] = {}
+    online_launches = {}
+    for mode in ("actor", "cem"):
+        ck.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train_online.main([
+            "online.seed_episodes=2", "online.episodes=2",
+            "online.collect_interval=2", f"online.collect_policy={mode}",
+            f"train.experience_size={ONLINE_EXPERIENCE}",
+            f"main.experiment_name=chip_smoke_online_{mode}", "--env",
+            "synthetic", "--env-length", str(ONLINE_ENV_LENGTH), "--cwd",
+            tmp])
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ck.launch_counts().items() if v}
+        updates, frames = 2 * 2, 2 * ONLINE_ENV_LENGTH
+        want = updates * (2 if mode == "actor" else 1) + frames
+        files = sorted(os.listdir(out["results_dir"]))
+        behavior = sorted(os.listdir(os.path.join(out["results_dir"],
+                                                  "behavior"))
+                          if mode == "actor" else [])
+        rows = [json.loads(line) for line in open(os.path.join(
+            out["results_dir"], "metrics.jsonl"))]
+        online_rows = [r for r in rows if "episode_reward/online" in r]
+        rec = {"wall_seconds": wall, "launches": launches,
+               "checkpoints": [f for f in files if f.endswith(".pt")],
+               "behavior_checkpoints": behavior,
+               "max_memory_allocated_GiB":
+                   torch.cuda.max_memory_allocated() / 2 ** 30,
+               "episodes": [{k: r.get(f"{k}/online") for k in (
+                   "episode_reward", "wm_loss", "actor_loss")}
+                   for r in online_rows]}
+        record["train_online"][mode] = rec
+        online_launches[mode] = launches.get("normalize_image", 0)
+        if (launches != {"normalize_image": want}
+                or "models_2.pt" not in files
+                or (mode == "actor") != ("models_2.pt" in behavior)
+                or len(online_rows) != 2
+                or not all(_finite(r.values()) for r in online_rows)):
+            emit(record)
+            raise AssertionError(f"train_online {mode}: {rec}")
+        del out
+
+    # K1 at the agents' frame shape, device time from a CUDA graph
+    x = torch.randint(0, 256, (1, 1, 64, 64, 3), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(4),
+                      dtype=torch.uint8).float()
+    seed = torch.tensor(5, dtype=torch.int64, device="cuda")
+    if not torch.equal(ck.normalize_image(x, BIT_DEPTH, seed),
+                       ck.normalize_image_plain(x, BIT_DEPTH, seed)):
+        raise AssertionError("K1 != its plain version at [1, 1, 64, 64, 3]")
+    frame = {"shape": list(x.shape), "bit_equal": True,
+             "ms": graph_time_ms(lambda: ck.normalize_image(x, BIT_DEPTH,
+                                                            seed), 20),
+             "plain_ms": graph_time_ms(
+                 lambda: ck.normalize_image_plain(x, BIT_DEPTH, seed), 5),
+             "host_enqueue_ms": _host_ms(
+                 lambda i: ck.normalize_image(x, BIT_DEPTH, seed), 50),
+             "bound_ms": x.numel() * 8 / hbm_rate(device_name) * 1e3}
+    torch.cuda.synchronize()
+    record["k1_frame_shape"] = frame
+    record["wall_seconds"] = time.perf_counter() - t_phase
+    emit(record)
+    return {"launches": {
+        "train_behavior": bh_launches["normalize_image"],
+        "eval_policy_actor": record["eval_policy_actor"]["launches"][
+            "normalize_image"],
+        "eval_policy_cem": record["eval_policy_cem"]["launches"][
+            "normalize_image"],
+        "train_online": online_launches}, "frame_shape": frame}
+
+
 def budget_run(reserve_bytes: Optional[int], overrides=()) -> dict:
     """In a fresh process, as the train CLI starts: the model of the
     default configuration with ``overrides`` on the card, then a
@@ -1672,6 +1978,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = phase_checkpoint(tmp)
         eval_k1 = phase_eval(tmp, run_dir, name)
+        control_k1 = phase_control(tmp, run_dir, name)
     phase_budget(((None, ()), (None, tuple(CODEC_RUNS["img256_groupnorm"]))))
     phase_parity()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1683,8 +1990,10 @@ def main() -> int:
     kernel["launches_by_path"] = {
         "train": launches["normalize_image"],
         "estimate_state": eval_k1["estimate_state"],
-        "check_model": eval_k1["check_model"], **variants_k1, **codecs_k1}
+        "check_model": eval_k1["check_model"], **control_k1["launches"],
+        **variants_k1, **codecs_k1}
     kernel["eval_episode_shape_ms"] = eval_k1["episode_shape_ms"]
+    kernel["agent_frame_shape"] = control_k1["frame_shape"]
     kernel["codec_shapes"] = k1_shapes
     emit({"kernels": [kernel, *fused]})
     smi = subprocess.run(

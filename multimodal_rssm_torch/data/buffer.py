@@ -9,7 +9,8 @@ float32 for everything else.  ``sample(n, L)`` gathers time-major
 staging batches instead.
 Augmentation and the bit-depth normalise run on the device in the train
 step.  ``data/device_buffer.py`` keeps the loaded rows on the device
-instead.
+instead.  ``append`` writes one environment step at the head (the online
+loop, ``train/online.py``).
 
 Sampling matches the reference: a uniform start index, chunks may cross
 episode boundaries (nonterminal masking handles them), only the ring
@@ -32,6 +33,7 @@ from multimodal_rssm_torch.data.augment import (
     calc_params_of_pca, storage_image_shape)
 from multimodal_rssm_torch.data.episodes import get_data, get_file_names
 from multimodal_rssm_torch.data.native import gather_chunks
+from multimodal_rssm_torch.ops.image import reverse_normalized_image
 
 
 class ExperienceReplay:
@@ -44,8 +46,9 @@ class ExperienceReplay:
                  noise_scales: Optional[Sequence[float]] = None,
                  pca_scales: Optional[Sequence[float]] = None,
                  action_name: str = "action", action_size: int = 1,
-                 seed: int = 0, load_workers: int = 4):
+                 seed: int = 0, load_workers: int = 4, bit_depth: int = 5):
         self.size = int(size)
+        self.bit_depth = int(bit_depth)
         self.observation_names = list(observation_names)
         self.action_name = action_name
         self.n_crop = n_crop
@@ -112,6 +115,27 @@ class ExperienceReplay:
         return self.gather(self.sample_indices(n, L))
 
     # -- ingest -----------------------------------------------------------
+    def append(self, observation: Mapping[str, np.ndarray], action, reward,
+               done: bool, raw: bool = False) -> None:
+        """One step at the write head (ref memory.py:225-238).  ``raw=False``
+        (the reference's): images arrive normalised and are quantised back
+        to uint8; ``raw=True``: images arrive as the uint8 HWC frames an
+        environment renders (``envs/``) and are stored as they are, so they
+        must have the stored shape (the crop margin when ``n_crop > 1``)."""
+        for name in self.observation_names:
+            if "image" in name and not raw:
+                self.observations[name][self.idx] = reverse_normalized_image(
+                    observation[name], self.bit_depth)
+            else:
+                self.observations[name][self.idx] = observation[name]
+        self.actions[self.idx] = action
+        self.rewards[self.idx] = reward
+        self.nonterminals[self.idx] = float(not done)
+        self.idx = (self.idx + 1) % self.size
+        self.full = self.full or self.idx == 0
+        self.steps += 1
+        self.episodes += int(bool(done))
+
     def _write_episode(self, data, episode_length: int) -> None:
         idx = np.arange(self.idx, self.idx + episode_length) % self.size
         for name in self.observation_names:
@@ -179,7 +203,8 @@ def build_buffer(cfg, seed: int = 0) -> ExperienceReplay:
         dh_base=aug.dh_base, dw_base=aug.dw_base,
         noise_scales=aug.noise_scales, pca_scales=aug.pca_scales,
         action_name=cfg.env.action_name, action_size=cfg.env.action_size,
-        seed=seed, load_workers=int(cfg.train.get("load_workers", 4)))
+        seed=seed, load_workers=int(cfg.train.get("load_workers", 4)),
+        bit_depth=int(cfg.env.bit_depth))
 
 
 def load_dataset(cwd: str, buffer: ExperienceReplay, dataset_path) -> None:

@@ -8,6 +8,12 @@ and renamed, so a run killed mid-write never leaves a truncated
 checkpoint.  ``latest_checkpoint`` / ``restore_or_none`` find the newest
 for ``--resume``; ``load_checkpoint`` restores strictly.
 
+A behavior checkpoint ``behavior/models_{itr}.pt``
+(``save_behavior_checkpoint`` / ``load_behavior_checkpoint``) holds a
+``train/behavior.BehaviorState``: the actor's and the value head's
+``state_dict``s, both optimizers', the behavior step and
+``return_scale``; it is written the same atomic way.
+
 ``load_reference_checkpoint`` reads a reference ``models_{itr}.pth`` (the
 nested ``model_dicts`` layout) into the port's model.
 ``find_model_checkpoint`` / ``load_model_weights`` give evaluation a run
@@ -149,6 +155,34 @@ class AsyncCheckpointer:
             err, self._error = self._error, None
             raise err
         return self._last_path
+
+
+def save_behavior_checkpoint(results_dir: str, itr: int, bstate) -> str:
+    """Write a ``BehaviorState`` as ``{results_dir}/models_{itr}.pt``
+    atomically, tensors on the CPU; returns its path."""
+    payload = {"step": int(itr), "behavior_step": int(bstate.step),
+               "actor": bstate.actor.state_dict(),
+               "value": bstate.value.state_dict(),
+               "actor_optimizer": bstate.actor_opt.state_dict(),
+               "value_optimizer": bstate.value_opt.state_dict(),
+               "return_scale": bstate.return_scale}
+    return _write(results_dir, itr, _map_tensors(
+        payload, lambda t: t.detach().cpu()))
+
+
+def load_behavior_checkpoint(path: str, bstate) -> int:
+    """Restore a behavior checkpoint into ``bstate`` in place (the heads
+    strictly, both optimizers, the step and ``return_scale`` on the actor's
+    device); returns the checkpoint's ``itr``."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    bstate.actor.load_state_dict(payload["actor"], strict=True)
+    bstate.value.load_state_dict(payload["value"], strict=True)
+    bstate.actor_opt.load_state_dict(payload["actor_optimizer"])
+    bstate.value_opt.load_state_dict(payload["value_optimizer"])
+    bstate.step = int(payload["behavior_step"])
+    device = next(bstate.actor.parameters()).device
+    bstate.return_scale = payload["return_scale"].to(device)
+    return int(payload["step"])
 
 
 def _checkpoints(results_dir: str) -> List[Tuple[int, str]]:

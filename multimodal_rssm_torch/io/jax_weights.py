@@ -20,12 +20,14 @@ exporter:
   dense decoders and the ``draw_target`` head share ``fc1..fc3``.
 
 ``codec_state_dict`` converts one codec on its own, the codecs no world
-model builds (sound v1, ``EncoderNN``) too.
+model builds (sound v1, ``EncoderNN``) too.  ``policy_state_dict_from_jax``
+converts the policy heads (``models/policy.py``), whose JAX parameter
+paths are the port's module names.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -252,6 +254,29 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
 
 def _to_torch(sd: Mapping) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+def _dense_tree(params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Every Dense of a tree of Dense layers, keyed by its dotted path."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        key = f"{prefix}{name}"
+        if "kernel" in p:
+            _emit(sd, key, _dense(p))
+        else:
+            sd.update(_dense_tree(p, key + "."))
+    return sd
+
+
+def policy_state_dict_from_jax(actor_params: Mapping, value_params: Mapping
+                               ) -> Tuple[Dict[str, torch.Tensor],
+                                          Dict[str, torch.Tensor]]:
+    """The ``state_dict``s of the port's ``ActorModel`` (``pie.fc1`` ...
+    ``pie.fc5``) and ``ValueModel`` / ``TwoHotValueModel`` (``fc1`` ...
+    ``fc4``) for the JAX heads' ``params`` trees (``PieEmb``: its own
+    tree as the actor's)."""
+    return (_to_torch(_dense_tree(actor_params)),
+            _to_torch(_dense_tree(value_params)))
 
 
 _CODECS = {"image_encoder": _image_encoder, "image_decoder": _image_decoder,

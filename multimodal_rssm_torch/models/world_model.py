@@ -31,7 +31,9 @@ overrides both.
 
 Beside ``train_forward`` it serves evaluation and streaming inference:
 ``estimate_state_from`` (any initial belief and state), ``filter_step``
-(one frame), ``rollout_prior`` (open loop) and ``decode``.  The posterior
+(one frame), ``rollout_prior`` (open loop), ``decode`` and, for control,
+``reward``.  The rollouts take their state noise as tensors (``eps``) where
+a caller holds them against another draw.  The posterior
 entry points take ``names``, the modalities whose encoders and experts run
 (default: all; a cross-modal estimate passes a subset).  Their mode is the
 caller's:
@@ -175,7 +177,13 @@ class WorldModel(nn.Module):
                            device=generator.device)
 
     def _noise(self, generator: Optional[torch.Generator], T: int, B: int,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if eps is not None:
+            if tuple(eps.shape) != self.noise_shape(T, B):
+                raise ValueError(f"state noise of shape {tuple(eps.shape)}, "
+                                 f"expected {self.noise_shape(T, B)}")
+            return eps.to(device)
         if generator is None:
             return torch.zeros(self.noise_shape(T, B), device=device)
         return self.draw_state_noise(generator, T, B)
@@ -184,7 +192,8 @@ class WorldModel(nn.Module):
                        actions: torch.Tensor,
                        nonterminals: Optional[torch.Tensor],
                        generator: Optional[torch.Generator] = None,
-                       names: Optional[Sequence[str]] = None
+                       names: Optional[Sequence[str]] = None,
+                       eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                        ) -> Dict[str, torch.Tensor]:
         """Posterior rollout from zero belief/state over [T, B] targets.
         ``generator=None`` is the deterministic rollout (zero noise)."""
@@ -192,7 +201,7 @@ class WorldModel(nn.Module):
         return self.estimate_state_from(
             torch.zeros(B, self.belief_size, device=actions.device),
             torch.zeros(B, self.state_size, device=actions.device),
-            observations, actions, nonterminals, generator, names)
+            observations, actions, nonterminals, generator, names, eps)
 
     def estimate_state_from(self, init_belief: torch.Tensor,
                             init_state: torch.Tensor,
@@ -200,19 +209,23 @@ class WorldModel(nn.Module):
                             actions: torch.Tensor,
                             nonterminals: Optional[torch.Tensor] = None,
                             generator: Optional[torch.Generator] = None,
-                            names: Optional[Sequence[str]] = None
+                            names: Optional[Sequence[str]] = None,
+                            eps: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
                             ) -> Dict[str, torch.Tensor]:
         """``estimate_state`` from a given (belief [B, H], state [B, S]):
         the building block of streaming and warm-started inference.  A
         multimodal state dict holds the experts twice: stacked [T, K, B, .]
         (``expert_means_stacked`` / ``expert_std_devs_stacked``, or
         ``expert_logits_stacked``) and as dicts keyed by 'prior_expert' +
-        modality."""
+        modality.  ``eps``: the prior's and the posterior's noise, each of
+        ``noise_shape(T, B)``, in place of draws from ``generator``."""
         names = self.resolve_names(names)
         T, B = actions.shape[:2]
         obs_emb = self.encode(observations, names)
-        eps_prior = self._noise(generator, T, B, actions.device)
-        eps_post = self._noise(generator, T, B, actions.device)
+        eps_prior, eps_post = eps or (None, None)
+        eps_prior = self._noise(generator, T, B, actions.device, eps_prior)
+        eps_post = self._noise(generator, T, B, actions.device, eps_post)
         states = self.transition_model(init_belief, init_state, actions,
                                        nonterminals, obs_emb, eps_prior,
                                        eps_post, names)
@@ -245,15 +258,23 @@ class WorldModel(nn.Module):
     def rollout_prior(self, init_belief: torch.Tensor,
                       init_state: torch.Tensor, actions: torch.Tensor,
                       nonterminals: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      eps: Optional[torch.Tensor] = None
                       ) -> Dict[str, torch.Tensor]:
         """Open-loop prior rollout over [T, B, A] actions (imagination);
         ``generator=None`` is the deterministic rollout (the mean, or the
-        mode one-hot)."""
+        mode one-hot); ``eps`` of ``noise_shape(T, B)`` is the noise in
+        place of a draw from ``generator``."""
         T, B = actions.shape[:2]
         return self.transition_model.prior_rollout(
             init_belief, init_state, actions, nonterminals,
-            self._noise(generator, T, B, actions.device))
+            self._noise(generator, T, B, actions.device, eps))
+
+    def reward(self, beliefs: torch.Tensor, states: torch.Tensor
+               ) -> Dict[str, torch.Tensor]:
+        """The reward head's {loc, scale} over [T, B, .] beliefs and
+        states."""
+        return self.reward_model(beliefs, states)
 
     def decode(self, beliefs: torch.Tensor, states: torch.Tensor
                ) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -10,7 +10,7 @@ Port of the JAX package's ``train/trainer.py``:
   float32 parameters, optimizer state and loss;
 - the device half of the input pipeline (crop / noise / PCA / clip, then
   the bit-depth normalise, through the hand-written kernel when
-  ``train.pallas_normalize`` is on);
+  ``train.pallas_normalize`` is on or the caller asks for it);
 - metric names of the reference's wandb keys plus ``grad_norm`` and
   ``grad_norm_<module>`` (the JAX package's module names);
 - ``train.grad_accum``: the prepared batch split into equal micro-batches
@@ -411,19 +411,23 @@ def accumulated_backward(loss_fn: Callable, model: torch.nn.Module, batch,
 
 
 def make_train_step(model: WorldModel, cfg, optimizer, scheduler,
-                    aug_spec: AugSpec, device: torch.device):
+                    aug_spec: AugSpec, device: torch.device,
+                    kernel_normalize: Optional[bool] = None):
     """(train_step, eval_step), each ``step(raw_batch, draws, generator) ->
     metrics`` (0-d device tensors; nothing synchronises).  ``train_step``
     updates the parameters, the optimizer state and the norms' running
     stats in place, over ``train.grad_accum`` micro-batches (which must
-    divide ``train.batch_size``: ``ValueError`` here otherwise)."""
+    divide ``train.batch_size``: ``ValueError`` here otherwise).
+    ``kernel_normalize`` routes the normalise through K1's wrapper, or not;
+    None reads ``train.pallas_normalize``."""
     accum = resolve_grad_accum(cfg)
     if int(cfg.train.batch_size) % accum:
         raise ValueError(f"train.batch_size={cfg.train.batch_size} not "
                          f"divisible by train.grad_accum={accum}")
     loss_fn = make_loss_fn(model, cfg)
     bit_depth = int(cfg.env.bit_depth)
-    use_kernel = kernel_normalize_enabled(cfg, device)
+    use_kernel = (kernel_normalize_enabled(cfg, device)
+                  if kernel_normalize is None else kernel_normalize)
     max_norm = float(cfg.rssm.grad_clip_norm)
 
     def _prepare(raw_batch, draws, generator):

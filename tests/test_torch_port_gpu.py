@@ -1,5 +1,6 @@
 """PyTorch port, on the card: each hand-written kernel against its plain
-version.  Imports nothing of JAX, so that it runs where only the port's
+version, and the paths around them that only the card can show (the
+replays' copies, checkpoints, evaluation and control against the CPU).  Imports nothing of JAX, so that it runs where only the port's
 dependencies are installed:
 
     python -m pytest --noconftest tests/test_torch_port_gpu.py -q
@@ -621,3 +622,110 @@ def test_variant_step_on_card_matches_cpu(cuda, variant):
         assert got[k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
     noisy = step(card_model, cuda, torch.Generator(cuda).manual_seed(1))
     assert np.isfinite(list(noisy.values())).all()
+
+
+# -- control ------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_normalize_kernel_matches_plain_at_the_agent_frame_shape(cuda):
+    """K1 equals its plain version at [1, 1, 64, 64, 3], the shape of each
+    frame the latent agents act on: one launch."""
+    x = torch.randint(0, 256, (1, 1, 64, 64, 3), device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(3),
+                      dtype=torch.uint8).float()
+    seed = torch.tensor(11, device=cuda)
+    before = ck.normalize_image.launches
+    assert torch.equal(ck.normalize_image(x, 5, seed),
+                       ck.normalize_image_plain(x, 5, seed))
+    assert ck.normalize_image.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_full_width_behavior_step_leaves_the_world_model_bit_equal(cuda):
+    """One behavior step of the default configuration at full width (bf16
+    autocast, K1 on), batch 2 x chunk 6: every world-model parameter and
+    running stat bit-equal, no ``.grad`` on any, its mode restored, both
+    heads moved, finite metrics, K1 launched once."""
+    import numpy as np
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.train import behavior as bh
+    from multimodal_rssm_torch.train import trainer as tr
+
+    cfg = bh.behavior_cfg(compose(overrides=[
+        "train.chunk_size=6", "train.batch_size=2", "rssm.predict_reward=true"]))
+    model = WorldModel.from_config(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model.to(cuda).train()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    bstate = bh.init_behavior_state(cfg, cuda)
+    heads = [{k: v.clone() for k, v in m.state_dict().items()}
+             for m in (bstate.actor, bstate.value)]
+    rng = np.random.default_rng(0)
+    L, B = 6, 2
+    raw = ({"image_horizon": torch.from_numpy(rng.integers(
+                0, 256, (L, B, 64, 64, 3), np.uint8)).to(cuda),
+            "sound": torch.from_numpy(rng.normal(size=(L, B, 128, 20)).astype(
+                np.float32)).to(cuda)},
+           torch.from_numpy(rng.uniform(-1, 1, (L, B, 3)).astype(
+               np.float32)).to(cuda),
+           torch.zeros(L, B, device=cuda), torch.ones(L, B, 1, device=cuda))
+    spec = tr.AugSpec(modalities=(("image_horizon", tr.ModalityAugSpec(
+        (64, 64), False, False, False, True)),))
+    step = bh.BehaviorStep(model, cfg, spec, cuda)
+    launches = ck.normalize_image.launches
+    metrics = step(bstate, raw, {"image_horizon": {}},
+                   torch.Generator(cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    assert ck.normalize_image.launches == launches + 1
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert model.training
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    assert all(p.grad is None for p in model.parameters())
+    for m, want in zip((bstate.actor, bstate.value), heads):
+        assert any(not torch.equal(v, want[k])
+                   for k, v in m.state_dict().items())
+
+
+@pytest.mark.gpu
+def test_cem_plan_on_card_matches_cpu(cuda):
+    """The CEM planner at its defaults (1000 candidates, 100 elites, H 12,
+    10 iterations) on a small model, float32 with TF32 off, the same noise
+    on both: each iteration's elite sets equal, the plan within 1e-4."""
+    import copy
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.core.device import configure_float32
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.train import planner
+
+    configure_float32()
+    cfg = planner.planner_cfg(compose(overrides=SMALL))
+    model = WorldModel.from_config(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model.eval()
+    card = copy.deepcopy(model).to(cuda)
+    p = cfg.planner
+    H, J, it = (int(p.planning_horizon), int(p.candidates),
+                int(p.optimisation_iters))
+    g = torch.Generator().manual_seed(2)
+    h, s = torch.randn(2, 64, generator=g), torch.randn(2, 16, generator=g)
+    noise = (torch.randn(it, H, 2, J, 3, generator=g),
+             torch.randn(it, H, 2 * J, 16, generator=g))
+    plans, records = [], []
+    for m, dev in ((model, torch.device("cpu")), (card, cuda)):
+        records.append([])
+        plans.append(planner.make_cem_planner(m, cfg, full_sequence=True)(
+            h.to(dev), s.to(dev), noise=noise, record=records[-1]).cpu())
+    for i, (a, b) in enumerate(zip(*records)):
+        for row in range(2):
+            top = torch.sort(a["returns"][row], descending=True).values
+            assert (set(a["elites"][row].tolist())
+                    == set(b["elites"][row].cpu().tolist())), (
+                i, row, float(top[99] - top[100]))
+    torch.testing.assert_close(plans[1], plans[0], rtol=1e-4, atol=1e-4)

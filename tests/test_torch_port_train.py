@@ -385,6 +385,15 @@ CODEC_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
     "io.jax_weights")]
 
 
+# control: the policy heads, behavior learning, the planner, the agents,
+# the online loop, the environments and their entry points
+CONTROL_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
+    "ops.returns", "models.policy", "train.behavior", "train.agent",
+    "train.planner", "train.online", "eval.policy", "envs", "envs.synthetic",
+    "envs.peg", "envs.zoo", "cli.train_behavior", "cli.train_online",
+    "cli.eval_policy")]
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Nor, at import, scikit-learn, PIL or matplotlib, which the card's
     machine lacks (the eval CLIs import PIL and matplotlib only where they
@@ -399,7 +408,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'matplotlib') or m.startswith(('jax.', 'jaxlib', 'flax', 'optax', "
         "'multimodal_rssm_tpu'))]\n"
         f"missing = [m for m in "
-        f"{FEED_MODULES + EVAL_MODULES + VARIANT_MODULES + CODEC_MODULES!r} "
+        f"{FEED_MODULES + EVAL_MODULES + VARIANT_MODULES + CODEC_MODULES + CONTROL_MODULES!r} "
         "if m not in sys.modules]\n"
         "print(len(sys.modules), bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
