@@ -84,6 +84,26 @@ each printed as one JSON line:
                behavior step and collected frame, wall seconds); and
                K1 at [1, 1, 64, 64, 3], bit-equal, its graph device time
                against its bytes bound;
+3g. bridges -- a user's files in and out, at full width, in 3c's temp dir:
+               5 raw recordings of 120 frames of 480 x 640 (sound,
+               pose_quat, servo_value) built by data/dataset_builder
+               (binary channels; host s per episode); the train CLI on the
+               built set, 16 steps (batch 50 x chunk 50, bf16, K1 on) with
+               train.histogram_interval=2 and 16 with train.profile_dir
+               (the trace of steps 10-15), under deterministic cuDNN:
+               every tensor of the two models bit-equal, the histogram
+               lines, the trace, K1 once per step, validation and
+               histogram pass, a step's s with and without a histogram
+               pass (and the pass's logging half), the profiled steps' s;
+               collect_sim_data --env synthetic (2 episodes, loaded by the
+               train CLI's loader); export_torch of 3c's models_6.pt to a
+               reference .pth, then train.model_path on it for 1 step (the
+               loaded weights bit-equal to the .pt's, K1 launched); the
+               JAX package's .msgpack fixture (tests/torch_port_fixtures/)
+               through the port's reader onto the card: its det estimate
+               and one deterministic step from it (train.model_path)
+               within PARITY_RTOL |want| + EVAL_ATOL of the JAX package's
+               stored values, and the reader's MB/s;
 3d. budget  -- in a fresh process, as the CLI starts, for the default
                configuration and for the 256 px GroupNorm one: a
                device-resident replay as large as hbm_budget_bytes allows
@@ -1201,6 +1221,287 @@ def phase_control(tmp: str, run_dir: str, device_name: str) -> dict:
         "train_online": online_launches}, "frame_shape": frame}
 
 
+BRIDGE_EPISODES = 5          # raw recordings: 4 train + 1 validation
+BRIDGE_T = 120               # frames a recording
+BRIDGE_FRAME = (480, 640)    # a VGA camera, resized to 256 / 128 / 64
+BRIDGE_STEPS = 16            # the profiler's window is steps 10-15
+BRIDGE_HIST = 2              # train.histogram_interval
+FIXTURE = os.path.join(REPO, "tests", "torch_port_fixtures",
+                       "jax_unimodal_pose")
+
+
+def raw_recordings(n: int, T: int, seed: int = 0):
+    """Raw COBOTTA-style recordings for the dataset builder: a bright square
+    moving over a gradient in ``BRIDGE_FRAME`` uint8 RGB frames, sound
+    spectrograms [T, 128, 20], ``pose_quat`` [T, 3] (the COBOTTA set's
+    width: its ``d_pose_quat_v2`` is the 3-d action) and ``servo_value``
+    [T, 6] (the names ``data/dataset_builder.build_episode`` reads)."""
+    import numpy as np
+
+    H, W = BRIDGE_FRAME
+    rng = np.random.default_rng(seed)
+    base = (np.linspace(40, 160, H, dtype=np.float32)[:, None, None]
+            + np.linspace(0, 60, W, dtype=np.float32)[None, :, None]
+            + np.asarray([0, 20, 40], np.float32))
+    out = []
+    for _ in range(n):
+        frames = np.empty((T, H, W, 3), np.uint8)
+        path = np.cumsum(rng.normal(0, 6, (T, 2)), 0) + (H / 2, W / 2)
+        for t, (cy, cx) in enumerate(path):
+            img = base.copy()
+            y0, x0 = int(cy) % (H - 40), int(cx) % (W - 40)
+            img[y0:y0 + 40, x0:x0 + 40] = (230, 60, 40)
+            frames[t] = img
+        pose = np.cumsum(rng.normal(0, 1e-3, (T, 3)), 0)
+        out.append({"image": frames,
+                    "sound": rng.gamma(2.0, 1.0, (T, 128, 20)),
+                    "pose_quat": pose, "servo_value": rng.normal(size=(T, 6)),
+                    "reward": -np.linalg.norm(pose, axis=1)})
+    return out
+
+
+def _bridge_msgpack(record: dict) -> None:
+    """The JAX package's ``.msgpack`` fixture on the card: its det estimate
+    and one deterministic step from it (``train.model_path``) against the
+    JAX package's stored values, float32, TF32 off; the decoder's read
+    time."""
+    import numpy as np
+    import torch
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.io import checkpoint as ckpt
+    from multimodal_rssm_torch.io import flax_msgpack
+    from multimodal_rssm_torch.models.world_model import WorldModel
+    from multimodal_rssm_torch.train import loop
+    from multimodal_rssm_torch.train import trainer as tr
+
+    dev = torch.device("cuda")
+    with np.load(FIXTURE + ".npz") as z:
+        npz = dict(z)
+    cfg = compose(overrides=[str(o) for o in npz["config/overrides"]])
+
+    def t(key):
+        return torch.from_numpy(np.array(npz[key])).to(dev)
+
+    model = WorldModel.from_config(cfg)
+    ckpt.load_model_weights(FIXTURE + ".msgpack", model)
+    model.to(dev).eval()
+    with torch.no_grad():
+        est = model.estimate_state({"pose_quat_v2": t("episode/pose_quat_v2")},
+                                   t("episode/actions"),
+                                   t("episode/nonterminals"))
+    errors = {k: _eval_err(est[k], torch.from_numpy(npz[f"estimate/{k}"]))
+              for k in ("beliefs", "posterior_means")}
+
+    cfg.train.model_path = FIXTURE + ".msgpack"
+    model = WorldModel.from_config(cfg).to(dev)
+    opt, sched = tr.build_optimizer(cfg, model)
+    loop.load_model_path(cfg, REPO, model, opt, sched)
+    loss, _ = tr.make_loss_fn(model, cfg)(
+        ({"pose_quat_v2": t("batch/pose_quat_v2")}, t("batch/actions"),
+         t("batch/rewards"), t("batch/nonterminals")), None, True)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    tr.apply_gradients(model, opt, sched, float(cfg.rssm.grad_clip_norm))
+    state = opt.state_dict()["state"]
+    for i, (name, p) in enumerate(model.named_parameters()):
+        errors[f"params/{name}"] = _eval_err(
+            p, torch.from_numpy(npz[f"step/params/{name}"]))
+        if p.grad is not None:   # torch's Adam skips an unused parameter
+            errors[f"exp_avg/{name}"] = _eval_err(
+                state[i]["exp_avg"],
+                torch.from_numpy(npz[f"step/exp_avg/{name}"]))
+            if float(state[i]["step"]) != float(npz["step/count"]):
+                raise AssertionError(f"{name}: Adam step {state[i]['step']}")
+    bad = {k: v for k, v in errors.items() if not v["ok"]}
+    if bad:
+        raise AssertionError(f"bridges: the .msgpack fixture on the card "
+                             f"differs from the JAX package's values: {bad}")
+    size = os.path.getsize(FIXTURE + ".msgpack")
+    read_s = _host_ms(lambda i: flax_msgpack.load(FIXTURE + ".msgpack"),
+                      5) / 1e3
+    record["msgpack"] = {
+        "file_MB": size / 1e6, "read_s": read_s,
+        "read_MB_per_s": size / 1e6 / read_s,
+        "estimate_max_rel": {k: errors[k]["max_rel"]
+                             for k in ("beliefs", "posterior_means")},
+        "step_params_max_rel": max(v["max_rel"] for k, v in errors.items()
+                                   if k.startswith("params/")),
+        "step_exp_avg_max_rel": max(v["max_rel"] for k, v in errors.items()
+                                    if k.startswith("exp_avg/")),
+        "tolerance": f"|diff| <= {PARITY_RTOL} |want| + {EVAL_ATOL}"}
+
+
+def phase_bridges(tmp: str, run_dir: str, device_name: str) -> dict:
+    """A user's files in and out at full width.  1. raw recordings
+    (``raw_recordings``) built by ``data/dataset_builder.build_dataset``
+    (binary channels on; host seconds per episode), then the train CLI on
+    that set (batch 50 x chunk 50, bf16, K1 on) for BRIDGE_STEPS steps with
+    ``train.histogram_interval`` and again with ``train.profile_dir``
+    instead, under deterministic cuDNN: finite metrics, every parameter and
+    running stat bit-equal between the two (both options only observe),
+    the histogram lines, the trace file, K1 once per train and validation
+    step and histogram pass, a step's seconds with and without a histogram
+    pass and the pass's logging half alone, the profiled steps' seconds
+    against the unprofiled ones; 2. ``collect_sim_data --env synthetic`` for 2
+    episodes, loaded by the train CLI's loader; 3. ``export_torch`` of the
+    checkpoint phase's ``models_6.pt`` to a reference ``.pth``, then
+    ``train.model_path`` on it for 1 step, the loaded weights bit-equal to
+    the ``.pt``'s; 4. the JAX package's ``.msgpack`` fixture
+    (``_bridge_msgpack``).  Returns K1's launches by path."""
+    import json
+
+    import torch
+
+    from multimodal_rssm_torch.cli import collect_sim_data, export_torch
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.data.buffer import build_buffer, load_dataset
+    from multimodal_rssm_torch.data.dataset_builder import build_dataset
+    from multimodal_rssm_torch.io.metrics import MetricLogger
+    from multimodal_rssm_torch.train import loop
+
+    t_phase = time.perf_counter()
+    record = {"phase": "bridges", "device": device_name}
+
+    # 1. raw recordings -> the built set -> the train CLI
+    built = os.path.join(tmp, "built")
+    raw = raw_recordings(BRIDGE_EPISODES, BRIDGE_T)
+    t0 = time.perf_counter()
+    build_dataset(raw, built, binary=True)
+    build_s = time.perf_counter() - t0
+    del raw
+    record["build"] = {"episodes": BRIDGE_EPISODES, "frames": BRIDGE_T,
+                       "frame": list(BRIDGE_FRAME), "seconds": build_s,
+                       "seconds_per_episode": build_s / BRIDGE_EPISODES}
+    common = [f"train.train_iteration={BRIDGE_STEPS}",
+              f"train.validation_interval={BRIDGE_STEPS}"]
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, extra in (
+                ("histograms", [f"train.histogram_interval={BRIDGE_HIST}",
+                                "main.experiment_name=bridges_hist"]),
+                ("profiled", [f"train.profile_dir={tmp}/profile",
+                              "main.experiment_name=bridges_profiled"])):
+            rec, result, launches = train_run(
+                f"bridges/{name}", built, common + extra, BRIDGE_STEPS,
+                "device_resident")
+            runs[name] = (rec, result, launches)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (hrec, hres, hl), (prec, pres, pl) = runs["histograms"], runs["profiled"]
+    n_hist = BRIDGE_STEPS // BRIDGE_HIST
+    if (hl["normalize_image"], pl["normalize_image"]) != (
+            BRIDGE_STEPS + 1 + n_hist, BRIDGE_STEPS + 1):
+        raise AssertionError(f"bridges: K1 launched {hl['normalize_image']} "
+                             f"/ {pl['normalize_image']} times")
+    differ = [k for k, v in hres["model"].state_dict().items()
+              if not torch.equal(v, pres["model"].state_dict()[k])]
+    if differ:
+        raise AssertionError(f"bridges: the histogram pass or the profiler "
+                             f"changed training: {differ[:8]}")
+    with open(os.path.join(hres["results_dir"], "metrics.jsonl")) as f:
+        hist_steps = [r["step"] for r in map(json.loads, f)
+                      if any(k.endswith("/hist") for k in r)]
+    if hist_steps != sorted(2 * list(range(BRIDGE_HIST, BRIDGE_STEPS + 1,
+                                           BRIDGE_HIST))):
+        raise AssertionError(f"bridges: histogram lines at {hist_steps}")
+    trace = pres["profile_trace"]
+    if not trace or not os.path.getsize(trace):
+        raise AssertionError(f"bridges: no profile trace ({trace})")
+    # the logging half of a histogram pass alone, on the trained weights
+    model = hres["model"]
+    grads = {n: p.detach() for n, p in model.named_parameters()}
+    with MetricLogger(os.path.join(tmp, "built")) as logger:
+        hist_log_s = _host_ms(
+            lambda i: loop.log_histograms(logger, model, grads, 0), 3) / 1e3
+    del model, grads
+    hs, ps = hres["step_seconds"], pres["step_seconds"]
+    # 1-based steps after the first two; 15 also stops the profiler and
+    # writes the trace; 16 validates
+    without = [i for i in range(3, BRIDGE_STEPS) if i % BRIDGE_HIST]
+    with_pass = [i for i in range(3, BRIDGE_STEPS) if not i % BRIDGE_HIST]
+    window, outside = range(10, 15), range(3, 10)
+    record["train"] = {
+        "launches": {"histograms": hl["normalize_image"],
+                     "profiled": pl["normalize_image"]},
+        "bit_equal_between_the_runs": True,
+        "cudnn_deterministic": True,
+        "histogram_lines": len(hist_steps),
+        "trace_file": os.path.basename(trace),
+        "trace_MB": os.path.getsize(trace) / 1e6,
+        "step_seconds": {"histograms": hs, "profiled": ps},
+        "median_s": {
+            "step_without_pass": statistics.median(hs[i - 1]
+                                                   for i in without),
+            "step_with_pass": statistics.median(hs[i - 1]
+                                                for i in with_pass),
+            "histogram_logging": hist_log_s,
+            "unprofiled_steps_3_9": statistics.median(ps[i - 1]
+                                                      for i in outside),
+            "profiled_steps_10_14": statistics.median(ps[i - 1]
+                                                      for i in window),
+            "step_15_with_trace_export": ps[14]},
+        "steps_per_s": {"histograms": hrec["median_steps_per_s_after_warmup"],
+                        "profiled": prec["median_steps_per_s_after_warmup"]},
+        "loss": hrec["loss"], "max_memory_allocated_GiB":
+            hrec["max_memory_allocated_GiB"]}
+    del runs, hres, pres
+    launches = {"bridges_train": hl["normalize_image"]}
+
+    # 2. the simulator collector
+    sim = os.path.join(tmp, "sim")
+    t0 = time.perf_counter()
+    collect_sim_data.main(["--out", sim, "--env", "synthetic", "--episodes",
+                           "2", "--length", "60"])
+    D = build_buffer(compose(overrides=["train.experience_size=1000"]))
+    load_dataset(tmp, D, [os.path.join(sim, "train")])
+    if D.episodes != 2 or D.idx != 120:
+        raise AssertionError(f"bridges: the collected set loaded "
+                             f"{D.episodes} episodes, {D.idx} rows")
+    record["collect_sim_data"] = {"episodes": D.episodes, "rows": int(D.idx),
+                                  "seconds": time.perf_counter() - t0}
+
+    # 3. .pt -> reference .pth -> train.model_path
+    pth = os.path.join(tmp, "export", f"models_{EVAL_ITR}.pth")
+    os.makedirs(os.path.dirname(pth))
+    export_torch.main(["--run-dir", run_dir, "--itr", str(EVAL_ITR), "--out",
+                       pth])
+    saved = torch.load(os.path.join(run_dir, f"models_{EVAL_ITR}.pt"),
+                       map_location="cpu", weights_only=True)["model"]
+    loaded = {}
+    load = loop.load_model_path
+
+    def capture(cfg, cwd, model, *rest):
+        load(cfg, cwd, model, *rest)
+        loaded.update({k: v.clone() for k, v in model.state_dict().items()})
+
+    loop.load_model_path = capture
+    try:
+        rec, _, ml = train_run("bridges/model_path", tmp, [
+            f"train.model_path={pth}", "train.train_iteration=1",
+            "train.validation_interval=1",
+            "main.experiment_name=bridges_pth"], 1, "device_resident")
+    finally:
+        loop.load_model_path = load
+    differ = [k for k, v in saved.items()
+              if not torch.equal(loaded[k].cpu(), v)]
+    if set(loaded) != set(saved) or differ:
+        raise AssertionError(f"bridges: the .pth loaded other weights than "
+                             f"models_{EVAL_ITR}.pt's: {differ[:8]}")
+    record["export"] = {"pth_MB": os.path.getsize(pth) / 1e6,
+                        "loaded_bit_equal": True, "tensors": len(saved),
+                        "launches": ml["normalize_image"],
+                        "loss": rec["loss"]}
+    launches["bridges_model_path"] = ml["normalize_image"]
+
+    # 4. the JAX package's .msgpack (no image: K1 does not run)
+    _bridge_msgpack(record)
+    record["wall_seconds"] = time.perf_counter() - t_phase
+    emit(record)
+    return launches
+
+
 def budget_run(reserve_bytes: Optional[int], overrides=()) -> dict:
     """In a fresh process, as the train CLI starts: the model of the
     default configuration with ``overrides`` on the card, then a
@@ -1979,6 +2280,7 @@ def main() -> int:
         run_dir = phase_checkpoint(tmp)
         eval_k1 = phase_eval(tmp, run_dir, name)
         control_k1 = phase_control(tmp, run_dir, name)
+        bridges_k1 = phase_bridges(tmp, run_dir, name)
     phase_budget(((None, ()), (None, tuple(CODEC_RUNS["img256_groupnorm"]))))
     phase_parity()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1991,7 +2293,7 @@ def main() -> int:
         "train": launches["normalize_image"],
         "estimate_state": eval_k1["estimate_state"],
         "check_model": eval_k1["check_model"], **control_k1["launches"],
-        **variants_k1, **codecs_k1}
+        **bridges_k1, **variants_k1, **codecs_k1}
     kernel["eval_episode_shape_ms"] = eval_k1["episode_shape_ms"]
     kernel["agent_frame_shape"] = control_k1["frame_shape"]
     kernel["codec_shapes"] = k1_shapes

@@ -16,7 +16,8 @@
         [--device cuda|cpu]
 
 ``RUN_DIR`` is a run of the port's train CLI (``hydra_config.yaml`` and
-``models_{N}.pt``, or a reference ``models_{N}.pth``).  Outputs go to
+``models_{N}.pt``, or a reference ``models_{N}.pth``, or a JAX package
+``models_{N}.msgpack``).  Outputs go to
 ``RUN_DIR/analysis/``: ``reconstruction_<image>`` and ``imagination_<image>``
 grids (``.png`` with PIL, else ``.npy``), ``pca_beliefs.npy``,
 ``pca_posterior_means.npy``, ``expert_distributions.npy``,

@@ -5,8 +5,8 @@
 
 Scans ``DIR`` for run folders (those holding ``hydra_config.yaml``, as the
 port's train CLI writes them), loads each run's ``models_{N}`` checkpoint
-(``.pt`` from the port's train CLI, else a reference ``.pth``; a JAX package
-``.msgpack`` raises ``NotImplementedError``), estimates the posterior
+(``.pt`` from the port's train CLI, else a reference ``.pth``, else a JAX
+package ``.msgpack``), estimates the posterior
 states of every episode of the run's train set and saves them as
 ``states_models_{N}.npy`` beside the checkpoint, keyed by episode file.
 Runs on the GPU unless ``--device cpu``; without a GPU it raises.  Data

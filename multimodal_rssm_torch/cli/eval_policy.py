@@ -6,9 +6,10 @@
         [planner.candidates=1000 ...]
 
 Loads a run dir of ``train_online`` (or a world-model run plus
-``train_behavior``'s ``behavior/``): the newest world-model checkpoint
-``models_*.pt`` at its top and, for ``--policy actor``, the newest
-``behavior/models_*.pt``, and rolls the latent agent without exploration
+``train_behavior``'s ``behavior/``), the port's or the JAX package's: the
+newest world-model checkpoint ``models_*.pt`` or ``.msgpack`` at its top
+and, for ``--policy actor``, the newest ``behavior/models_*.pt`` or
+``.msgpack``, and rolls the latent agent without exploration
 noise, printing one JSON line of return statistics.  ``--policy cem``
 plans through the world model alone (``train/planner.py``; ``planner.*``
 overrides) and raises ``ValueError`` unless the run trained its reward
@@ -73,7 +74,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             "was trained for other actions")
     wm_path = ckpt.latest_checkpoint(args.run_dir)
     if wm_path is None:
-        raise FileNotFoundError(f"need models_*.pt in {args.run_dir}")
+        raise FileNotFoundError(
+            f"need models_*.pt or .msgpack in {args.run_dir}")
     model = load_eval_model(cfg, wm_path, dev)
 
     agent = actor = None

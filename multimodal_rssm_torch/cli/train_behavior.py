@@ -5,9 +5,9 @@
         [behavior.horizon=15 behavior.train_iteration=2000 ...]
 
 ``--run-dir`` is a world-model training run (its ``hydra_config.yaml``;
-the weights: its newest ``models_*.pt``, or ``--model-path``, a port
-``.pt`` or a reference ``.pth``; a JAX package ``.msgpack`` raises
-``NotImplementedError``).  The run's train set feeds the imagination
+the weights: its newest ``models_*.pt`` or JAX package
+``models_*.msgpack``, or ``--model-path``, a port ``.pt``, a reference
+``.pth`` or a JAX package ``.msgpack``).  The run's train set feeds the imagination
 starts by the train loop's ``train.device_replay`` rule (the replay on the
 device, whole or streamed, or host batches behind a prefetch thread;
 relative data paths from ``--cwd``).  The actor, the value head and their
@@ -63,8 +63,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     parser.add_argument("--run-dir", required=True,
                         help="world-model run dir (hydra_config.yaml + ckpt)")
     parser.add_argument("--model-path", default=None,
-                        help="explicit checkpoint (.pt or reference .pth); "
-                             "default: the newest models_*.pt in --run-dir")
+                        help="explicit checkpoint (.pt, reference .pth or JAX "
+                             ".msgpack); default: the newest models_*.pt "
+                             "or .msgpack in --run-dir")
     parser.add_argument("--cwd", default=".",
                         help="base of the run's relative data paths")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -93,7 +94,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     bh.behavior_cfg(cfg)
     model_path = args.model_path or ckpt.latest_checkpoint(args.run_dir)
     if model_path is None:
-        raise FileNotFoundError(f"no models_*.pt under {args.run_dir}")
+        raise FileNotFoundError(
+            f"no models_*.pt or .msgpack under {args.run_dir}")
     print(f"world model: {model_path}")
     model = load_eval_model(cfg, model_path, dev)
 

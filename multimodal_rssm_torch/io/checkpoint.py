@@ -17,19 +17,39 @@ A behavior checkpoint ``behavior/models_{itr}.pt``
 ``load_reference_checkpoint`` reads a reference ``models_{itr}.pth`` (the
 nested ``model_dicts`` layout) into the port's model.
 ``find_model_checkpoint`` / ``load_model_weights`` give evaluation a run
-dir's ``models_{itr}`` weights, from a ``.pt`` or a ``.pth``.
+dir's ``models_{itr}`` weights, from a ``.pt``, a ``.pth`` or a JAX package
+``.msgpack``.
+
+A JAX package checkpoint ``models_{step}.msgpack`` (flax's msgpack of
+``{"step", "state": TrainState, "extra"}``) is read by ``io/flax_msgpack``.
+Its ``params`` / ``batch_stats`` become the model's ``state_dict`` through
+``io/jax_weights.state_dict_from_jax``; ``load_jax_train_state`` also
+carries optax's Adam state into torch's (``mu`` / ``nu`` through the same
+layout transform as the parameters, ``count`` as the step, and the warm-up
+schedule's count).  A behavior checkpoint ``behavior/models_{itr}.msgpack``
+(the JAX ``BehaviorState``) goes through ``policy_state_dict_from_jax``.  A
+field the file lacks (one written before the field existed, as
+``return_scale``) starts from the fresh state's value, with a warning, as
+the JAX package's ``_fill_missing_fields`` does.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import re
 import threading
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import warnings
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
-_NAME = re.compile(r"models_(\d+)\.pt")
+from multimodal_rssm_torch.io import flax_msgpack
+from multimodal_rssm_torch.io.jax_weights import (
+    policy_state_dict_from_jax, state_dict_from_jax)
+
+_NAME = re.compile(r"models_(\d+)\.(pt|msgpack)")
 
 
 def _map_tensors(tree, fn: Callable[[torch.Tensor], torch.Tensor]):
@@ -173,7 +193,10 @@ def save_behavior_checkpoint(results_dir: str, itr: int, bstate) -> str:
 def load_behavior_checkpoint(path: str, bstate) -> int:
     """Restore a behavior checkpoint into ``bstate`` in place (the heads
     strictly, both optimizers, the step and ``return_scale`` on the actor's
-    device); returns the checkpoint's ``itr``."""
+    device); returns the checkpoint's ``itr``.  A JAX package ``.msgpack``
+    goes through ``load_jax_behavior_checkpoint``."""
+    if path.endswith(".msgpack"):
+        return load_jax_behavior_checkpoint(path, bstate)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     bstate.actor.load_state_dict(payload["actor"], strict=True)
     bstate.value.load_state_dict(payload["value"], strict=True)
@@ -185,16 +208,19 @@ def load_behavior_checkpoint(path: str, bstate) -> int:
     return int(payload["step"])
 
 
-def _checkpoints(results_dir: str) -> List[Tuple[int, str]]:
-    """[(step, path)] of the ``models_{step}.pt`` files, by step."""
+def _checkpoints(results_dir: str, suffixes: Tuple[str, ...] = (".pt",)
+                 ) -> List[Tuple[int, str]]:
+    """[(step, path)] of the ``models_{step}{suffix}`` files, by step (at
+    one step, a suffix before the later ones of ``suffixes``)."""
     if not os.path.isdir(results_dir):
         return []
     found = []
     for name in os.listdir(results_dir):
         m = _NAME.fullmatch(name)
-        if m:
-            found.append((int(m.group(1)), os.path.join(results_dir, name)))
-    return sorted(found)
+        if m and "." + m.group(2) in suffixes:
+            found.append((int(m.group(1)), -suffixes.index("." + m.group(2)),
+                          os.path.join(results_dir, name)))
+    return [(step, path) for step, _, path in sorted(found)]
 
 
 def prune_checkpoints(results_dir: str, keep: int) -> List[str]:
@@ -208,9 +234,12 @@ def prune_checkpoints(results_dir: str, keep: int) -> List[str]:
     return doomed
 
 
-def latest_checkpoint(results_dir: str) -> Optional[str]:
-    """The highest-step checkpoint of a run dir, or None."""
-    found = _checkpoints(results_dir)
+def latest_checkpoint(results_dir: str,
+                      suffixes: Tuple[str, ...] = (".pt", ".msgpack")
+                      ) -> Optional[str]:
+    """The highest-step checkpoint of a run dir, or None: a port ``.pt`` or
+    a JAX package ``.msgpack`` (a ``.pt`` where both are at that step)."""
+    found = _checkpoints(results_dir, suffixes)
     return found[-1][1] if found else None
 
 
@@ -235,7 +264,7 @@ def restore_or_none(results_dir: str, model, optimizer=None, scheduler=None
                     ) -> Optional[Tuple[int, Dict[str, Any]]]:
     """(step, extra) restored from the run dir's latest checkpoint, or None
     when it holds none."""
-    path = latest_checkpoint(results_dir)
+    path = latest_checkpoint(results_dir, (".pt",))
     if path is None:
         return None
     return load_checkpoint(path, model, optimizer, scheduler)
@@ -275,21 +304,174 @@ MODEL_SUFFIXES = (".pt", ".pth", ".msgpack")
 
 def load_model_weights(path: str, model) -> None:
     """The model's weights (running stats included) for evaluation,
-    strictly: from a port checkpoint ``.pt`` (its ``model`` entry) or a
-    reference ``.pth``.  A JAX package ``.msgpack`` raises
-    ``NotImplementedError``."""
+    strictly: from a port checkpoint ``.pt`` (its ``model`` entry), a
+    reference ``.pth`` or a JAX package ``.msgpack`` (its ``params`` and
+    ``batch_stats``)."""
     if path.endswith(".pt"):
         payload = torch.load(path, map_location="cpu", weights_only=True)
         model.load_state_dict(payload["model"], strict=True)
     elif path.endswith(".pth"):
         load_reference_checkpoint(path, model)
     elif path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: the JAX package's .msgpack checkpoints need flax to "
-            "read; loading them waits for ROADMAP queue 1 item 10 (convert "
-            "with the JAX package's bridge)")
+        state = read_jax_checkpoint(path, _TRAIN_STATE)[1]
+        model.load_state_dict(state_dict_from_jax(
+            state["params"], state["batch_stats"] or None), strict=True)
     else:
-        raise ValueError(f"{path}: not a .pth or .pt file")
+        raise ValueError(f"{path}: not a .pth, .pt or .msgpack file")
+
+
+# -- the JAX package's checkpoints ---------------------------------------------
+
+# the JAX TrainState's and BehaviorState's fields, with the values a fresh
+# state starts from where a file lacks one (None: a required field)
+_TRAIN_STATE = {"step": 0, "params": None, "batch_stats": {},
+                "opt_state": None}
+_BEHAVIOR_STATE = {"step": 0, "actor_params": None, "value_params": None,
+                   "actor_opt_state": None, "value_opt_state": None,
+                   "return_scale": np.ones((), np.float32)}
+
+
+def fill_missing_fields(template, payload, path: str = "", filled=None):
+    """The JAX package's ``_fill_missing_fields``: ``payload`` with every
+    dict key of ``template`` it lacks taken from ``template`` (recursively;
+    keys only in ``payload`` are kept).  Returns (merged, the filled key
+    paths)."""
+    if filled is None:
+        filled = []
+    if not isinstance(template, dict) or not isinstance(payload, dict):
+        return payload, filled
+    merged = {}
+    for k, tv in template.items():
+        if k in payload:
+            merged[k], _ = fill_missing_fields(tv, payload[k], f"{path}/{k}",
+                                               filled)
+        else:
+            merged[k] = tv
+            filled.append(f"{path}/{k}")
+    for k, v in payload.items():
+        if k not in merged:
+            merged[k] = v
+    return merged, filled
+
+
+def read_jax_checkpoint(path: str, template: Mapping[str, Any]
+                        ) -> Tuple[int, Dict[str, Any]]:
+    """(the file's ``step``, its ``state`` with the fields of ``template``
+    it lacks filled in, with a warning) for a JAX package ``.msgpack``.
+    Raises ``ValueError`` when it is not one, or lacks a required field."""
+    try:
+        payload = flax_msgpack.load(path)
+    except ValueError as e:   # UnicodeDecodeError included
+        raise ValueError(f"{path}: not a JAX package checkpoint ({e})") from e
+    if not (isinstance(payload, dict) and isinstance(payload.get("state"),
+                                                     dict)):
+        raise ValueError(f"{path}: not a JAX package checkpoint (no state "
+                         "dict)")
+    state, filled = fill_missing_fields(dict(template), payload["state"])
+    missing = [f"/{k}" for k, v in template.items() if v is None
+               and state[k] is None]
+    if missing:
+        raise ValueError(f"{path}: the checkpoint lacks {', '.join(missing)}")
+    if filled:
+        logging.getLogger(__name__).warning(
+            "checkpoint %s predates state field(s) %s; using template "
+            "init values for them", path, ", ".join(filled))
+    return int(payload.get("step", state["step"])), state
+
+
+def _optax_states(tree, fields: set) -> List[Dict[str, Any]]:
+    """Every optax state of exactly ``fields`` in an ``opt_state`` tree:
+    {count, mu, nu} is a ``ScaleByAdamState``, {count} a
+    ``ScaleByScheduleState``."""
+    if not isinstance(tree, dict):
+        return []
+    if set(tree) == fields:
+        return [tree]
+    return [s for v in tree.values() for s in _optax_states(v, fields)]
+
+
+def _load_adam(optimizer, module: torch.nn.Module, opt_state,
+               moments: Callable[[Any], Dict[str, torch.Tensor]],
+               path: str) -> int:
+    """optax's Adam state into ``optimizer`` (a torch Adam over
+    ``module.parameters()`` in one group): ``mu`` -> ``exp_avg``, ``nu`` ->
+    ``exp_avg_sq``, each through ``moments`` (the parameters' layout
+    transform), ``count`` -> ``step``.  Returns the count."""
+    adams = _optax_states(opt_state, {"count", "mu", "nu"})
+    if len(adams) != 1:
+        raise ValueError(f"{path}: expected one optax Adam state in the "
+                         f"optimizer state, found {len(adams)}; the "
+                         "optimizer cannot be carried")
+    (adam,) = adams
+    count = int(adam["count"])
+    mu, nu = moments(adam["mu"]), moments(adam["nu"])
+    names = [n for n, _ in module.named_parameters()]
+    sd = optimizer.state_dict()
+    (group,) = sd["param_groups"]
+    if group["params"] != list(range(len(names))):
+        raise ValueError("the optimizer is not one group over the module's "
+                         "parameters")
+    missing = [n for n in names if n not in mu or n not in nu]
+    if missing:
+        raise ValueError(f"{path}: no Adam moments for {missing}")
+    sd["state"] = {i: {"step": torch.tensor(float(count)),
+                       "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                   for i, n in enumerate(names)}
+    optimizer.load_state_dict(sd)
+    return count
+
+
+def _set_schedule(scheduler, count: int) -> None:
+    """Put an LR schedule at optax's schedule ``count`` (the updates taken),
+    as ``count`` scheduler steps would."""
+    scheduler.last_epoch = count - 1
+    with warnings.catch_warnings():   # a step before the optimizer's
+        warnings.simplefilter("ignore")
+        scheduler.step()
+
+
+def load_jax_train_state(path: str, model, optimizer, scheduler=None) -> int:
+    """A JAX package ``models_{step}.msgpack``'s whole TrainState into the
+    port's training state: the weights and running stats (strictly), Adam's
+    moments and count, and with ``scheduler`` the warm-up's count (a file
+    with a schedule state and a run without one, or the reverse, raise
+    ``ValueError``).  Returns the file's TrainState ``step``."""
+    step, state = read_jax_checkpoint(path, _TRAIN_STATE)
+    model.load_state_dict(state_dict_from_jax(
+        state["params"], state["batch_stats"] or None), strict=True)
+    _load_adam(optimizer, model, state["opt_state"],
+               lambda tree: state_dict_from_jax(tree, None), path)
+    counts = [int(s["count"])
+              for s in _optax_states(state["opt_state"], {"count"})]
+    if (scheduler is None) != (not counts):
+        raise ValueError(f"{path}: an LR schedule state in the checkpoint "
+                         f"({bool(counts)}) and in this run "
+                         f"({scheduler is not None}) must go together")
+    if scheduler is not None:
+        _set_schedule(scheduler, counts[0])
+    return int(state["step"])
+
+
+def load_jax_behavior_checkpoint(path: str, bstate) -> int:
+    """A JAX package ``behavior/models_{itr}.msgpack`` into ``bstate`` in
+    place: both heads (strictly), both optimizers' Adam states, the step
+    and ``return_scale``; returns the file's ``itr``."""
+    template = dict(_BEHAVIOR_STATE)
+    template["return_scale"] = bstate.return_scale.detach().cpu().numpy()
+    itr, state = read_jax_checkpoint(path, template)
+    actor, value = policy_state_dict_from_jax(state["actor_params"],
+                                              state["value_params"])
+    bstate.actor.load_state_dict(actor, strict=True)
+    bstate.value.load_state_dict(value, strict=True)
+    _load_adam(bstate.actor_opt, bstate.actor, state["actor_opt_state"],
+               lambda tree: policy_state_dict_from_jax(tree, {})[0], path)
+    _load_adam(bstate.value_opt, bstate.value, state["value_opt_state"],
+               lambda tree: policy_state_dict_from_jax({}, tree)[1], path)
+    bstate.step = int(state["step"])
+    device = next(bstate.actor.parameters()).device
+    bstate.return_scale = torch.as_tensor(
+        np.array(state["return_scale"], np.float32)).to(device)
+    return itr
 
 
 def find_model_checkpoint(run_dir: str, itr: int) -> str:

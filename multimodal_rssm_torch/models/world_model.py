@@ -323,6 +323,7 @@ class WorldModel(nn.Module):
         key is absent; a value outside ``remat.REMAT_VALUES`` raises
         ``ValueError``)."""
         rssm = cfg.rssm
+        check_lowering_keys(rssm)
         multimodal = bool(rssm.multimodal)
         mp = rssm.multimodal_params
         latent_dist, latent_v, latent_k, unimix = resolve_latent(rssm)
@@ -350,6 +351,25 @@ class WorldModel(nn.Module):
             latent_classes=latent_k, unimix=unimix,
             remat=rssm.get("remat", False),
         )
+
+
+# the JAX package's ConvTranspose lowerings (its models/layers.py)
+CONVT_IMPLS = ("dilated", "dilated_autodiff", "phased")
+
+
+def check_lowering_keys(rssm) -> None:
+    """``rssm.convt_impl`` and ``rssm.scan_unroll`` choose how the JAX
+    package lowers its ConvTranspose and its time loop; every choice
+    computes the same model, so the port reads them only to refuse what the
+    JAX package refuses: a ``convt_impl`` outside ``CONVT_IMPLS`` and a
+    ``scan_unroll`` below 1 (null or 0 reads as 1) raise ``ValueError``."""
+    impl = rssm.get("convt_impl")
+    if impl and str(impl) not in CONVT_IMPLS:
+        raise ValueError(f"rssm.convt_impl={impl!r} is not one of "
+                         f"{CONVT_IMPLS}")
+    unroll = int(rssm.get("scan_unroll", 1) or 1)
+    if unroll < 1:
+        raise ValueError(f"rssm.scan_unroll={unroll} must be >= 1")
 
 
 def resolve_latent(rssm) -> Tuple[str, int, int, float]:

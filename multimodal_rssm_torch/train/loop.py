@@ -19,6 +19,13 @@ augmentation choices happens in a fixed order (on the loop's thread, or for
 the host feed in its prefetch thread from the buffer's own generator), so
 a seed fixes the run.
 
+``train.histogram_interval`` logs per-module histograms of the parameters
+and of the gradients of one extra forward and backward on the step's batch
+(``trainer.make_grad_fn``; its own generator, frozen running stats, no
+optimizer) every N steps, so a run with them equals one without.
+``train.profile_dir`` traces steps 10-15 after the first with
+``torch.profiler`` (CPU and CUDA activities) into a Chrome trace there.
+
 Checkpoints hold the whole training state, the NumPy generators' states
 included, and are written atomically; cadence checkpoints are written off
 the loop's thread (``io/checkpoint.py``).  A run resumes from its dir's
@@ -41,7 +48,8 @@ from multimodal_rssm_torch.core.runtime import GracefulShutdown
 from multimodal_rssm_torch.data.buffer import (
     HostBatchFeed, build_buffer, load_dataset, to_device)
 from multimodal_rssm_torch.data.device_buffer import (
-    DeviceReplay, StreamingDeviceReplay, hbm_budget_bytes, step_reserve_bytes)
+    DeviceReplay, StreamingDeviceReplay, gather_batch, hbm_budget_bytes,
+    step_reserve_bytes)
 from multimodal_rssm_torch.io import checkpoint as ckpt
 from multimodal_rssm_torch.io.metrics import MetricLogger, make_run_dir
 from multimodal_rssm_torch.models.world_model import WorldModel, init_parameters
@@ -59,13 +67,68 @@ def _check_options(cfg) -> None:
                          "(a synchronous save holds the loop for the whole "
                          "write); the key is kept for the JAX package's "
                          "config")
-    if int(cfg.train.get("histogram_interval", 0) or 0) > 0:
-        raise NotImplementedError("train.histogram_interval > 0: parameter "
-                                  "and gradient histograms wait for a later "
-                                  "slice of the port")
-    if cfg.train.get("profile_dir"):
-        raise NotImplementedError("train.profile_dir: use python -m "
-                                  "multimodal_rssm_torch.cli.profile_step")
+    mesh = cfg.train.get("mesh") or {}
+    sizes = {"data": int(mesh.get("data", 0) or 0),
+             "model": int(mesh.get("model", 1) or 1),
+             "slice": int(mesh.get("slice", 1) or 1)}
+    if sizes["data"] not in (0, 1) or sizes["model"] > 1 or sizes["slice"] > 1:
+        raise NotImplementedError(
+            f"train.mesh={sizes}: the port trains on one device only "
+            "(data 0 or 1, model 1, slice 1); multi-GPU training is ROADMAP "
+            "queue 1 item 14")
+
+
+def log_histograms(logger: MetricLogger, model, grads: Dict[str, torch.Tensor],
+                   step: int) -> None:
+    """The parameters' and the gradients' histograms, per top-level module
+    of ``model`` (``params_<module>/hist``, ``grads_<module>/hist``)."""
+    for prefix, tensors in (("params", dict(model.named_parameters())),
+                            ("grads", grads)):
+        logger.log_histograms(
+            {mod: [tensors[f"{mod}.{n}"] for n, _ in child.named_parameters()]
+             for mod, child in model.named_children()}, step, prefix)
+
+
+class ProfileWindow:
+    """A ``torch.profiler`` trace of steps ``first``..``last`` (CPU and, on
+    CUDA, device activities), written as a Chrome trace into ``out_dir``:
+    the JAX package's ``jax.profiler`` window.  ``at_start(itr)`` before a
+    step, ``at_end(itr)`` after it; ``close(itr)`` ends a trace the run
+    left open (a run shorter than the window).  ``path``: the trace
+    written, or None."""
+
+    def __init__(self, out_dir: str, first: int, last: int,
+                 device: torch.device):
+        self.out_dir, self.first, self.last = out_dir, first, last
+        self.device = device
+        self.prof = None
+        self.path: Optional[str] = None
+
+    def at_start(self, itr: int) -> None:
+        if itr == self.first:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+
+    def at_end(self, itr: int) -> None:
+        if itr == self.last:
+            self.close(itr)
+
+    def close(self, itr: Optional[int] = None) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.path = os.path.join(
+            self.out_dir, f"trace_steps_{self.first}-{itr or self.last}.json")
+        self.prof.export_chrome_trace(self.path)
+        print(f"profile of steps {self.first}-{itr or self.last}: "
+              f"{self.path}")
+        self.prof = None
 
 
 def select_feed(cfg, D, device: torch.device, seed: int):
@@ -118,13 +181,18 @@ def select_feed(cfg, D, device: torch.device, seed: int):
 
 def load_model_path(cfg, cwd: str, model, optimizer, scheduler) -> None:
     """Start from ``train.model_path`` (relative to ``cwd``): a reference
-    ``.pth`` (the model's weights) or a port ``.pt`` checkpoint (model,
-    optimizer and schedule; the step count starts at 0)."""
+    ``.pth`` (the model's weights), a port ``.pt`` checkpoint (model,
+    optimizer and schedule) or a JAX package ``.msgpack`` (its whole
+    TrainState, as the JAX loop restores it: weights, running stats, Adam's
+    moments and count, the schedule's count).  The loop's step count starts
+    at 0, as the JAX loop's does."""
     path = os.path.join(cwd, str(cfg.train.model_path))
     if not os.path.exists(path):
         raise FileNotFoundError(f"train.model_path {path} does not exist")
     if path.endswith(".pt"):
         ckpt.load_checkpoint(path, model, optimizer, scheduler)
+    elif path.endswith(".msgpack"):
+        ckpt.load_jax_train_state(path, model, optimizer, scheduler)
     else:
         ckpt.load_model_weights(path, model)
     print(f"model weights from {path}")
@@ -137,8 +205,8 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
     checkpoint (step, model, optimizer, schedule and generator).
 
     Returns the run dir, the model, the feed taken, the first step run,
-    the last train and validation metrics and the wall-clock seconds of
-    every step."""
+    the last train and validation metrics, the wall-clock seconds of
+    every step and the profile trace's path (or None)."""
     dev = resolve_device(device)
     configure_float32()
     _check_options(cfg)
@@ -182,6 +250,12 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
         if feed == "stream" and "stream" in rng:
             replay.set_state(rng["stream"])
         print(f"resumed from step {start_step}")
+    elif resume_dir is not None and ckpt.latest_checkpoint(
+            results_dir, (".msgpack",)):
+        raise ValueError(
+            f"{results_dir} holds the JAX package's checkpoints only: "
+            "--resume continues a port run; start from one with "
+            "train.model_path=<its models_N.msgpack>")
     elif cfg.train.model_path:
         load_model_path(cfg, cwd, model, optimizer, scheduler)
 
@@ -190,6 +264,12 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
     ckpt_every = int(cfg.train.checkpoint_interval or 0)
     keep = int(cfg.train.get("keep_checkpoints", 0) or 0)
     refresh_every = max(1, int(cfg.train.get("stream_refresh_interval", 1)))
+    hist_every = int(cfg.train.get("histogram_interval", 0) or 0)
+    grad_fn = tr.make_grad_fn(model, cfg, aug_spec, dev) if hist_every else None
+    profile_dir = cfg.train.get("profile_dir")
+    window = (ProfileWindow(os.path.join(cwd, str(profile_dir)),
+                            start_step + 10, start_step + 15, dev)
+              if profile_dir else None)
     saver = ckpt.AsyncCheckpointer()
     # the buffer generator's state after the last batch a step took (the
     # host feed's prefetch thread draws ahead)
@@ -218,16 +298,28 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
             for itr in range(start_step + 1, total + 1):
                 if shutdown.requested:
                     break
+                if window is not None:
+                    window.at_start(itr)
                 step_draws = draws.draw()
                 if replay is not None:
-                    metrics = train_step(replay.arrays,
-                                         replay.sample_indices(B, L),
-                                         step_draws, generator)
-                    if feed == "stream" and itr % refresh_every == 0:
-                        replay.refresh()
+                    idxs = replay.sample_indices(B, L)
+                    metrics = train_step(replay.arrays, idxs, step_draws,
+                                         generator)
                 else:
                     buffer_state, batch = prefetcher.get()
                     metrics = train_step(batch, step_draws, generator)
+                if hist_every and itr % hist_every == 0:
+                    # the step's batch and draws again, with a generator
+                    # of its own: no stream of the run advances
+                    if replay is not None:
+                        batch = gather_batch(replay.arrays, idxs,
+                                             D.observation_names,
+                                             replay.row_shapes)
+                    log_histograms(logger, model, grad_fn(
+                        batch, step_draws,
+                        torch.Generator(dev).manual_seed(seed + itr)), itr)
+                if feed == "stream" and itr % refresh_every == 0:
+                    replay.refresh()
                 if pending is not None:
                     last = _host(pending[1])
                     logger.log(last, pending[0], "train")
@@ -247,12 +339,16 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
                                state_extra(), keep=keep)
                     last_saved = itr
                 completed = itr
+                if window is not None:
+                    window.at_end(itr)
                 now = time.perf_counter()
                 step_seconds.append(now - t_prev)
                 t_prev = now
         finally:
             if prefetcher is not None:
                 prefetcher.close()
+            if window is not None:
+                window.close(completed)
         if pending is not None:
             last = _host(pending[1])
             logger.log(last, pending[0], "train")
@@ -271,4 +367,5 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
                        completed, "perf")
     return {"results_dir": results_dir, "model": model, "feed": feed,
             "start_step": start_step, "metrics": last,
-            "validation_metrics": last_val, "step_seconds": step_seconds}
+            "validation_metrics": last_val, "step_seconds": step_seconds,
+            "profile_trace": None if window is None else window.path}

@@ -34,6 +34,7 @@ from multimodal_rssm_torch.data import augment as aug
 from multimodal_rssm_torch.data.device_buffer import gather_batch
 from multimodal_rssm_torch.losses import elbo
 from multimodal_rssm_torch.losses.overshoot import overshooting_losses
+from multimodal_rssm_torch.models.layers import frozen_running_stats
 from multimodal_rssm_torch.models.world_model import WorldModel
 from multimodal_rssm_torch.ops import cuda_kernels
 from multimodal_rssm_torch.ops.image import normalize_image
@@ -451,6 +452,36 @@ def make_train_step(model: WorldModel, cfg, optimizer, scheduler,
         return metrics
 
     return train_step, eval_step
+
+
+def make_grad_fn(model: WorldModel, cfg, aug_spec: AugSpec,
+                 device: torch.device):
+    """``grad_fn(raw_batch, draws, generator) -> {name: gradient}``: one
+    forward and backward of the train step's loss (the whole batch, its
+    input pipeline and normalise path), for ``train.histogram_interval``'s
+    gradient histograms (the JAX package's ``make_grad_fn``).  It observes
+    only: the caller passes a generator of its own, no norm's running stats
+    move (``frozen_running_stats``), and the gradients come from
+    ``torch.autograd.grad``, so no ``.grad`` and no optimizer state is
+    touched.  A parameter the loss does not reach gets a zero gradient."""
+    loss_fn = make_loss_fn(model, cfg)
+    bit_depth = int(cfg.env.bit_depth)
+    use_kernel = kernel_normalize_enabled(cfg, device)
+    named = list(model.named_parameters())
+
+    def grad_fn(raw_batch, draws, generator):
+        observations, actions, rewards, nonterminals = raw_batch
+        observations = prepare_observations(
+            observations, aug_spec, draws, bit_depth, generator, use_kernel)
+        with frozen_running_stats(model):
+            loss, _ = loss_fn((observations, actions, rewards, nonterminals),
+                              generator, True)
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True)
+        return {n: torch.zeros_like(p) if g is None else g
+                for (n, p), g in zip(named, grads)}
+
+    return grad_fn
 
 
 def make_device_resident_steps(model: WorldModel, cfg, optimizer, scheduler,

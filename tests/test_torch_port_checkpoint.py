@@ -237,9 +237,9 @@ def test_model_path_loads_a_port_checkpoint(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize("name,error,match", [
-    ("models_5.msgpack", NotImplementedError, "item 10"),
+    ("models_5.msgpack", ValueError, "not a JAX package checkpoint"),
     ("missing.pth", FileNotFoundError, "does not exist"),
-    ("weights.npz", ValueError, "not a .pth or .pt")])
+    ("weights.npz", ValueError, "not a .pth, .pt or .msgpack")])
 def test_model_path_raises_on_what_it_cannot_load(name, error, match,
                                                   tmp_path):
     if name != "missing.pth":
@@ -257,9 +257,12 @@ def test_synchronous_cadence_checkpoints_raise(data_dir):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("train.histogram_interval=5", "histogram_interval"),
-    ("train.profile_dir=prof", "profile_dir")])
+    ("train.mesh.data=4", "item 14"),
+    ("train.mesh.model=2", "item 14")])
 def test_unported_options_raise(data_dir, override, match):
+    """A mesh of more than one device (multi-GPU training, not ported);
+    ``train.histogram_interval`` and ``train.profile_dir`` no longer raise
+    (tests/test_torch_port_bridges.py)."""
     with pytest.raises(NotImplementedError, match=match):
         cli_train.main(_args(data_dir, "train.train_iteration=1", override))
 

@@ -623,12 +623,14 @@ def test_check_model_cli_writes_the_jax_artifacts(trained_run, monkeypatch):
 
 
 @pytest.mark.parametrize("present,error", [
-    ("models_2.msgpack", NotImplementedError), (None, FileNotFoundError)])
+    ("models_2.msgpack", ValueError), (None, FileNotFoundError)])
 def test_eval_clis_refuse_what_they_cannot_load(trained_run, tmp_path,
                                                 present, error):
-    """A run dir holding only a ``.msgpack`` raises ``NotImplementedError``
-    in both CLIs; one without a checkpoint raises ``FileNotFoundError`` in
-    ``check_model`` and is skipped by ``estimate_state``."""
+    """A run dir holding only a ``.msgpack`` that is not a JAX package
+    checkpoint raises ``ValueError`` in both CLIs (a real one loads:
+    tests/test_torch_port_bridges.py); one without a checkpoint raises
+    ``FileNotFoundError`` in ``check_model`` and is skipped by
+    ``estimate_state``."""
     root, run_dir = trained_run
     target = tmp_path / "runs" / "run_0"
     target.mkdir(parents=True)
@@ -636,10 +638,11 @@ def test_eval_clis_refuse_what_they_cannot_load(trained_run, tmp_path,
     if present:
         (target / present).write_bytes(b"\0")
     common = ["--itr", "2", "--cwd", str(root), "--device", "cpu"]
-    with pytest.raises(error, match="item 10" if present else "models_2"):
+    bad = "not a JAX package checkpoint"
+    with pytest.raises(error, match=bad if present else "models_2"):
         cli_check.main(["--run", str(target), *common])
     if present:
-        with pytest.raises(error, match="item 10"):
+        with pytest.raises(error, match=bad):
             cli_estimate.main(["--targets", str(target.parent), *common])
     else:
         assert cli_estimate.main(["--targets", str(target.parent), *common]) == []

@@ -729,3 +729,77 @@ def test_cem_plan_on_card_matches_cpu(cuda):
                     == set(b["elites"][row].cpu().tolist())), (
                 i, row, float(top[99] - top[100]))
     torch.testing.assert_close(plans[1], plans[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_jax_msgpack_fixture_on_card_matches_the_stored_estimate(cuda):
+    """The JAX package's ``.msgpack`` fixture (a unimodal pose model) read
+    by the port's own reader onto the card: its det estimate equals the
+    JAX package's stored one within 1e-3 |want| + 1e-4 (float32, TF32
+    off)."""
+    import os
+
+    import numpy as np
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.core.device import configure_float32
+    from multimodal_rssm_torch.io.checkpoint import load_model_weights
+    from multimodal_rssm_torch.models.world_model import WorldModel
+
+    configure_float32()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "torch_port_fixtures", "jax_unimodal_pose")
+    with np.load(root + ".npz") as z:
+        npz = dict(z)
+    model = WorldModel.from_config(compose(overrides=[
+        str(o) for o in npz["config/overrides"]]))
+    load_model_weights(root + ".msgpack", model)
+    model.to(cuda).eval()
+
+    def t(key):
+        return torch.from_numpy(npz[key]).to(cuda)
+
+    with torch.no_grad():
+        got = model.estimate_state({"pose_quat_v2": t("episode/pose_quat_v2")},
+                                   t("episode/actions"),
+                                   t("episode/nonterminals"))
+    for k in ("beliefs", "posterior_means"):
+        want = torch.from_numpy(npz[f"estimate/{k}"])
+        diff = (got[k].cpu() - want).abs()
+        assert bool((diff <= 1e-3 * want.abs() + 1e-4).all()), k
+
+
+@pytest.mark.gpu
+def test_histogram_pass_leaves_a_card_run_bit_equal(cuda, tmp_path):
+    """4 steps of the train CLI on the card at small widths with
+    ``train.histogram_interval=2`` against 4 without, under deterministic
+    cuDNN: every tensor of the model bit-equal; K1 once more per
+    histogram pass."""
+    from multimodal_rssm_torch.cli import train as cli_train
+    from multimodal_rssm_torch.data.synthetic import write_synthetic_dataset
+
+    shapes = {"image_horizon": [3, 64, 64], "sound": [128, 20]}
+    write_synthetic_dataset(str(tmp_path / "train"), 2, 30, shapes)
+    write_synthetic_dataset(str(tmp_path / "val"), 1, 30, shapes, seed=9)
+    small = ["rssm.belief_size=64", "rssm.state_size=16",
+             "rssm.hidden_size=64", "rssm.embedding_size.image=64",
+             "rssm.embedding_size.sound=32", "rssm.embedding_size.fusion=64",
+             "rssm.embedding_size.other=16",
+             f"train.train_data_path=[{tmp_path}/train]",
+             f"train.validation_data_path=[{tmp_path}/val]",
+             "train.batch_size=4", "train.chunk_size=8",
+             "train.train_iteration=4", "train.validation_interval=4",
+             "train.experience_size=200", "train.pallas_normalize=true"]
+    runs, launches = [], []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for extra in (["train.histogram_interval=2"], []):
+            ck.reset_launch_counts()
+            runs.append(cli_train.main(small + extra + [
+                "--device", "cuda", "--cwd", str(tmp_path)]))
+            launches.append(ck.normalize_image.launches)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert launches == [4 + 1 + 2, 4 + 1]
+    for k, v in runs[0]["model"].state_dict().items():
+        assert torch.equal(v, runs[1]["model"].state_dict()[k]), k

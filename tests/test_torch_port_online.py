@@ -439,12 +439,15 @@ def test_train_behavior_cli(world_model_run, feed, monkeypatch):
 
 
 def test_train_behavior_refuses_msgpack_and_unknown_value_head(
-        world_model_run):
+        world_model_run, tmp_path):
+    """A ``.msgpack`` that is not a JAX package checkpoint (a real one
+    loads: tests/test_torch_port_bridges.py) and an unknown value head."""
     root, run_dir = world_model_run
-    with pytest.raises(NotImplementedError, match="item 10"):
+    bad = tmp_path / "models_2.msgpack"
+    bad.write_bytes(b"\0")
+    with pytest.raises(ValueError, match="not a JAX package checkpoint"):
         cli_behavior.main(["--run-dir", run_dir, "--cwd", str(root),
-                           "--device", "cpu", "--model-path",
-                           os.path.join(run_dir, "models_2.msgpack")])
+                           "--device", "cpu", "--model-path", str(bad)])
     with pytest.raises(ValueError, match="value_head"):
         cli_behavior.main(["--run-dir", run_dir, "--cwd", str(root),
                            "--device", "cpu", "behavior.value_head=mse"])

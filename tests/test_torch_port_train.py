@@ -392,12 +392,18 @@ CONTROL_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
     "train.planner", "train.online", "eval.policy", "envs", "envs.synthetic",
     "envs.peg", "envs.zoo", "cli.train_behavior", "cli.train_online",
     "cli.eval_policy")]
+# the file bridges: the dataset tools, the .msgpack reader, the .pth export
+BRIDGE_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
+    "data.pose", "data.dataset_builder", "cli.make_synthetic_dataset",
+    "cli.collect_sim_data", "io.flax_msgpack", "io.torch_export",
+    "io.metrics", "cli.export_torch", "cli.crosscheck_torch")]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Nor, at import, scikit-learn, PIL or matplotlib, which the card's
-    machine lacks (the eval CLIs import PIL and matplotlib only where they
-    write images, and skip those without them)."""
+    """Nor, at import, scikit-learn, PIL, matplotlib or msgpack, which the
+    card's machine lacks (the eval CLIs import PIL and matplotlib only
+    where they write images, and skip those without them; the dataset
+    builder and the .msgpack reader need neither PIL nor msgpack)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import multimodal_rssm_torch as p\n"
@@ -405,10 +411,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m in ('jax', 'sklearn', 'PIL', "
-        "'matplotlib') or m.startswith(('jax.', 'jaxlib', 'flax', 'optax', "
-        "'multimodal_rssm_tpu'))]\n"
+        "'matplotlib', 'msgpack') or m.startswith(('jax.', 'jaxlib', "
+        "'flax', 'optax', 'msgpack.', 'PIL.', 'multimodal_rssm_tpu'))]\n"
         f"missing = [m for m in "
-        f"{FEED_MODULES + EVAL_MODULES + VARIANT_MODULES + CODEC_MODULES + CONTROL_MODULES!r} "
+        f"{FEED_MODULES + EVAL_MODULES + VARIANT_MODULES + CODEC_MODULES + CONTROL_MODULES + BRIDGE_MODULES!r} "
         "if m not in sys.modules]\n"
         "print(len(sys.modules), bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
