@@ -21,7 +21,7 @@ each printed as one JSON line:
                just before);
 3b. feed    -- the same CLI on a dataset of a real set's size (360 x 120
                episodes, 43,200 rows, 0.97 GB; experience_size to match),
-               24 steps a run, with train.device_replay=true (the whole
+               12 steps a run, with train.device_replay=true (the whole
                replay on the card), =stream (train.replay_budget_gb=0.5: a
                working set of 119 of 216 segments, one replaced a step) and
                =false (host batches behind the prefetch thread), run in the
@@ -104,6 +104,18 @@ each printed as one JSON line:
                and one deterministic step from it (train.model_path)
                within PARITY_RTOL |want| + EVAL_ATOL of the JAX package's
                stored values, and the reader's MB/s;
+3h. serve   -- serving on 3c's run (models_6.pt, full width, bf16) with
+               3f's behavior/ checkpoint: the export_model CLI (all four
+               artifacts at batch 1, --plan with rssm.predict_reward=true;
+               seconds per artifact, .pt2 bytes), each artifact loaded
+               (seconds) and held against the eager port on the same raw
+               frame and key (filter_step and decode within 1e-5 of max
+               |eager|, in bf16 as shipped and exported again in float32;
+               the agent's and CEM's actions from the key's noise), served
+               over HTTP (a 3-frame streaming carry equal to the direct
+               calls; 400 for a missing input and an unknown artifact, 404
+               for an unknown path), ms per call at batch 1 direct and over
+               HTTP (median of 50 after 5), and no kernel launched;
 3d. budget  -- in a fresh process, as the CLI starts, for the default
                configuration and for the 256 px GroupNorm one: a
                device-resident replay as large as hbm_budget_bytes allows
@@ -151,7 +163,10 @@ each printed as one JSON line:
                episode, grids and SSIM only for the image, MSE / PSNR for
                every modality), and K1 at [50, 50, 128, 128, 3] and
                [50, 50, 256, 256, 3]: equal to its plain version, device
-               time from a CUDA graph against the bytes bound;
+               time from a CUDA graph against the bytes bound; and, for
+               the 256 px GroupNorm and the default configuration, where
+               the card and the CPU part (codecs/f3: every module's output
+               and every gradient, card against CPU, in call order);
 5. fused_codec -- the fused conv + InstanceNorm + GLU op (kernels K2, K3a,
                K3b, K3c) at its stage shapes, N = 2450, bf16: each kernel
                against its plain version (f32 arithmetic from the same
@@ -174,6 +189,11 @@ each printed as one JSON line:
                and never the WMMA ones (and none of them in the train
                phase).  The kernels line gives each two-kernel step's
                launches by variant from that run.
+
+6. quality -- the learning gate (cli/quality_gate.py): the default
+               configuration, seed 0, 300 iterations at batch 8 x chunk 20
+               through the port's CLIs, every metric inside the committed
+               cuda window, the JAX package's tpu window read beside it.
 
 Then the {"kernels": [...]} line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Without a GPU it exits non-zero
@@ -530,7 +550,7 @@ def _host_ms(fn, reps: int) -> float:
 
 
 FEED_EPISODES = 360     # x 120 steps: 43,200 rows, 0.97 GB
-FEED_STEPS = 24
+FEED_STEPS = 12        # short runs: the whole script must stay well inside its time limit
 FEED_STREAM_GB = 0.5
 FEED_ORDER = (("true", "device_resident"), ("stream", "stream"),
               ("false", "host"), ("false", "host"), ("stream", "stream"),
@@ -1502,6 +1522,295 @@ def phase_bridges(tmp: str, run_dir: str, device_name: str) -> dict:
     return launches
 
 
+SERVE_CALLS = 50       # timed calls a path, after SERVE_WARMUP
+SERVE_WARMUP = 5
+SERVE_RTOL = 1e-5      # artifact against the eager port, relative to max |eager|
+SERVE_OVERRIDES = ["rssm.predict_reward=true"]   # the control phase's CEM
+
+
+def _post_npz(url: str, arrays: dict) -> dict:
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    req = urllib.request.Request(url, data=buf.getvalue(), headers={
+        "Content-Type": "application/octet-stream"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        body = r.read()
+    with np.load(io.BytesIO(body)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _http_error(url: str, arrays: Optional[dict] = None) -> int:
+    """The status of a request that must fail (GET without ``arrays``)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        if arrays is None:
+            urllib.request.urlopen(url, timeout=60)
+        else:
+            _post_npz(url, arrays)
+    except urllib.error.HTTPError as e:
+        return e.code
+    raise AssertionError(f"{url} answered 200")
+
+
+def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
+    """Serving on the checkpoint phase's run (models_6.pt, the default
+    configuration at full width, bf16, with the control phase's behavior/
+    checkpoint): the export CLI (all four artifacts at batch 1,
+    ``--plan`` with rssm.predict_reward=true; seconds per artifact, .pt2
+    bytes), each artifact loaded (seconds) and held against the eager port
+    on the same raw frame and key (filter_step and decode within SERVE_RTOL
+    of max |eager|, in bf16 as shipped and exported again in float32; the
+    agent's and the planner's actions from the key's noise), the artifacts
+    served over HTTP (a 3-frame streaming carry equal to the direct calls;
+    400 for a missing input and an unknown artifact, 404 for an unknown
+    path), ms per call at batch 1 direct and over HTTP (median of
+    SERVE_CALLS after SERVE_WARMUP, synchronised), and no kernel launched
+    (serving normalises without K1, as the JAX package's artifacts do)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from multimodal_rssm_torch.cli import export_model
+    from multimodal_rssm_torch.core.config import (
+        apply_overrides, load_run_config)
+    from multimodal_rssm_torch.eval.state_estimation import load_eval_model
+    from multimodal_rssm_torch.io import checkpoint as ckpt
+    from multimodal_rssm_torch.io import export as ex
+    from multimodal_rssm_torch.io import serve as sv
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.train import behavior as bh
+    from multimodal_rssm_torch.train import trainer as tr
+    from multimodal_rssm_torch.train.planner import make_cem_planner
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    record = {"phase": "serve", "run": os.path.basename(run_dir),
+              "device": device_name}
+    ck.reset_launch_counts()
+
+    # 1. the export CLI, as a user runs it
+    out_dir = os.path.join(tmp, "exported")
+    t0 = time.perf_counter()
+    written = export_model.main(["--run-dir", run_dir, "--out", out_dir,
+                                 "--plan", *SERVE_OVERRIDES])
+    record["export_cli_seconds"] = time.perf_counter() - t0
+    if set(written) != {"filter_step", "decode", "agent_step", "plan_step"}:
+        raise AssertionError(f"export_model wrote {sorted(written)}")
+    arts = {}
+    for name, entry in written.items():
+        t0 = time.perf_counter()
+        fn, meta = ex.load_exported(entry["path"])
+        arts[name] = (fn, meta)
+        record.setdefault("artifacts", {})[name] = {
+            "bytes": entry["bytes"], "export_seconds": meta["export_seconds"],
+            "load_seconds": time.perf_counter() - t0,
+            "compute_dtype": meta["compute_dtype"], "device": meta["device"]}
+        if meta["device"] != "cuda" or meta["compute_dtype"] != "bfloat16":
+            raise AssertionError(f"{name}: {meta['device']} "
+                                 f"{meta['compute_dtype']}")
+
+    # 2. each artifact against the eager port on the same frame and key
+    cfg = apply_overrides(load_run_config(run_dir), SERVE_OVERRIDES)
+    bh.behavior_cfg(cfg)
+    model = load_eval_model(cfg, os.path.join(run_dir,
+                                              f"models_{EVAL_ITR}.pt"), dev)
+    bstate = bh.init_behavior_state(cfg, dev)
+    ckpt.load_behavior_checkpoint(
+        ckpt.latest_checkpoint(os.path.join(run_dir, "behavior")), bstate)
+    actor = bstate.actor.eval()
+    dtype = tr.compute_dtype(cfg)
+
+    def inputs(seed, key=(0, 7)):
+        r = np.random.default_rng(seed)
+        frame = {}
+        for name in model.observation_names_enc:
+            shape = tuple(cfg.env.observation_shapes[name])
+            if "image" in name:
+                c, h, w = shape
+                frame[name] = r.integers(0, 256, (1, h, w, c), np.uint8)
+            else:
+                frame[name] = r.normal(size=(1, *shape)).astype(np.float32)
+        return {"h": r.uniform(-1, 1, (1, model.belief_size)).astype(
+                    np.float32),
+                "s": r.normal(size=(1, model.state_size)).astype(np.float32),
+                "action": r.uniform(-1, 1, (1, 3)).astype(np.float32),
+                "obs": frame, "nonterminal": np.ones((1, 1), np.float32),
+                "key": np.asarray(key, np.uint32)}
+
+    def as_args(arrays, names):
+        def t(v):
+            v = v.astype(np.int64) if v.dtype == np.uint32 else v
+            return torch.from_numpy(np.array(v, copy=True)).to(dev)
+        return tuple({k: t(v) for k, v in arrays[n].items()}
+                     if isinstance(arrays[n], dict) else t(arrays[n])
+                     for n in names)
+
+    def eager(name, args, model=model, dtype=dtype):
+        with torch.no_grad():
+            if name == "decode":
+                h, s = args
+                with tr.autocast(dev, dtype):
+                    out = model.decode(h[None], s[None])
+                return {k: {"loc": v["loc"].float()} for k, v in out.items()}
+            h, s, action, obs, nt, key = args
+            with tr.autocast(dev, dtype):
+                states = model.filter_step(
+                    h, s, action, ex.normalize_obs(obs, BIT_DEPTH), nt)
+            states = {k: ({n: x.float() for n, x in v.items()}
+                          if isinstance(v, dict) else v.float())
+                      for k, v in states.items()}
+            if name == "filter_step":
+                return states
+            h2, s2 = states["beliefs"], states["posterior_means"]
+            if name == "agent_step":
+                return h2, s2, actor(h2, s2, None, True,
+                                     ex.agent_noise(key, 1, 3))
+            plan = make_cem_planner(model, cfg)
+            return h2, s2, plan(h2, s2, noise=ex.cem_noise(model, cfg, key,
+                                                           1))
+
+    def compare(fn, name, arrays, model=model, dtype=dtype):
+        names = ex.DECODE_ARGS if name == "decode" else ex.STEP_ARGS
+        args = as_args(arrays, names)
+        with torch.no_grad():
+            got = sv.flatten_tree(fn(*args))
+        want = sv.flatten_tree(eager(name, args, model, dtype))
+        if set(got) != set(want):
+            raise AssertionError(f"{name}: outputs {sorted(got)} != "
+                                 f"{sorted(want)}")
+        return max(float(np.abs(got[k] - w).max())
+                   / max(float(np.abs(w).max()), 1e-30)
+                   for k, w in want.items())
+
+    parity = {}
+    arrays = inputs(1, key=(3, 2 ** 31 + 5))
+    for name, (fn, _) in arts.items():
+        parity[f"{name}/bfloat16"] = compare(fn, name, arrays)
+    # filter_step and decode again in float32: the run's weights, use_amp off
+    cfg32 = apply_overrides(copy.deepcopy(cfg), ["train.use_amp=false"])
+    for name, make in (("filter_step", ex.export_filter_step),
+                       ("decode", ex.export_decode)):
+        path = ex.save_exported(make(cfg32, model, 1),
+                                os.path.join(tmp, f"{name}_float32.pt2"))
+        fn, meta = ex.load_exported(path)
+        if meta["compute_dtype"] != "float32":
+            raise AssertionError(f"{name}: {meta['compute_dtype']}")
+        parity[f"{name}/float32"] = compare(fn, name, arrays,
+                                            dtype=torch.float32)
+    record["vs_eager_max_rel"] = parity
+    record["rtol"] = SERVE_RTOL
+    if any(v > SERVE_RTOL for v in parity.values()):
+        emit(record)
+        raise AssertionError(f"serving artifacts differ from the eager "
+                             f"port: {parity}")
+
+    # 3. served over HTTP: the streaming carry, the errors
+    httpd = sv.make_server(out_dir, port=0, device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        def request(arrays, name):
+            if name == "decode":
+                return {"h": arrays["h"], "s": arrays["s"]}
+            flat = {k: v for k, v in arrays.items() if k != "obs"}
+            flat.update({f"obs.{k}": v for k, v in arrays["obs"].items()})
+            return flat
+
+        fn = arts["filter_step"][0]
+        carry = inputs(2)
+        carry["h"] = np.zeros_like(carry["h"])
+        carry["s"] = np.zeros_like(carry["s"])
+        direct = dict(carry)
+        for t in range(3):
+            carry["obs"] = direct["obs"] = inputs(10 + t)["obs"]
+            got = _post_npz(url + "/v1/call/filter_step",
+                            request(carry, "filter_step"))
+            with torch.no_grad():
+                ref = sv.flatten_tree(fn(*as_args(direct, ex.STEP_ARGS)))
+            if any(not np.array_equal(got[k], ref[k]) for k in ref):
+                raise AssertionError(f"HTTP frame {t} != the direct call")
+            carry["h"], carry["s"] = got["beliefs"], got["posterior_states"]
+            direct["h"], direct["s"] = ref["beliefs"], ref["posterior_states"]
+        errors = {
+            "missing_input": _http_error(url + "/v1/call/filter_step",
+                                         {"h": carry["h"]}),
+            "unknown_artifact": _http_error(url + "/v1/call/nope",
+                                            {"h": carry["h"]}),
+            "unknown_path": _http_error(url + "/v1/what")}
+        record["http_errors"] = errors
+        if errors != {"missing_input": 400, "unknown_artifact": 400,
+                      "unknown_path": 404}:
+            raise AssertionError(f"serve errors: {errors}")
+
+        # 4. ms per call at batch 1, direct and over HTTP
+        timing = {}
+        for name in ("filter_step", "decode", "agent_step", "plan_step"):
+            fn = arts[name][0]
+            names = ex.DECODE_ARGS if name == "decode" else ex.STEP_ARGS
+            arrays = inputs(20)
+            args = as_args(arrays, names)
+            body = request(arrays, name)
+
+            def direct_call():
+                with torch.no_grad():
+                    fn(*args)
+                torch.cuda.synchronize()
+
+            def http_call():
+                _post_npz(f"{url}/v1/call/{name}", body)
+
+            timing[name] = {}
+            for how, call in (("direct", direct_call), ("http", http_call)):
+                for _ in range(SERVE_WARMUP):
+                    call()
+                times = []
+                for _ in range(SERVE_CALLS):
+                    t0 = time.perf_counter()
+                    call()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                timing[name][f"{how}_ms"] = statistics.median(times)
+                timing[name][f"{how}_ms_min"] = min(times)
+        record["ms_per_call_batch1"] = timing
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    launches = {k: v for k, v in ck.launch_counts().items() if v}
+    record["launches"] = launches
+    record["wall_seconds"] = time.perf_counter() - t_phase
+    emit(record)
+    if launches:
+        raise AssertionError(f"the serving path launched kernels: {launches}")
+    return record
+
+
+def phase_quality(tmp: str) -> dict:
+    """The learning gate (cli/quality_gate.py) on the card: the default
+    configuration, seed 0, 300 iterations at batch 8 x chunk 20 through the
+    port's own CLIs, every metric inside the committed ``cuda`` window; the
+    reading against the JAX package's ``tpu`` window beside it."""
+    from multimodal_rssm_torch.cli import quality_gate as qg
+
+    t0 = time.perf_counter()
+    summary = qg.gate(qg.parse_args(["--config", "default", "--seed", "0",
+                                     "--workdir", tmp]))
+    record = {"phase": "quality", **summary,
+              "wall_seconds": time.perf_counter() - t0}
+    emit(record)
+    if summary["rc"] != 0 or not _finite(summary["metrics"].values()):
+        raise AssertionError(f"quality gate: rc {summary['rc']}, failures "
+                             f"{summary['failures']}")
+    return record
+
+
 def budget_run(reserve_bytes: Optional[int], overrides=()) -> dict:
     """In a fresh process, as the train CLI starts: the model of the
     default configuration with ``overrides`` on the card, then a
@@ -1632,13 +1941,13 @@ def phase_budget(runs=((None, ()),)):
                                  f"{record['losses']}")
 
 
-def card_against_cpu(overrides, L: int, B: int = 2, seed: int = 0):
-    """The same weights on the card and on the CPU, float32, TF32 off,
-    deterministic (generator=None), batch B x chunk L at full width: loss,
-    every metric and the gradient norms of one step (over
-    ``train.grad_accum`` micro-batches), on random inputs of every
-    modality the configuration names.  Returns (cpu, card, max relative
-    error, the metrics outside PARITY_RTOL)."""
+def _parity_setup(overrides, L: int, B: int, seed: int):
+    """(cfg, raw inputs, CPU model, card model, run(model, device)) of the
+    card-against-CPU checks: the same weights on both, float32,
+    deterministic (generator=None), batch B x chunk L at full width, random
+    inputs of every modality the configuration names; ``run`` returns one
+    step's loss, metrics and gradient norms (over ``train.grad_accum``
+    micro-batches)."""
     import numpy as np
     import torch
 
@@ -1680,12 +1989,120 @@ def card_against_cpu(overrides, L: int, B: int = 2, seed: int = 0):
         metrics.update(tr.grad_norms(model))
         return {k: float(v) for k, v in metrics.items()}
 
+    return cfg, raw, cpu_model, gpu_model, run
+
+
+def card_against_cpu(overrides, L: int, B: int = 2, seed: int = 0):
+    """The same weights on the card and on the CPU, float32, TF32 off,
+    deterministic (generator=None), batch B x chunk L at full width: loss,
+    every metric and the gradient norms of one step (over
+    ``train.grad_accum`` micro-batches), on random inputs of every
+    modality the configuration names.  Returns (cpu, card, max relative
+    error, the metrics outside PARITY_RTOL)."""
+    import torch
+
+    _, _, cpu_model, gpu_model, run = _parity_setup(overrides, L, B, seed)
     cpu = run(cpu_model, torch.device("cpu"))
     gpu = run(gpu_model, torch.device("cuda"))
     rel = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
     bad = {k: (cpu[k], gpu[k]) for k, r in rel.items()
            if r > PARITY_RTOL and abs(gpu[k] - cpu[k]) > 1e-6}
     return cpu, gpu, max(rel.values()), bad
+
+
+F3_LEVEL = 2.2e-5   # the card-vs-CPU gap of every run but the 256 px one
+
+
+def card_against_cpu_by_module(overrides, L: int = 6, B: int = 2,
+                               seed: int = 0) -> dict:
+    """Where the card and the CPU part: ``card_against_cpu``'s step with a
+    forward hook on every module, each call's output (the first tensor, or
+    every tensor of a dict / tuple) compared as max |card - CPU| / max
+    |CPU|, in the CPU's call order; then each parameter's gradient the same
+    way.  Returns the first call above F3_LEVEL, the ten largest forward
+    and gradient gaps, the metrics' gaps and, per module kind, the largest
+    gap and the reduction length of a norm's statistics."""
+    import torch
+
+    cfg, _, cpu_model, gpu_model, run = _parity_setup(overrides, L, B, seed)
+
+    def tensors(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        if isinstance(out, dict):
+            return [t for v in out.values() for t in tensors(v)]
+        if isinstance(out, (list, tuple)):
+            return [t for v in out for t in tensors(v)]
+        return []
+
+    def hooked(model, store):
+        handles = []
+        for name, mod in model.named_modules():
+            def hook(m, args, out, name=name):
+                outs = [t.detach().float().cpu() for t in tensors(out)
+                        if t.is_floating_point()]
+                store.append((name or "<model>", type(m).__name__, outs,
+                              [tuple(a.shape) for a in args
+                               if isinstance(a, torch.Tensor)]))
+            handles.append(mod.register_forward_hook(hook))
+        return handles
+
+    records = {}
+    metrics = {}
+    for tag, model, dev in (("cpu", cpu_model, torch.device("cpu")),
+                            ("cuda", gpu_model, torch.device("cuda"))):
+        records[tag] = []
+        handles = hooked(model, records[tag])
+        try:
+            metrics[tag] = run(model, dev)
+        finally:
+            for h in handles:
+                h.remove()
+    if [r[0] for r in records["cpu"]] != [r[0] for r in records["cuda"]]:
+        raise AssertionError("the card and the CPU called other modules")
+    calls, seen = [], {}
+    for (name, kind, want, shapes), (_, _, got, _) in zip(records["cpu"],
+                                                          records["cuda"]):
+        k = seen[name] = seen.get(name, -1) + 1
+        gap = max((float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                     1e-30)
+                   for g, w in zip(got, want) if w.numel()), default=0.0)
+        calls.append({"module": f"{name}#{k}", "kind": kind, "gap": gap,
+                      "in_shapes": shapes[:1]})
+    grads = []
+    gpu_params = dict(gpu_model.named_parameters())
+    for name, p in cpu_model.named_parameters():
+        if p.grad is None:
+            continue
+        g = gpu_params[name].grad.float().cpu()
+        grads.append({"param": name, "gap": float((g - p.grad).abs().max())
+                      / max(float(p.grad.abs().max()), 1e-30),
+                      "numel": p.numel()})
+    by_kind = {}
+    for c in calls:
+        by_kind[c["kind"]] = max(by_kind.get(c["kind"], 0.0), c["gap"])
+    norms = {}
+    for name, mod in cpu_model.named_modules():
+        kind = type(mod).__name__
+        if kind in ("GroupNorm", "BatchNorm2d", "InstanceNorm2d") \
+                and kind not in norms:
+            shape = next(c["in_shapes"][0] for c in calls
+                         if c["module"].startswith(name + "#"))
+            groups = getattr(mod, "num_groups", None)
+            per = (shape[1] // groups if groups else 1) * math.prod(shape[2:])
+            norms[kind] = {"module": name, "input": list(shape),
+                           "reduction_length": per * (
+                               shape[0] if kind == "BatchNorm2d" else 1)}
+    first = next((c for c in calls if c["gap"] > F3_LEVEL), None)
+    mgap = {k: abs(metrics["cuda"][k] - v) / max(abs(v), 1e-12)
+            for k, v in metrics["cpu"].items()}
+    return {"overrides": list(overrides), "batch": B, "chunk": L,
+            "level": F3_LEVEL, "calls": len(calls), "first_above": first,
+            "top_forward": sorted(calls, key=lambda c: -c["gap"])[:10],
+            "top_gradients": sorted(grads, key=lambda c: -c["gap"])[:10],
+            "metrics_gap": dict(sorted(mgap.items(), key=lambda kv: -kv[1])
+                                [:8]),
+            "max_gap_by_kind": by_kind, "norms": norms}
 
 
 def phase_parity():
@@ -1941,6 +2358,10 @@ def phase_codecs(tmp: str, device_name: str, default: dict) -> dict:
         if bad:
             raise AssertionError(f"codecs/{name}: card and CPU disagree: "
                                  f"{bad}")
+    # F3: where the 256 px GroupNorm run's gap starts, beside the default's
+    f3 = {name: card_against_cpu_by_module(over) for name, over in (
+        ("img256_groupnorm", CODEC_RUNS["img256_groupnorm"]), ("default", []))}
+    emit({"phase": "codecs/f3", **f3})
 
     run_dir, n_epi = run_dirs[CODEC_EVAL], 4
     ck.reset_launch_counts()
@@ -2281,6 +2702,7 @@ def main() -> int:
         eval_k1 = phase_eval(tmp, run_dir, name)
         control_k1 = phase_control(tmp, run_dir, name)
         bridges_k1 = phase_bridges(tmp, run_dir, name)
+        phase_serve(tmp, run_dir, name)
     phase_budget(((None, ()), (None, tuple(CODEC_RUNS["img256_groupnorm"]))))
     phase_parity()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2288,6 +2710,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         codecs_k1, k1_shapes = phase_codecs(tmp, name, default)
     fused = phase_fused_codec(name, launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_quality(tmp)
     kernel["launches"] = launches["normalize_image"]
     kernel["launches_by_path"] = {
         "train": launches["normalize_image"],

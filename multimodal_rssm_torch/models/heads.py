@@ -64,6 +64,8 @@ class ObsEncoder(nn.Module):
         super().__init__()
         self.belief_size = belief_size
         self.fc1 = nn.Linear(belief_size + embedding_size, hidden_size)
+        # two Dense layers in the JAX package: init draws each block apart
+        self.fc1.input_blocks = (belief_size, embedding_size)
         self.fc2 = nn.Linear(hidden_size, out_size or 2 * state_size)
         self.act = act_fn(activation_function)
         self.min_std_dev = min_std_dev

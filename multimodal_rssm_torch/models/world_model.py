@@ -43,6 +43,8 @@ running statistics.
 
 from __future__ import annotations
 
+import math
+
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -403,22 +405,40 @@ def effective_state_size(cfg) -> int:
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Re-draw every parameter from ``generator``: weights and biases
-    uniform in +-1/sqrt(fan_in) (torch's default bounds), norm scales 1 and
-    shifts 0.  Seeded model construction without the global RNG."""
+    """Re-draw every parameter from ``generator`` as the JAX package's flax
+    modules initialise theirs (``models/layers.py`` there): weights
+    lecun-normal, a normal of variance 1 / fan_in truncated at two standard
+    deviations, fan_in the inputs one output sums (input channels x kernel
+    taps; a transposed conv's input channels are its weight's first axis);
+    biases 0; norm scales 1 and shifts 0; the GRU cell's four tensors
+    uniform in [0, 1 / sqrt(hidden)) (flax's ``uniform(scale)``).  Seeded
+    model construction without the global RNG."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             owner = model.get_submodule(name.rsplit(".", 1)[0])
             if hasattr(owner, "num_features"):  # norm affine
                 p.fill_(1.0 if name.endswith("weight") else 0.0)
-                continue
-            weight = owner.weight if hasattr(owner, "weight") else p
-            if hasattr(owner, "weight_ih"):  # GRU: 1/sqrt(hidden)
-                fan_in = owner.hidden_size
-            elif isinstance(owner, nn.ConvTranspose2d):
-                fan_in = weight.shape[1] * weight[0, 0].numel()
-            else:
-                fan_in = weight[0].numel()
-            bound = fan_in ** -0.5
-            p.copy_(torch.rand(p.shape, generator=generator,
-                               device=generator.device) * 2 * bound - bound)
+            elif hasattr(owner, "weight_ih"):  # GRU
+                p.copy_(torch.rand(p.shape, generator=generator,
+                                   device=generator.device)
+                        / math.sqrt(owner.hidden_size))
+            elif name.endswith("bias"):
+                p.zero_()
+            elif isinstance(owner, nn.modules.conv._ConvTransposeNd):
+                _lecun_normal_(p, p.shape[0] * p[0, 0].numel(), generator)
+            else:   # a Linear joined from JAX Dense layers: block by block
+                start = 0
+                for width in getattr(owner, "input_blocks", (p.shape[1],)):
+                    block = p[:, start:start + width]
+                    _lecun_normal_(block, block[0].numel(), generator)
+                    start += width
+
+
+def _lecun_normal_(p: torch.Tensor, fan_in: int,
+                   generator: torch.Generator) -> None:
+    """flax's ``lecun_normal``: a normal truncated to two standard
+    deviations, scaled so that its variance is 1 / fan_in (0.8796... is
+    the standard deviation of N(0, 1) truncated to [-2, 2])."""
+    std = fan_in ** -0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)

@@ -93,6 +93,8 @@ class TransitionModel(nn.Module):
                     else None)
         self.fc_embed_state_action = nn.Linear(state_size + action_size,
                                                belief_size)
+        # two Dense layers in the JAX package: init draws each block apart
+        self.fc_embed_state_action.input_blocks = (state_size, action_size)
         self.rnn = GRUCell(belief_size, belief_size)
 
         def prior_head():

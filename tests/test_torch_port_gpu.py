@@ -803,3 +803,109 @@ def test_histogram_pass_leaves_a_card_run_bit_equal(cuda, tmp_path):
     assert launches == [4 + 1 + 2, 4 + 1]
     for k, v in runs[0]["model"].state_dict().items():
         assert torch.equal(v, runs[1]["model"].state_dict()[k]), k
+
+
+def _small_world_model(cfg_extra=()):
+    """A tiny world model (the bench.py --small widths) from a seed, and
+    its config, with the reward head and a small planner."""
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+
+    cfg = compose(overrides=[
+        "rssm.belief_size=64", "rssm.state_size=16", "rssm.hidden_size=64",
+        "rssm.embedding_size.image=64", "rssm.embedding_size.sound=32",
+        "rssm.embedding_size.fusion=64", "rssm.embedding_size.other=16",
+        "rssm.predict_reward=true", "planner.candidates=40",
+        "planner.top_candidates=4", "planner.planning_horizon=4",
+        "planner.optimisation_iters=3", *cfg_extra])
+    model = WorldModel.from_config(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    return cfg, model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("amp", [False, True])
+def test_exported_artifacts_on_card_answer_over_http(cuda, tmp_path, amp):
+    """The four artifacts exported on the card (float32, and bf16 autocast
+    as a use_amp run ships them) load there, equal the eager port given
+    the key's noise (float32 within 1e-5 of max |eager|), answer over
+    HTTP bit-equal to the direct call, and launch no kernel."""
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from multimodal_rssm_torch.io import export as ex
+    from multimodal_rssm_torch.io import serve as sv
+    from multimodal_rssm_torch.train import behavior as bh
+    from multimodal_rssm_torch.train import trainer as tr
+    from multimodal_rssm_torch.train.planner import make_cem_planner
+
+    cfg, model = _small_world_model([f"train.use_amp={amp}"])
+    bh.behavior_cfg(cfg)
+    model = model.to(cuda).eval()
+    actor = bh.init_behavior_state(cfg, cuda).actor
+    ck.reset_launch_counts()
+    paths = ex.export_run(cfg, model, str(tmp_path), 1, actor=actor,
+                          plan=True)
+    r = np.random.default_rng(0)
+    arrays = {"h": r.uniform(-1, 1, (1, 64)).astype(np.float32),
+              "s": r.normal(size=(1, 16)).astype(np.float32),
+              "action": np.zeros((1, 3), np.float32),
+              "nonterminal": np.ones((1, 1), np.float32),
+              "key": np.asarray([4, 9], np.uint32),
+              "obs.image_horizon": r.integers(0, 256, (1, 64, 64, 3),
+                                              np.uint8),
+              "obs.sound": r.normal(size=(1, 128, 20)).astype(np.float32)}
+    store = sv.ArtifactStore(str(tmp_path), "cuda")
+    assert store.info()["plan_step"]["compute_dtype"] == (
+        "bfloat16" if amp else "float32")
+    dtype = tr.compute_dtype(cfg)
+    args = store.args("agent_step", arrays)
+    h, s, action, obs, nt, key = args
+    with torch.no_grad(), tr.autocast(cuda, dtype):
+        states = model.filter_step(h, s, action, ex.normalize_obs(obs, 5),
+                                   nt)
+    h2, s2 = states["beliefs"].float(), states["posterior_means"].float()
+    with torch.no_grad():
+        want = {"filter_step": sv.flatten_tree(
+                    {k: ({n: x.float() for n, x in v.items()}
+                         if isinstance(v, dict) else v.float())
+                     for k, v in states.items()}),
+                "agent_step": actor(h2, s2, None, True,
+                                    ex.agent_noise(key, 1, 3)),
+                "plan_step": make_cem_planner(model, cfg)(
+                    h2, s2, noise=ex.cem_noise(model, cfg, key, 1))}
+    for name in ("filter_step", "agent_step", "plan_step"):
+        got = store.call(name, arrays)
+        ref = want[name]
+        if name == "filter_step":
+            pairs = [(got[k], ref[k]) for k in ref]
+        else:
+            pairs = [(got["2"], ref.cpu().numpy())]
+        for g, w in pairs:
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * max(
+                float(np.abs(w).max()), 1e-30), err_msg=name)
+
+    httpd = sv.make_server(str(tmp_path), port=0, device="cuda")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        url = (f"http://127.0.0.1:{httpd.server_address[1]}"
+               "/v1/call/plan_step")
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=buf.getvalue()), timeout=120) as resp:
+            with np.load(io.BytesIO(resp.read())) as z:
+                served = {k: z[k] for k in z.files}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    direct = store.call("plan_step", arrays)
+    for k in direct:
+        np.testing.assert_array_equal(served[k], direct[k])
+    assert sorted(paths) == ["agent_step", "decode", "filter_step",
+                             "plan_step"]
+    assert not any(ck.launch_counts().values())

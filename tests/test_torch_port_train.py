@@ -397,6 +397,9 @@ BRIDGE_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
     "data.pose", "data.dataset_builder", "cli.make_synthetic_dataset",
     "cli.collect_sim_data", "io.flax_msgpack", "io.torch_export",
     "io.metrics", "cli.export_torch", "cli.crosscheck_torch")]
+SERVE_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
+    "ops.keyed_noise", "io.export", "io.serve", "cli.export_model",
+    "cli.serve", "cli.quality_gate", "cli.calibrate_quality_windows")]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -414,7 +417,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'matplotlib', 'msgpack') or m.startswith(('jax.', 'jaxlib', "
         "'flax', 'optax', 'msgpack.', 'PIL.', 'multimodal_rssm_tpu'))]\n"
         f"missing = [m for m in "
-        f"{FEED_MODULES + EVAL_MODULES + VARIANT_MODULES + CODEC_MODULES + CONTROL_MODULES + BRIDGE_MODULES!r} "
+        f"{FEED_MODULES + EVAL_MODULES + VARIANT_MODULES + CODEC_MODULES + CONTROL_MODULES + BRIDGE_MODULES + SERVE_MODULES!r} "
         "if m not in sys.modules]\n"
         "print(len(sys.modules), bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
