@@ -19,6 +19,22 @@ each printed as one JSON line:
                device-resident replay (train.device_replay=auto): finite
                losses and every kernel of the path launched (counts reset
                just before);
+3a. parallel -- data parallelism (train.mesh): the train CLI at
+               train.mesh.data=1 (a one-rank NCCL world in process) against
+               the mesh-less CLI, alternated, 12 steps each (steps/s over
+               steps 3-9, peak memory, K1 once per step; the last run
+               traces steps 10-12: NCCL's kernels and the device work
+               inside the all-reduce spans a step); K1 on rank 1's shard
+               of the main-path batch (row map; grad_accum 1 and 5)
+               bit-equal to its plain version and to the global draw's
+               rows, timed against the unmapped call; two ranks (NCCL on
+               two cards where there are two, else sharing this card over
+               gloo) launched through parallel.launch.spawn: each rank's
+               float32 step on its rows held against a one-rank step on the
+               same global batch (the JAX package's DP tolerance, the ranks
+               bit-equal), then 6 bf16 steps and a validation through
+               train.loop.run (steps/s, each rank's peak memory, K1 7
+               times a rank, one run dir);
 3b. feed    -- the same CLI on a dataset of a real set's size (360 x 120
                episodes, 43,200 rows, 0.97 GB; experience_size to match),
                12 steps a run, with train.device_replay=true (the whole
@@ -2677,6 +2693,442 @@ def phase_fused_codec(device_name: str, train_launches):
     return lines
 
 
+# the parallel phase (data parallelism: train.mesh.data as torch.distributed
+# ranks, parallel/)
+PARALLEL_STEPS = 12       # a CLI run of (a); the last traces steps 10-12
+PARALLEL_TIMED = slice(2, 9)   # steps 3-9: after the warm-up, before the trace
+PARALLEL_BF16_STEPS = 6
+PARALLEL_WORLD_S = 900    # a spawned world's limit
+PARALLEL_COLLECTIVE_S = 300   # a collective waiting longer fails the world
+# two ranks against one on the same global batch, float32: the JAX
+# package's own data-parallel tolerance (tests/sharded_cases.py): the loss
+# within rtol 1e-5, all but 5e-4 of the parameters within rtol 2e-4 / atol
+# 2e-5 and every one within 2 lr; the running stats within rtol 1e-4, atol
+# 1e-6 x the largest; the two ranks bit-equal to each other
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_RTOL, PARALLEL_ATOL, PARALLEL_LOOSE = 2e-4, 2e-5, 5e-4
+PARALLEL_STATS_RTOL, PARALLEL_STATS_ATOL = 1e-4, 1e-6
+
+
+def _two_tier(got: dict, want: dict, lr: float) -> dict:
+    """The JAX package's data-parallel bound of ``got`` against ``want``
+    (name -> tensor)."""
+    total = loose = 0
+    worst = 0.0
+    for name, w in want.items():
+        d = (got[name].double() - w.double()).abs()
+        loose += int((d > PARALLEL_ATOL + PARALLEL_RTOL * w.double().abs())
+                     .sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return {"worst_abs": worst, "loose": loose, "elements": total,
+            "ok": worst <= 2 * lr and loose <= PARALLEL_LOOSE * total}
+
+
+def _stats_err(got: dict, want: dict) -> float:
+    """The largest |got - want| / (rtol |want| + atol max |want|) over the
+    running stats (<= 1 within the tolerance)."""
+    worst = 0.0
+    for name, w in want.items():
+        w = w.double()
+        bound = (PARALLEL_STATS_RTOL * w.abs()
+                 + PARALLEL_STATS_ATOL * float(w.abs().max()))
+        worst = max(worst, float(((got[name].double() - w).abs() / bound)
+                                 .max()))
+    return worst
+
+
+def parallel_f32_step(spec: dict, dev, dp) -> dict:
+    """One float32 train step (K1 on, the spec's generator seed) on the
+    spec's global raw batch, or under ``dp`` on this rank's rows of it:
+    metrics, parameters, running stats, K1's launches, peak memory."""
+    import torch
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.models.world_model import WorldModel
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.parallel.mesh import shard_batch
+    from multimodal_rssm_torch.train import trainer as tr
+
+    cfg = compose(overrides=spec["f32_overrides"])
+    model = WorldModel.from_config(cfg)
+    model.load_state_dict(spec["state_dict"])
+    model.to(dev)
+    opt, sched = tr.build_optimizer(cfg, model)
+    train_step, _ = tr.make_train_step(model, cfg, opt, sched,
+                                       spec["aug_spec"], dev,
+                                       kernel_normalize=True, dp=dp)
+    raw = spec["raw"] if dp is None else shard_batch(spec["raw"], dp.train)
+    obs, *rest = raw
+    raw = ({k: v.to(dev) for k, v in obs.items()}, *(x.to(dev) for x in rest))
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()
+    metrics = train_step(raw, spec["draws"],
+                         torch.Generator(dev).manual_seed(spec["seed"]))
+    torch.cuda.synchronize(dev)
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "params": {n: p.detach().cpu()
+                      for n, p in model.named_parameters()},
+           "stats": {k: v.cpu() for k, v in model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))},
+           "k1_launches": ck.launch_counts()["normalize_image"],
+           "max_memory_allocated_GiB":
+               torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    del model, opt, train_step
+    return out
+
+
+def parallel_rank(rank: int, nprocs: int, init_method: str, backend: str,
+                  spec_path: str, out_dir: str) -> None:
+    """One rank of phase parallel's two-rank world (spawned by
+    ``parallel.launch.spawn``): the float32 step on its rows of the global
+    batch, then the shipped bf16 settings through ``train.loop.run`` for a
+    few steps; writes ``rank{rank}.pt``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.core.device import configure_float32
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.parallel import mesh as mesh_lib
+    from multimodal_rssm_torch.train import trainer as tr
+    from multimodal_rssm_torch.train.loop import ranks_per_device, run
+
+    os.environ["LOCAL_WORLD_SIZE"] = str(nprocs)
+    configure_float32()
+    spec = torch.load(spec_path, weights_only=False)
+    dev = mesh_lib.init_distributed(
+        "cuda:0" if backend == "gloo" else f"cuda:{rank}", backend,
+        init_method, rank, nprocs, PARALLEL_COLLECTIVE_S)
+    try:
+        cfg = compose(overrides=spec["f32_overrides"] + ["train.mesh.data=2"])
+        dp = mesh_lib.data_parallel(mesh_lib.mesh_from_config(cfg, "cuda"),
+                                    int(cfg.train.batch_size),
+                                    tr.resolve_grad_accum(cfg))
+        torch.backends.cudnn.deterministic = True
+        try:
+            out = {"rank": rank, "device": str(dev),
+                   "rows": dp.train.rows.tolist(),
+                   "f32": parallel_f32_step(spec, dev, dp)}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ck.reset_launch_counts()
+        result = run(compose(overrides=spec["bf16_overrides"]),
+                     cwd=spec["root"], device=str(dev))
+        out["bf16"] = {
+            "launches": ck.launch_counts(), "feed": result["feed"],
+            "step_seconds": result["step_seconds"],
+            "loss": result["metrics"]["loss"],
+            "validation_loss": result["validation_metrics"]["loss"],
+            "results_dir": result["results_dir"],
+            "max_memory_allocated_GiB":
+                torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "max_memory_reserved_GiB":
+                torch.cuda.max_memory_reserved(dev) / 2 ** 30,
+            "ranks_per_device": ranks_per_device(dev, dp)}
+        # the card's memory in use with both ranks alive, beside what this
+        # rank's allocator reserves at that moment
+        mesh_lib.barrier(dev, dp.group)
+        free, total = torch.cuda.mem_get_info(dev)
+        out["bf16"]["card_used_GiB"] = (total - free) / 2 ** 30
+        out["bf16"]["reserved_GiB"] = torch.cuda.memory_reserved(dev) / 2 ** 30
+        mesh_lib.barrier(dev, dp.group)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _collective_device_ms(trace_path: str) -> dict:
+    """In a Chrome trace of ``torch.profiler``: NCCL's kernels (ms, count),
+    and the device work (kernels, copies, sets) launched inside the
+    ``parallel.mesh.SPAN`` spans around the step's all-reduces (the flat
+    copies, the reduction and the division; matched to their launches by
+    correlation id)."""
+    from multimodal_rssm_torch.parallel.mesh import SPAN
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    nccl = [e for e in device if "nccl" in e.get("name", "").lower()]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == SPAN]
+    launched = set()
+    for e in events:
+        if e.get("cat") != "cuda_runtime":
+            continue
+        for sp in spans:
+            if (e.get("tid") == sp.get("tid")
+                    and sp["ts"] <= e["ts"] <= sp["ts"] + sp.get("dur", 0)):
+                launched.add(e.get("args", {}).get("correlation"))
+                break
+    mine = [e for e in device
+            if e.get("args", {}).get("correlation") in launched]
+    return {"nccl_ms": sum(e.get("dur", 0) for e in nccl) / 1e3,
+            "nccl_kernels": len(nccl),
+            "span_ms": sum(e.get("dur", 0) for e in mine) / 1e3,
+            "span_device_events": len(mine), "spans": len(spans)}
+
+
+def k1_under_a_mesh(device_name: str) -> dict:
+    """K1 on one rank's shard of the main-path batch: rank 1 of 2 (offset
+    25) and rank 1 of 2 under grad_accum 5 (rows 5-9, 15-19, ..., 45-49:
+    its rows of each micro-batch of 10), each
+    bit-equal to its plain version and to the plain version's rows of the
+    global draw; device times of the shard's call against the unmapped
+    call on the same block (CUDA graphs)."""
+    import torch
+
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.parallel.mesh import BatchShard
+
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(3)
+    x = torch.randint(0, 256, SHAPE, generator=g, device=dev,
+                      dtype=torch.uint8).float()
+    seed = torch.tensor(987654321, dtype=torch.int64, device=dev)
+    whole = ck.normalize_image_plain(x, BIT_DEPTH, seed)
+    out = {}
+    for accum in (1, 5):
+        shard = BatchShard(SHAPE[1], 1, 2, accum)
+        rows = torch.as_tensor(shard.rows, device=dev)
+        block = x.index_select(1, rows).contiguous()
+        before = ck.normalize_image.launches
+        got = ck.normalize_image(block, BIT_DEPTH, seed, shard.row_map)
+        plain = ck.normalize_image_plain(block, BIT_DEPTH, seed,
+                                         shard.row_map)
+        torch.cuda.synchronize()
+        if ck.normalize_image.launches != before + 1:
+            raise AssertionError("parallel/k1: the shard's call launched "
+                                 "no kernel")
+        if not (torch.equal(got, plain)
+                and torch.equal(got, whole.index_select(1, rows))):
+            raise AssertionError(
+                f"parallel/k1 accum {accum}: shard != plain version or the "
+                f"global draw's rows, max |diff| "
+                f"{float((got - whole.index_select(1, rows)).abs().max())}")
+        n = block.numel()
+        out[f"accum{accum}"] = {
+            "row_map": shard.row_map._asdict(), "exact": True,
+            "shard_ms": graph_time_ms(lambda: ck.normalize_image(
+                block, BIT_DEPTH, seed, shard.row_map), 20),
+            "unmapped_ms": graph_time_ms(lambda: ck.normalize_image(
+                block, BIT_DEPTH, seed), 20),
+            "bound_ms": n * 8 / hbm_rate(device_name) * 1e3}
+    return out
+
+
+def phase_parallel(tmp: str, device_name: str) -> dict:
+    """Data parallelism (``train.mesh``) on the card.  (a) The train CLI at
+    ``train.mesh.data=1`` (a one-rank NCCL world in this process) against
+    the mesh-less CLI, alternated (none, data=1, none, data=1), 12 steps
+    each, batch 50 x chunk 50, bf16, K1 on: steps/s over steps 3-9, peak
+    memory, K1 once per step; the last run traces steps 10-12 for NCCL's
+    device time per step.  K1 on a shard (``k1_under_a_mesh``).  (b) Two
+    ranks: NCCL on two cards where there are two, else both on this card
+    over gloo (NCCL refuses two ranks on one GPU), launched through
+    ``parallel.launch.spawn``: the float32 step (default augmentation,
+    deterministic cuDNN, K1 on) of each rank held against a one-rank step
+    here on the same global batch and weights (``PARALLEL_*`` tolerances),
+    the two ranks bit-equal; then the shipped bf16 settings for 6 steps and
+    a validation through ``train.loop.run``: steps/s, each rank's peak
+    memory and K1 launches.  Where two full-width ranks do not fit the
+    card, both runs of (b) take ``rssm.remat=true`` (said in the record).
+    Returns K1's launches by path."""
+    import gc
+
+    import torch
+    import torch.multiprocessing  # noqa: F401 (ProcessRaisedException)
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.data.buffer import build_buffer, load_dataset
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.parallel import launch
+    from multimodal_rssm_torch.train import trainer as tr
+
+    t_phase = time.perf_counter()
+    write_dataset(tmp, 4)
+    record = {"phase": "parallel", "device": device_name,
+              "batch": SHAPE[1], "chunk": SHAPE[0]}
+
+    # (a) the CLI at train.mesh.data=1 against the mesh-less CLI
+    common = [f"train.train_iteration={PARALLEL_STEPS}",
+              f"train.validation_interval={PARALLEL_STEPS}"]
+    runs = []
+    for i, mesh in enumerate(("none", "data=1", "none", "data=1")):
+        args = [*common, f"main.experiment_name=parallel_{i}"]
+        if mesh != "none":
+            args.append(f"train.mesh.{mesh}")
+        if i == 3:
+            args.append(f"train.profile_dir={tmp}/parallel_trace")
+        rec, result, counts = train_run(f"parallel/{mesh}", tmp, args,
+                                        PARALLEL_STEPS, "device_resident")
+        if counts["normalize_image"] != PARALLEL_STEPS + 1:
+            raise AssertionError(f"parallel/{mesh}: K1 launched "
+                                 f"{counts['normalize_image']} times")
+        entry = {"mesh": mesh, "steps_per_s_steps_3_9": 1.0 / statistics.median(
+                     result["step_seconds"][PARALLEL_TIMED]),
+                 "max_memory_allocated_GiB": rec["max_memory_allocated_GiB"],
+                 "k1_launches": counts["normalize_image"],
+                 "loss": rec["loss"]}
+        if result["profile_trace"]:
+            traced = 3   # steps 10-12
+            c = _collective_device_ms(result["profile_trace"])
+            if not c["spans"]:
+                raise AssertionError("parallel: the trace holds no "
+                                     "all-reduce span")
+            entry["nccl_device_ms_per_step"] = c["nccl_ms"] / traced
+            entry["nccl_kernels_per_step"] = c["nccl_kernels"] / traced
+            entry["all_reduce_device_ms_per_step"] = c["span_ms"] / traced
+            entry["all_reduce_device_events_per_step"] = (
+                c["span_device_events"] / traced)
+            entry["all_reduce_spans_per_step"] = c["spans"] / traced
+        runs.append(entry)
+        del result
+    record["cli_runs"] = runs
+    record["k1_under_a_mesh"] = k1_under_a_mesh(device_name)
+
+    # (b) two ranks against one on the same global batch
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    record["two_ranks"] = {"backend": backend, "cards": cards,
+                           "how": ("two cards over NCCL" if cards >= 2 else
+                                   "two ranks sharing one card over gloo")}
+    base = [f"train.train_data_path=[{tmp}/train]",
+            f"train.validation_data_path=[{tmp}/validation]",
+            f"train.batch_size={SHAPE[1]}", f"train.chunk_size={SHAPE[0]}",
+            "train.experience_size=1000"]
+    cfg = compose(overrides=base)
+    D = build_buffer(cfg, seed=0)
+    load_dataset(tmp, D, cfg.train.train_data_path)
+    aug_spec = tr.build_aug_spec(D)
+    raw = D.sample(SHAPE[1], SHAPE[0])
+    raw = ({k: torch.from_numpy(v) for k, v in raw[0].items()},
+           *(torch.from_numpy(x) for x in raw[1:]))
+    model = WorldModel.from_config(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    lr = float(cfg.rssm.model_learning_rate)
+    for remat in ("false", "true"):
+        f32 = base + ["train.use_amp=false", f"rssm.remat={remat}"]
+        bf16 = base + [
+            f"train.train_iteration={PARALLEL_BF16_STEPS}",
+            f"train.validation_interval={PARALLEL_BF16_STEPS}",
+            "train.pallas_normalize=true", "train.mesh.data=2",
+            f"rssm.remat={remat}", f"main.experiment_name=parallel_2r_{remat}"]
+        spec = {"f32_overrides": f32, "bf16_overrides": bf16,
+                "state_dict": model.state_dict(), "aug_spec": aug_spec,
+                "raw": raw, "draws": tr.HostAugmentDraws(D, aug_spec,
+                                                         seed=1).draw(),
+                "seed": 5, "root": tmp}
+        spec_path = os.path.join(tmp, "parallel_spec.pt")
+        torch.save(spec, spec_path)
+        out_dir = os.path.join(tmp, f"parallel_ranks_{remat}")
+        os.makedirs(out_dir, exist_ok=True)
+        try:
+            torch.backends.cudnn.deterministic = True
+            one = parallel_f32_step(spec, torch.device("cuda"), None)
+            torch.backends.cudnn.deterministic = False
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            with launch.file_rendezvous() as init_method:
+                launch.spawn(parallel_rank, 2, (2, init_method, backend,
+                                                spec_path, out_dir),
+                             timeout=PARALLEL_WORLD_S)
+            world_s = time.perf_counter() - t0
+        except (torch.cuda.OutOfMemoryError,
+                torch.multiprocessing.ProcessRaisedException) as e:
+            torch.backends.cudnn.deterministic = False
+            if remat == "true" or "out of memory" not in str(e).lower():
+                raise
+            emit({"phase": "parallel/two_ranks", "note": "two full-width "
+                  "ranks do not fit the card: rssm.remat=true in both runs",
+                  "error": str(e)[-400:]})
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        break
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in (0, 1)]
+    check = {"remat": remat == "true", "world_seconds": world_s,
+             "one_rank": {"loss": one["metrics"]["loss"],
+                          "k1_launches": one["k1_launches"],
+                          "max_memory_allocated_GiB":
+                              one["max_memory_allocated_GiB"]},
+             "tolerance": {"loss_rtol": PARALLEL_LOSS_RTOL,
+                           "param_rtol": PARALLEL_RTOL,
+                           "param_atol": PARALLEL_ATOL,
+                           "param_max_loose": PARALLEL_LOOSE,
+                           "param_hard_abs": 2 * lr,
+                           "stats_rtol": PARALLEL_STATS_RTOL,
+                           "stats_atol_x_max": PARALLEL_STATS_ATOL}}
+    bad = []
+    for r, got in enumerate(ranks):
+        f = got["f32"]
+        loss_rel = abs(f["metrics"]["loss"] - one["metrics"]["loss"]) / abs(
+            one["metrics"]["loss"])
+        params = _two_tier(f["params"], one["params"], lr)
+        stats = _stats_err(f["stats"], one["stats"])
+        check[f"rank{r}"] = {
+            "rows": [got["rows"][0], got["rows"][-1]],
+            "loss": f["metrics"]["loss"], "loss_rel_err": loss_rel,
+            "params": params, "stats_err_over_tol": stats,
+            "k1_launches_f32": f["k1_launches"],
+            "f32_max_memory_allocated_GiB": f["max_memory_allocated_GiB"]}
+        if loss_rel > PARALLEL_LOSS_RTOL or not params["ok"] or stats > 1:
+            bad.append(r)
+        if f["k1_launches"] != 1:
+            bad.append(f"rank {r}: K1 launched {f['k1_launches']} times")
+    same = all(torch.equal(ranks[0]["f32"][part][k], ranks[1]["f32"][part][k])
+               for part in ("params", "stats") for k in ranks[0]["f32"][part])
+    check["ranks_bit_equal"] = same
+    record["two_ranks"]["f32_check"] = check
+    bf = {}
+    for r, got in enumerate(ranks):
+        b = got["bf16"]
+        bf[f"rank{r}"] = {
+            "steps_per_s_median_after_2": 1.0 / statistics.median(
+                b["step_seconds"][2:-1]),
+            "step_seconds": b["step_seconds"], "feed": b["feed"],
+            "max_memory_allocated_GiB": b["max_memory_allocated_GiB"],
+            "max_memory_reserved_GiB": b["max_memory_reserved_GiB"],
+            "ranks_per_device": b["ranks_per_device"],
+            "k1_launches": b["launches"]["normalize_image"],
+            "loss": b["loss"], "validation_loss": b["validation_loss"]}
+        if b["ranks_per_device"] != (1 if cards >= 2 else 2):
+            bad.append(f"rank {r}: ranks_per_device "
+                       f"{b['ranks_per_device']} with {cards} card(s)")
+        if (b["launches"]["normalize_image"] != PARALLEL_BF16_STEPS + 1
+                or not all(math.isfinite(v) for v in
+                           (b["loss"], b["validation_loss"]))):
+            bad.append(f"rank {r} bf16: {bf[f'rank{r}']}")
+    dirs = {got["bf16"]["results_dir"] for got in ranks}
+    if cards < 2:   # both ranks' contexts, libraries and collectives
+        bf["card_used_beyond_reserved_GiB"] = ranks[0]["bf16"][
+            "card_used_GiB"] - sum(got["bf16"]["reserved_GiB"]
+                                   for got in ranks)
+    record["two_ranks"]["bf16"] = bf
+    record["two_ranks"]["run_dirs"] = len(dirs)
+    record["wall_seconds"] = time.perf_counter() - t_phase
+    emit(record)
+    if bad or not same or len(dirs) != 1:
+        raise AssertionError(f"parallel: two ranks against one: {bad}; "
+                             f"ranks bit-equal {same}; run dirs {dirs}")
+    by_path = {f"parallel/{r['mesh']}#{i}": r["k1_launches"]
+               for i, r in enumerate(runs)}
+    for r in (0, 1):
+        by_path[f"parallel/two_ranks/rank{r}/bf16"] = bf[f"rank{r}"][
+            "k1_launches"]
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -2696,6 +3148,8 @@ def main() -> int:
     phase_build()
     kernel = phase_kernel(name)
     launches, default = phase_train()
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel_k1 = phase_parallel(tmp, name)
     phase_feed(name)
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = phase_checkpoint(tmp)
@@ -2717,7 +3171,7 @@ def main() -> int:
         "train": launches["normalize_image"],
         "estimate_state": eval_k1["estimate_state"],
         "check_model": eval_k1["check_model"], **control_k1["launches"],
-        **bridges_k1, **variants_k1, **codecs_k1}
+        **bridges_k1, **variants_k1, **codecs_k1, **parallel_k1}
     kernel["eval_episode_shape_ms"] = eval_k1["episode_shape_ms"]
     kernel["agent_frame_shape"] = control_k1["frame_shape"]
     kernel["codec_shapes"] = k1_shapes

@@ -7,6 +7,7 @@ behind the caller's back.
 
 from __future__ import annotations
 
+import os
 import statistics
 from typing import Callable, Optional
 
@@ -14,15 +15,27 @@ import torch
 
 
 def resolve_device(name: Optional[str] = None) -> torch.device:
-    """``None`` or ``"cuda"`` -> the current CUDA device (raises without a
-    GPU); ``"cpu"`` -> the CPU."""
+    """``None`` or ``"cuda"`` -> the current CUDA device, or for a rank of
+    a world (``LOCAL_RANK`` set) ``cuda:LOCAL_RANK`` (``cuda:0`` where the
+    launcher leaves each rank one visible card); ``"cuda:k"`` -> that
+    card; ``"cpu"`` -> the CPU.  A CUDA request raises without a GPU, or
+    where the card it names is missing."""
     device = torch.device(name or "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
+    if device.type == "cpu":
+        return device
+    if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is visible; pass --device cpu (or device='cpu') "
             "to run on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
+    if device.index is None and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                              if torch.cuda.device_count() > 1 else 0)
+    if device.index is not None and device.index >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"{device} is missing: {torch.cuda.device_count()} GPU(s) "
+            "visible (a rank needs a card of its own under NCCL)")
     return device
 
 

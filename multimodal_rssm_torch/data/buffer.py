@@ -110,9 +110,12 @@ class ExperienceReplay:
                 gather_chunks(self.rewards, idxs, out=rew_out),
                 gather_chunks(self.nonterminals, idxs, out=nt_out))
 
-    def sample(self, n: int, L: int):
-        """Uniform batch of sequence chunks (ref memory.py:212-222)."""
-        return self.gather(self.sample_indices(n, L))
+    def sample(self, n: int, L: int, rows: Optional[np.ndarray] = None):
+        """Uniform batch of sequence chunks (ref memory.py:212-222).
+        ``rows``: draw the [n, L] index matrix of the global batch, gather
+        only these of its rows (one rank's, ``parallel/mesh.BatchShard``)."""
+        idxs = self.sample_indices(n, L)
+        return self.gather(idxs if rows is None else idxs[rows])
 
     # -- ingest -----------------------------------------------------------
     def append(self, observation: Mapping[str, np.ndarray], action, reward,
@@ -240,7 +243,10 @@ class HostBatchFeed:
     them with the native gather straight into one of two pinned staging
     batches and copies that to the device on the current stream.  A staging
     batch is refilled only once its previous copy has run (an event each).
-    On a CPU device it returns the gathered arrays as tensors.
+    On a CPU device it returns the gathered arrays as tensors.  ``rows``:
+    the [n, L] matrix is the global batch's, and only these of its rows are
+    gathered (one rank's of a data-parallel run: every rank draws the same
+    matrix from the same seed).
 
     Returns (the buffer generator's state after the draw, the batch): a
     checkpoint stores the state of the last batch a step took, since the
@@ -249,12 +255,14 @@ class HostBatchFeed:
     _SLOTS = 2
 
     def __init__(self, buffer: ExperienceReplay, n: int, L: int,
-                 device: torch.device):
+                 device: torch.device, rows: Optional[np.ndarray] = None):
         self.buffer, self.n, self.L, self.device = buffer, int(n), int(L), device
+        self.rows = rows
+        local = self.n if rows is None else len(rows)
         self._slots = []
         if device.type == "cuda":
             def pinned(a):
-                return torch.empty((self.L, self.n, *a.shape[1:]),
+                return torch.empty((self.L, local, *a.shape[1:]),
                                    dtype=torch.from_numpy(a[:0]).dtype,
                                    pin_memory=True)
 
@@ -267,6 +275,8 @@ class HostBatchFeed:
 
     def __call__(self):
         idxs = self.buffer.sample_indices(self.n, self.L)
+        if self.rows is not None:
+            idxs = idxs[self.rows]
         state = self.buffer.rng.bit_generator.state
         if not self._slots:
             return state, to_device(self.buffer.gather(idxs), self.device)

@@ -30,6 +30,10 @@ import torch
 # cuDNN take 1.29 GiB outside the allocator at the first step.  40 GiB
 # leaves 2.15 GiB for fragmentation; a replay at a 36.1 GiB reserve ran out
 # of memory at step 3.
+# A rank of a data-parallel run keeps the same 40 GiB: no run has yet
+# filled a rank's budget with replay and stepped at a smaller local batch,
+# and a rank adds memory a single process lacks (the collectives' buffers,
+# the flat gradient copy of ``all_reduce_mean_``).
 _DEFAULT_RESERVE_BYTES = 40 << 30
 _MIN_BUDGET_BYTES = 2 << 30
 _CPU_BUDGET_BYTES = 4 << 30
@@ -44,20 +48,23 @@ _BYTES_PER_CODEC_ELEMENT = 12
 
 
 def hbm_budget_bytes(device: torch.device,
-                     reserve_bytes: int = _DEFAULT_RESERVE_BYTES) -> int:
+                     reserve_bytes: int = _DEFAULT_RESERVE_BYTES,
+                     sharing: int = 1) -> int:
     """Bytes of replay the device may hold.
 
     ``MRSSM_REPLAY_BUDGET_GB`` overrides.  On a CUDA device: the free bytes
-    (``torch.cuda.mem_get_info``) minus ``reserve_bytes`` for the step,
-    never below 2 GiB.  On the CPU (the tests): a fixed 4 GiB, so a CPU
-    run takes the same ``auto`` decisions as the JAX package's tests."""
+    (``torch.cuda.mem_get_info``; a share of them where ``sharing`` ranks
+    use the card) minus ``reserve_bytes`` for the step, never below 2 GiB.
+    On the CPU (the tests): a fixed 4 GiB, so a CPU run takes the same
+    ``auto`` decisions as the JAX package's tests."""
     env = os.environ.get("MRSSM_REPLAY_BUDGET_GB")
     if env:
         return int(float(env) * (1 << 30))
     if device.type != "cuda":
         return _CPU_BUDGET_BYTES
     free, _ = torch.cuda.mem_get_info(device)
-    return max(_MIN_BUDGET_BYTES, int(free) - int(reserve_bytes))
+    return max(_MIN_BUDGET_BYTES,
+               int(free) // max(1, int(sharing)) - int(reserve_bytes))
 
 
 def image_codec_elements(shape) -> int:
@@ -79,12 +86,14 @@ def image_codec_elements(shape) -> int:
     return n
 
 
-def step_reserve_bytes(cfg) -> int:
+def step_reserve_bytes(cfg, ranks: int = 1) -> int:
     """The reserve ``hbm_budget_bytes`` keeps for the configured step: the
     default configuration's measured 40 GiB, plus ``_BYTES_PER_CODEC_ELEMENT``
     per image-codec activation element that the configured image
     modalities add over one 64 px codec, for each sample of a micro-batch
-    (batch x (chunk - 1) / ``train.grad_accum``)."""
+    (batch x (chunk - 1) / ``train.grad_accum``).  Over ``ranks`` data
+    ranks a step holds batch / ``ranks`` rows: the per-sample charge
+    shrinks with it, the measured 40 GiB does not."""
     rssm = cfg.rssm
     shapes = cfg.env.observation_shapes
     names = set(rssm.observation_names_enc) | set(rssm.observation_names_rec)
@@ -94,9 +103,11 @@ def step_reserve_bytes(cfg) -> int:
                    if "image" in n)
     extra = max(0, elements - image_codec_elements((3, 64, 64)))
     accum = int(cfg.train.get("grad_accum", 1) or 1)
-    samples = int(cfg.train.batch_size) * (int(cfg.train.chunk_size) - 1)
-    return _DEFAULT_RESERVE_BYTES + (
-        samples // accum * extra * _BYTES_PER_CODEC_ELEMENT)
+    ranks = max(1, int(ranks))
+    local = int(cfg.train.batch_size) // ranks
+    samples = local * (int(cfg.train.chunk_size) - 1)
+    return (_DEFAULT_RESERVE_BYTES
+            + samples // accum * extra * _BYTES_PER_CODEC_ELEMENT)
 
 
 def _used_rows(host_buffer) -> int:
@@ -158,9 +169,13 @@ class DeviceReplay:
     def fits(host_buffer, budget_bytes: int) -> bool:
         return DeviceReplay.nbytes(host_buffer) <= budget_bytes
 
-    def sample_indices(self, n: int, L: int) -> torch.Tensor:
-        """[n, L] chunk indices, drawn as the host buffer draws them."""
-        return indices_to_device(self.host.sample_indices(n, L), self.device)
+    def sample_indices(self, n: int, L: int,
+                       rows: Optional[np.ndarray] = None) -> torch.Tensor:
+        """[n, L] chunk indices, drawn as the host buffer draws them
+        (``rows``: only these rows of the matrix go to the device)."""
+        idxs = self.host.sample_indices(n, L)
+        return indices_to_device(idxs if rows is None else idxs[rows],
+                                 self.device)
 
 
 class StreamingDeviceReplay:
@@ -229,12 +244,16 @@ class StreamingDeviceReplay:
                 for _ in range(self._STAGING)]
         self._next_staging = 0
 
-    def sample_indices(self, n: int, L: int) -> torch.Tensor:
+    def sample_indices(self, n: int, L: int,
+                       rows: Optional[np.ndarray] = None) -> torch.Tensor:
         """[n, L] chunk indices into the flat [W * S] working set: a
-        uniform slot, a uniform start in [0, S - L]."""
+        uniform slot, a uniform start in [0, S - L] (``rows``: only these
+        rows of the matrix go to the device)."""
         slots = self.rng.integers(0, self.W, size=n)
         offsets = self.rng.integers(0, self.S - L + 1, size=n)
         starts = slots * self.S + offsets
+        if rows is not None:
+            starts = starts[rows]
         return indices_to_device(starts[:, None] + np.arange(L)[None, :],
                                  self.device)
 

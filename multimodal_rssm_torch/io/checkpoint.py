@@ -14,6 +14,13 @@ A behavior checkpoint ``behavior/models_{itr}.pt``
 ``state_dict``s, both optimizers', the behavior step and
 ``return_scale``; it is written the same atomic way.
 
+In a data-parallel run (``train/loop.py``) rank 0 alone writes, with the
+same asynchronous writer: the weights are replicated and the generators'
+states are the same on every rank, so its file is the whole state.  Every
+rank loads the same file on ``--resume`` and ``train.model_path``; the
+loop then broadcasts rank 0's weights and buffers.  (The JAX package saves
+synchronously under more than one process, ``train/loop.py:208-215``.)
+
 ``load_reference_checkpoint`` reads a reference ``models_{itr}.pth`` (the
 nested ``model_dicts`` layout) into the port's model.
 ``find_model_checkpoint`` / ``load_model_weights`` give evaluation a run

@@ -5,6 +5,10 @@ composed config saved as ``hydra_config.yaml`` with ``main.git_hash`` set
 (reference utils/logger.py), and an append-only ``metrics.jsonl`` whose
 keys follow the reference's ``{name}/{suffix}`` convention, plus
 per-module histogram lines (``MetricLogger.log_histograms``).
+
+In a data-parallel world, rank 0 alone creates the run dir (and bumps
+``run_{k}``) and writes its files; the other ranks receive its path
+(``make_run_dir``) and log to a ``NullLogger``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from multimodal_rssm_torch.core.config import save_config
+from multimodal_rssm_torch.parallel.mesh import broadcast_object, is_main
 
 HIST_BINS = 16
 
@@ -41,22 +46,36 @@ def make_run_dir(cfg, cwd: str = ".", resume_dir: Optional[str] = None
                  ) -> str:
     """Create ``{cwd}/results/{experiment}/{date}/run_{k}``, or reuse
     ``resume_dir`` (which must exist), and snapshot the config into it with
-    ``main.git_hash`` (null outside a git checkout)."""
-    if resume_dir is not None:
-        if not os.path.isdir(resume_dir):
-            raise FileNotFoundError(f"resume dir {resume_dir} does not exist")
-        run_dir = resume_dir
-    else:
-        base = os.path.join(cwd, "results", str(cfg.main.experiment_name),
-                            str(datetime.date.today()))
-        k = 0
-        while os.path.exists(os.path.join(base, f"run_{k}")):
-            k += 1
-        run_dir = os.path.join(base, f"run_{k}")
-        os.makedirs(run_dir)
-    cfg.main.git_hash = get_git_hash()
+    ``main.git_hash`` (null outside a git checkout).  In a world of ranks,
+    rank 0 does it and every rank returns its path."""
+    run_dir = git_hash = error = None
+    if is_main():
+        try:
+            if resume_dir is not None:
+                if not os.path.isdir(resume_dir):
+                    raise FileNotFoundError(
+                        f"resume dir {resume_dir} does not exist")
+                run_dir = resume_dir
+            else:
+                base = os.path.join(cwd, "results",
+                                    str(cfg.main.experiment_name),
+                                    str(datetime.date.today()))
+                k = 0
+                while os.path.exists(os.path.join(base, f"run_{k}")):
+                    k += 1
+                run_dir = os.path.join(base, f"run_{k}")
+                os.makedirs(run_dir)
+            git_hash = get_git_hash()
+            cfg.main.git_hash = git_hash
+            cfg.main.log_dir = run_dir
+            save_config(cfg, os.path.join(run_dir, "hydra_config.yaml"))
+        except OSError as e:   # every rank raises, none waits on rank 0
+            error = e
+    run_dir, git_hash, error = broadcast_object((run_dir, git_hash, error))
+    if error is not None:
+        raise error
+    cfg.main.git_hash = git_hash
     cfg.main.log_dir = run_dir
-    save_config(cfg, os.path.join(run_dir, "hydra_config.yaml"))
     return run_dir
 
 
@@ -97,6 +116,25 @@ def histogram_record(values: torch.Tensor) -> Dict[str, object]:
                 "bin_counts": counts.tolist(),
                 "bin_edges": [float(e) for e in edges]})
     return rec
+
+
+class NullLogger:
+    """``MetricLogger``'s interface, writing nothing (ranks other than 0)."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def log_histograms(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class MetricLogger:

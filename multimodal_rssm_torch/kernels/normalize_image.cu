@@ -14,6 +14,18 @@
 // g = i / 4 of four consecutive elements; element i takes output word i % 4.
 // The bits depend only on (seed, i): no block size, no shape rule (the TPU
 // kernel needed the element count to divide by 512 and seeded per block).
+//
+// One rank's shard of a data-parallel batch: x is the rank's local block
+// [L, B_local, row] of a global [L, B_global, row] batch, and its local row
+// j is global row  offset + (j / block_rows) * block_stride + j % block_rows
+// (contiguous rows, or one run of rows per micro-batch under gradient
+// accumulation).  Then g counts groups of the GLOBAL batch, so each rank
+// draws the bits a one-rank run draws for the same element.  A row holds a
+// multiple of 4 elements (the wrapper checks), so a group never straddles
+// two rows.  row_groups = 0 is the identity map.  Where every index of the
+// map fits 32 bits (`narrow`, set by the host: a local block of under 2^34
+// elements and a global batch of under 2^32 rows) its three divisions run
+// in 32 bits, several times cheaper than 64-bit ones.
 // ops/cuda_kernels.py::philox4x32_10 reproduces the same bits with int64
 // tensor arithmetic, so the kernel is held against its plain version
 // exactly, not only in distribution.
@@ -74,12 +86,35 @@ __device__ __forceinline__ float4 load4(const uint8_t* p) {
   return make_float4(v.x, v.y, v.z, v.w);
 }
 
+// The Philox counter of local group g under the shard's row map, in index
+// type I (uint32_t where the host found every index narrow, else int64_t).
+template <typename I>
+__device__ __forceinline__ int64_t global_group(int64_t g, I row_groups,
+                                                I rows_local,
+                                                int64_t rows_global,
+                                                I row_offset, I block_rows,
+                                                I block_stride) {
+  const I gi = static_cast<I>(g);
+  const I row = gi / row_groups;
+  const I l = row / rows_local;
+  const I j = row - l * rows_local;
+  const I jb = j / block_rows;
+  const I jg = row_offset + jb * block_stride + (j - jb * block_rows);
+  return (static_cast<int64_t>(l) * rows_global + static_cast<int64_t>(jg)) *
+             static_cast<int64_t>(row_groups) +
+         static_cast<int64_t>(gi - row * row_groups);
+}
+
 template <typename T>
 __global__ void normalize_image_kernel(const T* __restrict__ x,
                                        float* __restrict__ out, int64_t n,
                                        float inv_step, float inv_levels,
                                        const int64_t* __restrict__ seed,
-                                       bool vectorized) {
+                                       bool vectorized, bool narrow,
+                                       int64_t row_groups,
+                                       int64_t rows_local, int64_t rows_global,
+                                       int64_t row_offset, int64_t block_rows,
+                                       int64_t block_stride) {
   const uint64_t s = static_cast<uint64_t>(__ldg(seed));
   const uint2 key = make_uint2(static_cast<uint32_t>(s),
                                static_cast<uint32_t>(s >> 32));
@@ -87,8 +122,20 @@ __global__ void normalize_image_kernel(const T* __restrict__ x,
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        g < groups; g += stride) {
+    int64_t c = g;
+    if (row_groups > 0) {
+      c = narrow ? global_group<uint32_t>(
+                       g, static_cast<uint32_t>(row_groups),
+                       static_cast<uint32_t>(rows_local), rows_global,
+                       static_cast<uint32_t>(row_offset),
+                       static_cast<uint32_t>(block_rows),
+                       static_cast<uint32_t>(block_stride))
+                 : global_group<int64_t>(g, row_groups, rows_local,
+                                         rows_global, row_offset, block_rows,
+                                         block_stride);
+    }
     const uint4 r = philox4x32_10(
-        make_uint4(static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32),
+        make_uint4(static_cast<uint32_t>(c), static_cast<uint32_t>(c >> 32),
                    0u, 0u),
         key);
     const int64_t base = g * 4;
@@ -113,10 +160,18 @@ __global__ void normalize_image_kernel(const T* __restrict__ x,
 }  // namespace
 
 // x: f32 (x_is_u8 == 0) or uint8 elements; out: f32; n elements; seed: one
-// int64 in device memory.  Launches on `stream`; returns cudaGetLastError().
+// int64 in device memory; row_groups ... block_stride: the shard's map of
+// local to global rows (row_groups = row elements / 4, or 0: no map).
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int mrssm_normalize_image(const void* x, int x_is_u8, float* out,
                                      long long n, int bit_depth,
-                                     const long long* seed, void* stream) {
+                                     const long long* seed, void* stream,
+                                     long long row_groups,
+                                     long long rows_local,
+                                     long long rows_global,
+                                     long long row_offset,
+                                     long long block_rows,
+                                     long long block_stride) {
   if (n <= 0) return 0;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -136,17 +191,20 @@ extern "C" int mrssm_normalize_image(const void* x, int x_is_u8, float* out,
   const bool out_aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* seed_ptr = reinterpret_cast<const int64_t*>(seed);
+  const bool narrow = groups <= 0xFFFFFFFFll && rows_global <= 0xFFFFFFFFll;
 
   if (x_is_u8) {
     const bool vec = out_aligned && in_addr % 4 == 0;
     normalize_image_kernel<uint8_t><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
         static_cast<const uint8_t*>(x), out, n, inv_step, inv_levels, seed_ptr,
-        vec);
+        vec, narrow, row_groups, rows_local, rows_global, row_offset,
+        block_rows, block_stride);
   } else {
     const bool vec = out_aligned && in_addr % 16 == 0;
     normalize_image_kernel<float><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
         static_cast<const float*>(x), out, n, inv_step, inv_levels, seed_ptr,
-        vec);
+        vec, narrow, row_groups, rows_local, rows_global, row_offset,
+        block_rows, block_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }

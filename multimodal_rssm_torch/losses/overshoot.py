@@ -31,7 +31,8 @@ def overshooting_losses(prior_rollout_fn: Callable,
                         overshooting_reward_scale: float,
                         generator: Optional[torch.Generator],
                         fusion_method: str = "PoE",
-                        latent_dist: str = "gaussian"
+                        latent_dist: str = "gaussian",
+                        noise_rows: Optional[Tuple[torch.Tensor, int]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(kl_overshoot, reward_overshoot), before their betas; the reward
     term carries the reference's (1 / D) * scale * (L - 1) factor.
@@ -40,7 +41,9 @@ def overshooting_losses(prior_rollout_fn: Callable,
     chunk; ``states`` the posterior rollout's outputs [L - 1, B, .].
     ``prior_rollout_fn(h0, s0, actions, nonterminals, noise)`` is the
     core's ``prior_rollout``; ``generator=None`` rolls out at zero noise
-    (the deterministic path)."""
+    (the deterministic path).  ``noise_rows`` = (index, rows): the B rows
+    are rows ``index`` of a batch of ``rows``, and the noise is drawn for
+    that batch and cut (``WorldModel.sharded_noise``)."""
     L, B = actions.shape[:2]
     D, N = int(distance), L - 2
     device = actions.device
@@ -63,12 +66,17 @@ def overshooting_losses(prior_rollout_fn: Callable,
     init_h = states["beliefs"][ts - 1].reshape(N * B, -1)
     init_s = states["prior_states"][ts - 1].reshape(N * B, -1)
     shape = (D, N * B, *noise_tail)
+    index, rows = noise_rows or (None, B)
+    draw_shape = (D, N * rows, *noise_tail)
     if generator is None:
         eps = torch.zeros(shape, device=device)
     elif is_cat:
-        eps = categorical.gumbel_noise(generator, shape)
+        eps = categorical.gumbel_noise(generator, draw_shape)
     else:
-        eps = torch.randn(shape, generator=generator, device=device)
+        eps = torch.randn(draw_shape, generator=generator, device=device)
+    if generator is not None and index is not None:
+        eps = eps.view(D, N, rows, *noise_tail).index_select(2, index)
+        eps = eps.reshape(shape)
     roll = prior_rollout_fn(init_h, init_s, act_f, nonterm_f, eps)
 
     def free_nats_mean(div):   # div [D, N*B, latent] -> masked, summed

@@ -21,6 +21,14 @@ package does.  ``make_norm`` builds the one ``rssm.normalization`` names.
 Inside ``frozen_running_stats(module)`` no norm of ``module`` updates its
 running stats (the recompute of a rematerialised codec runs the forward a
 second time).
+
+Inside ``synced_batch_stats(module, group)`` (a data-parallel step) the
+batch statistics are those of the GLOBAL batch, as flax's under the JAX
+package's sharded step: BatchNorm all-reduces its per-channel sum and sum
+of squares over ``group`` (with their gradient) and divides by every
+rank's count, then takes the same ``E[x^2] - mean^2``; InstanceNorm's
+running-stat update all-reduces the sum of the per-instance moments.  Every rank then holds the same running
+stats.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from multimodal_rssm_torch.parallel.mesh import all_reduce_sum
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -81,11 +91,29 @@ def _moments(x: torch.Tensor, dims: Tuple[int, ...]):
     return mean, var
 
 
+def _global_moments(x: torch.Tensor, dims: Tuple[int, ...], group):
+    """``_moments`` over the rows of every rank of ``group``: the sums and
+    the sums of squares all-reduced (differentiably).  The count is the
+    local count times the group's size: every rank holds the same number
+    of rows (``parallel/mesh.BatchShard``)."""
+    xf = x.float()
+    c = x.shape[1]
+    sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims)]),
+                          group)
+    count = (x.numel() // c) * torch.distributed.get_world_size(group)
+    shape = (1, c) + (1,) * (x.ndim - 2)
+    mean = (sums[:c] / count).reshape(shape)
+    var = torch.clamp((sums[c:] / count).reshape(shape) - mean * mean,
+                      min=0.0)
+    return mean, var
+
+
 class _Norm(nn.Module):
     """Affine norm over channel axis 1 with torch's parameter names.
     ``frozen``: train mode updates no running stats."""
 
     frozen = False
+    group = None    # the data-parallel group of synced_batch_stats
 
     def __init__(self, num_features: int, track_running_stats: bool = True,
                  momentum: float = 0.1, eps: float = 1e-5):
@@ -120,7 +148,8 @@ class BatchNorm(_Norm):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if self.training:
             dims = (0,) + tuple(range(2, x.ndim))
-            mean, var = _moments(x, dims)
+            mean, var = (_moments(x, dims) if self.group is None
+                         else _global_moments(x, dims, self.group))
             self._update(mean.reshape(-1), var.reshape(-1))
         else:
             mean = self.running_mean.reshape(shape)
@@ -142,8 +171,21 @@ class InstanceNorm(_Norm):
         else:
             mean, var = _moments(x, tuple(range(2, x.ndim)))
             if self.track_running_stats:
-                self._update(mean.mean(0).reshape(-1), var.mean(0).reshape(-1))
+                self._update(*self._batch_mean(mean, var))
         return _normalize(x, mean, var, self.weight, self.bias, self.eps, shape)
+
+    @torch.no_grad()
+    def _batch_mean(self, mean: torch.Tensor, var: torch.Tensor):
+        """The per-instance moments averaged over the batch (every rank's
+        rows under ``synced_batch_stats``)."""
+        if self.group is None:
+            return mean.mean(0).reshape(-1), var.mean(0).reshape(-1)
+        c = mean.shape[1]
+        sums = all_reduce_sum(torch.cat([mean.sum(0).reshape(-1),
+                                         var.sum(0).reshape(-1)]),
+                              self.group)
+        sums /= mean.shape[0] * torch.distributed.get_world_size(self.group)
+        return sums[:c], sums[c:]
 
 
 @contextlib.contextmanager
@@ -159,6 +201,21 @@ def frozen_running_stats(module: nn.Module):
     finally:
         for m in norms:
             m.frozen = False
+
+
+@contextlib.contextmanager
+def synced_batch_stats(module: nn.Module, group):
+    """Within this block the BatchNorms and InstanceNorms of ``module`` take
+    their batch statistics over every rank of ``group`` (None: this
+    process's rows only)."""
+    norms = [m for m in module.modules() if isinstance(m, _Norm)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 class GroupNorm(nn.GroupNorm):

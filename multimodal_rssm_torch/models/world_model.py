@@ -39,10 +39,16 @@ entry points take ``names``, the modalities whose encoders and experts run
 caller's:
 evaluation runs the model in ``eval()`` mode, so the norms read their
 running statistics.
+
+Inside ``sharded_noise((index, rows))`` (one rank of a data-parallel
+step) the model's B rows are rows ``index`` (B int64 on the device) of a
+batch of ``rows``: each state-noise draw is made for the whole batch and
+cut, so a rank draws what a one-process run draws for the same rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 from typing import Dict, Mapping, Optional, Sequence, Tuple
@@ -77,6 +83,8 @@ def bottle(fn, tree: Mapping[str, torch.Tensor], T: int, B: int):
 
 
 class WorldModel(nn.Module):
+    noise_rows: Optional[Tuple[torch.Tensor, int]] = None   # sharded_noise
+
     def __init__(self, observation_names_enc: Sequence[str],
                  observation_names_rec: Sequence[str],
                  observation_shapes: Mapping[str, Sequence[int]],
@@ -171,6 +179,17 @@ class WorldModel(nn.Module):
             return (T, B, self.latent_variables, self.latent_classes)
         return (T, B, self.state_size)
 
+    @contextlib.contextmanager
+    def sharded_noise(self, rows: Optional[Tuple[torch.Tensor, int]]):
+        """Within this block the state noise of B rows is rows ``index`` of
+        a draw for ``rows`` rows (``rows`` = (index, rows), or None: a draw
+        for B)."""
+        prev, self.noise_rows = self.noise_rows, rows
+        try:
+            yield
+        finally:
+            self.noise_rows = prev
+
     def draw_state_noise(self, generator: torch.Generator, T: int, B: int
                          ) -> torch.Tensor:
         if self.latent_dist == "categorical":
@@ -188,6 +207,10 @@ class WorldModel(nn.Module):
             return eps.to(device)
         if generator is None:
             return torch.zeros(self.noise_shape(T, B), device=device)
+        if self.noise_rows is not None:
+            index, rows = self.noise_rows
+            return self.draw_state_noise(generator, T, rows).index_select(
+                1, index)
         return self.draw_state_noise(generator, T, B)
 
     def estimate_state(self, observations: Mapping[str, torch.Tensor],

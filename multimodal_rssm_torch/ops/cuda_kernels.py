@@ -30,8 +30,9 @@ import os
 import shutil
 import subprocess
 import glob
+import math
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -125,7 +126,8 @@ def _library() -> ctypes.CDLL:
     lib = load_library("normalize_image")
     lib.mrssm_normalize_image.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        *[ctypes.c_longlong] * 6]
     lib.mrssm_normalize_image.restype = ctypes.c_int
     lib.mrssm_error_string.argtypes = [ctypes.c_int]
     lib.mrssm_error_string.restype = ctypes.c_char_p
@@ -171,20 +173,82 @@ def philox4x32_10(counter: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return torch.stack([c0, c1, c2, c3], dim=-1)
 
 
-def normalize_noise_plain(n: int, bit_depth: int, seed: torch.Tensor
-                          ) -> torch.Tensor:
+class RowMap(NamedTuple):
+    """A rank's rows of a global [L, rows_global, ...] batch: its local row
+    j (axis 1) is global row ``offset + (j // block_rows) * block_stride +
+    j % block_rows`` (``parallel/mesh.BatchShard.row_map``)."""
+
+    offset: int
+    rows_global: int
+    block_rows: int
+    block_stride: int
+
+    def global_rows(self, local_rows: int) -> torch.Tensor:
+        j = torch.arange(local_rows, dtype=torch.int64)
+        return (self.offset + j // self.block_rows * self.block_stride
+                + j % self.block_rows)
+
+
+def _checked_rows(shape: Sequence[int], rows: Optional[RowMap]
+                  ) -> Optional[RowMap]:
+    """``rows`` validated against a local block of ``shape``, or None where
+    it maps every row to itself (no map: the flat counter)."""
+    if rows is None:
+        return None
+    if len(shape) < 3:
+        raise ValueError(f"a row map needs an [L, B, ...] block, got {shape}")
+    local = int(shape[1])
+    glob = rows.global_rows(local)
+    if local and (int(glob.min()) < 0 or int(glob.max()) >= rows.rows_global
+                  or rows.block_rows < 1):
+        raise ValueError(f"{rows} maps {local} rows outside the global "
+                         f"batch of {rows.rows_global}")
+    if rows.rows_global == local and torch.equal(glob, torch.arange(local)):
+        return None
+    row = math.prod(shape[2:])
+    if row % 4:
+        raise ValueError(f"a row of {row} elements is not a whole number of "
+                         "Philox groups of 4")
+    return rows
+
+
+def _group_counters(shape: Sequence[int], rows: Optional[RowMap],
+                    device: torch.device) -> torch.Tensor:
+    """The Philox counter of each group of four elements of a tensor of
+    ``shape``: its index in the flat tensor, or under ``rows`` its index in
+    the global batch (kernels/normalize_image.cu)."""
+    n = math.prod(shape)
+    g = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    if rows is None:
+        return g
+    row_groups = math.prod(shape[2:]) // 4
+    row, e = g // row_groups, g % row_groups
+    l, j = row // shape[1], row % shape[1]
+    jg = (rows.offset + j // rows.block_rows * rows.block_stride
+          + j % rows.block_rows)
+    return (l * rows.rows_global + jg) * row_groups + e
+
+
+def normalize_noise_plain(n: int, bit_depth: int, seed: torch.Tensor,
+                          shape: Optional[Sequence[int]] = None,
+                          rows: Optional[RowMap] = None) -> torch.Tensor:
     """The dequantisation noise u / 2^bit_depth of elements 0..n-1 (flat
-    float32 on ``seed``'s device), u = float((bits >> 9) | 0x3F800000) - 1."""
-    groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=seed.device)
+    float32 on ``seed``'s device), u = float((bits >> 9) | 0x3F800000) - 1;
+    with ``rows``, of a local block of ``shape`` (n elements) as the
+    global batch draws it."""
+    rows = _checked_rows(shape, rows) if rows is not None else None
+    groups = _group_counters(shape if rows is not None else (n,), rows,
+                             seed.device)
     bits = philox4x32_10(groups, seed.reshape(())).reshape(-1)[:n]
     u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     return u / 2 ** bit_depth
 
 
 def normalize_image_plain(x: torch.Tensor, bit_depth: int,
-                          seed: torch.Tensor) -> torch.Tensor:
+                          seed: torch.Tensor, rows: Optional[RowMap] = None
+                          ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same bits, the same result."""
-    noise = normalize_noise_plain(x.numel(), bit_depth, seed)
+    noise = normalize_noise_plain(x.numel(), bit_depth, seed, x.shape, rows)
     return normalize_image_deterministic(x, bit_depth) + noise.reshape(x.shape)
 
 
@@ -192,11 +256,15 @@ def normalize_image_plain(x: torch.Tensor, bit_depth: int,
 
 
 def normalize_image(x: torch.Tensor, bit_depth: int,
-                    seed: torch.Tensor) -> torch.Tensor:
+                    seed: torch.Tensor, rows: Optional[RowMap] = None
+                    ) -> torch.Tensor:
     """Fused bit-depth normalise: quantise ``x`` (values in [0, 255], f32 or
     uint8) to ``bit_depth`` bits, map to [-0.5, 0.5) and add uniform
     dequantisation noise keyed by ``seed`` (an int64 scalar tensor in
     [0, 2^63) on ``x``'s device).  Returns float32 of ``x``'s shape.
+    ``rows``: ``x`` is one rank's [L, B_local, ...] block of a global batch,
+    and each element draws the noise of its place in the global batch
+    (None, or a map of every row to itself: the flat index).
 
     CPU tensors take ``normalize_image_plain``; CUDA tensors launch the
     kernel (or raise)."""
@@ -208,10 +276,14 @@ def normalize_image(x: torch.Tensor, bit_depth: int,
         raise TypeError("seed must be one int64 element")
     if seed.device != x.device:
         raise ValueError(f"seed on {seed.device}, x on {x.device}")
+    rows = _checked_rows(x.shape, rows) if rows is not None else None
     if x.device.type == "cpu":
-        return normalize_image_plain(x, bit_depth, seed)
+        return normalize_image_plain(x, bit_depth, seed, rows)
     if x.device.type != "cuda":
         raise ValueError(f"normalize_image has no kernel for {x.device}")
+    row_map = ((0,) * 6 if rows is None else
+               (math.prod(x.shape[2:]) // 4, x.shape[1], rows.rows_global,
+                rows.offset, rows.block_rows, rows.block_stride))
     x = x.contiguous()
     seed = seed.contiguous()
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -220,7 +292,7 @@ def normalize_image(x: torch.Tensor, bit_depth: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.mrssm_normalize_image(
             x.data_ptr(), int(x.dtype == torch.uint8), out.data_ptr(),
-            x.numel(), int(bit_depth), seed.data_ptr(), stream)
+            x.numel(), int(bit_depth), seed.data_ptr(), stream, *row_map)
     if rc != 0:
         raise RuntimeError("normalize_image kernel launch failed: "
                            + lib.mrssm_error_string(rc).decode())

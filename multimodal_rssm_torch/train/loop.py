@@ -33,10 +33,26 @@ newest and continues the draws an uninterrupted run would make; on SIGTERM
 / SIGINT it writes one at the step reached.
 Each step's metrics are read back after the next step has been queued, so
 the host's work for step k + 1 overlaps the device's for step k.
+
+``train.mesh.data`` / ``train.mesh.slice`` (``parallel/mesh.py``) train
+data-parallel in a world of ranks, one process per GPU, which the train
+CLI or ``torchrun`` starts: every rank loads the dataset and keeps its
+replay, draws the global batch's indices and augmentation choices from the
+shared seed and gathers only its rows (``DataParallel``); the weights are
+broadcast from rank 0 after init or load; each step averages gradients
+and metrics over the ranks.  Rank 0 alone creates the run dir and writes
+metrics, histograms, the profile trace and the checkpoints (every rank
+loads the same file on ``--resume`` and ``train.model_path``).  The
+device budget for the replay is agreed (the least over the ranks).  A
+preemption stop is agreed too: each step all-reduces the ranks' stop flags
+and every rank reads the sum one step later, so all stop after the same
+step and rank 0 writes that step's checkpoint (a rank stopping alone would
+leave the others waiting in their next collective).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import time
 from typing import Dict, Optional
@@ -51,31 +67,47 @@ from multimodal_rssm_torch.data.device_buffer import (
     DeviceReplay, StreamingDeviceReplay, gather_batch, hbm_budget_bytes,
     step_reserve_bytes)
 from multimodal_rssm_torch.io import checkpoint as ckpt
-from multimodal_rssm_torch.io.metrics import MetricLogger, make_run_dir
+from multimodal_rssm_torch.io.metrics import (
+    MetricLogger, NullLogger, make_run_dir)
 from multimodal_rssm_torch.models.world_model import WorldModel, init_parameters
+from multimodal_rssm_torch.parallel import mesh as mesh_lib
 from multimodal_rssm_torch.train import trainer as tr
 from multimodal_rssm_torch.train.prefetch import Prefetcher
+
 
 def _host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return {k: float(v) for k, v in metrics.items()}
 
 
-def _check_options(cfg) -> None:
+def check_options(cfg) -> None:
+    """Raise on options the port refuses (before anything is built)."""
     if not bool(cfg.train.get("async_checkpoint", True)):
         raise ValueError("train.async_checkpoint=false: the port writes "
                          "cadence checkpoints off the loop's thread only "
                          "(a synchronous save holds the loop for the whole "
                          "write); the key is kept for the JAX package's "
                          "config")
-    mesh = cfg.train.get("mesh") or {}
-    sizes = {"data": int(mesh.get("data", 0) or 0),
-             "model": int(mesh.get("model", 1) or 1),
-             "slice": int(mesh.get("slice", 1) or 1)}
-    if sizes["data"] not in (0, 1) or sizes["model"] > 1 or sizes["slice"] > 1:
+    model = int((cfg.train.get("mesh") or {}).get("model", 1) or 1)
+    if model > 1:
         raise NotImplementedError(
-            f"train.mesh={sizes}: the port trains on one device only "
-            "(data 0 or 1, model 1, slice 1); multi-GPU training is ROADMAP "
-            "queue 1 item 14")
+            f"train.mesh.model={model}: the port shards the batch over "
+            "train.mesh.data / slice only; the model axis (column-sharded "
+            "kernels and their Adam moments) is ROADMAP queue 1 item 14b")
+
+
+def ranks_per_device(device: torch.device,
+                     dp: Optional[mesh_lib.DataParallel] = None) -> int:
+    """Ranks of ``dp``'s group on this rank's card, by the cards' UUIDs:
+    right whatever each rank sees (every GPU of the host, or one card bound
+    to it by the launcher).  1 on the CPU or outside a world."""
+    if device.type != "cuda" or dp is None:
+        return 1
+    uuid = str(torch.cuda.get_device_properties(device).uuid).encode()
+    mine = int.from_bytes(hashlib.sha1(uuid).digest()[:7], "little")
+    ids = torch.zeros(dp.train.size, dtype=torch.int64, device=device)
+    ids[dp.train.rank] = mine
+    torch.distributed.all_reduce(ids, group=dp.group)
+    return int((ids == mine).sum())
 
 
 def log_histograms(logger: MetricLogger, model, grads: Dict[str, torch.Tensor],
@@ -131,22 +163,33 @@ class ProfileWindow:
         self.prof = None
 
 
-def select_feed(cfg, D, device: torch.device, seed: int):
+def select_feed(cfg, D, device: torch.device, seed: int,
+                dp: Optional[mesh_lib.DataParallel] = None):
     """(feed name, replay or None) by ``train.device_replay``; prints the
-    path taken."""
+    path taken.  Under ``dp`` the budget is the least of the ranks' (each
+    sized for its local batch and its share of the card), so every rank
+    takes the same feed and draws the same indices."""
     mode = str(cfg.train.get("device_replay", "auto")).lower()
     if mode not in ("auto", "true", "stream", "false"):
         raise ValueError(f"train.device_replay={mode!r} not in "
                          "(auto, true, stream, false)")
+    say = print if mesh_lib.is_main() else (lambda *a, **k: None)
     gib = 1 << 30
     rb = cfg.train.get("replay_budget_gb")
+    ranks = 1 if dp is None else dp.train.size
     budget = (int(float(rb) * gib) if rb
-              else hbm_budget_bytes(device, step_reserve_bytes(cfg)))
+              else hbm_budget_bytes(device, step_reserve_bytes(cfg, ranks),
+                                    ranks_per_device(device, dp)))
+    if dp is not None:
+        agreed = torch.tensor([budget], dtype=torch.float64, device=device)
+        torch.distributed.all_reduce(agreed, torch.distributed.ReduceOp.MIN,
+                                     group=dp.group)
+        budget = int(agreed.item())
     nbytes = DeviceReplay.nbytes(D)
     if mode == "true" or (mode == "auto" and DeviceReplay.fits(D, budget)):
-        print(f"feed path: device-resident replay (train.device_replay="
-              f"{mode}; dataset {nbytes / gib:.3f} GiB, budget "
-              f"{budget / gib:.3f} GiB)")
+        say(f"feed path: device-resident replay (train.device_replay="
+            f"{mode}; dataset {nbytes / gib:.3f} GiB, budget "
+            f"{budget / gib:.3f} GiB)")
         return "device_resident", DeviceReplay(D, device)
     if mode in ("auto", "stream"):
         try:
@@ -161,21 +204,21 @@ def select_feed(cfg, D, device: torch.device, seed: int):
         except ValueError as e:
             if mode == "stream":
                 raise
-            print(f"streaming replay unavailable ({e})")
+            say(f"streaming replay unavailable ({e})")
         else:
-            print(f"feed path: streaming device-resident working set "
-                  f"(dataset {nbytes / gib:.3f} GiB, budget "
-                  f"{budget / gib:.3f} GiB; {replay.W} of "
-                  f"{replay.n_host_segments} segments of {replay.S} rows "
-                  f"resident, {replay.refresh_segments} replaced every "
-                  f"{int(cfg.train.get('stream_refresh_interval', 1))} "
-                  "steps)")
+            say(f"feed path: streaming device-resident working set "
+                f"(dataset {nbytes / gib:.3f} GiB, budget "
+                f"{budget / gib:.3f} GiB; {replay.W} of "
+                f"{replay.n_host_segments} segments of {replay.S} rows "
+                f"resident, {replay.refresh_segments} replaced every "
+                f"{int(cfg.train.get('stream_refresh_interval', 1))} "
+                "steps)")
             return "stream", replay
     why = ("train.device_replay=false" if mode == "false" else
            f"dataset {nbytes / gib:.3f} GiB over the {budget / gib:.3f} GiB "
            "budget and too small to stream")
-    print(f"feed path: host-streamed batches ({why}); a prefetch thread "
-          "gathers and copies the next batches")
+    say(f"feed path: host-streamed batches ({why}); a prefetch thread "
+        "gathers and copies the next batches")
     return "host", None
 
 
@@ -195,24 +238,38 @@ def load_model_path(cfg, cwd: str, model, optimizer, scheduler) -> None:
         ckpt.load_jax_train_state(path, model, optimizer, scheduler)
     else:
         ckpt.load_model_weights(path, model)
-    print(f"model weights from {path}")
+    if mesh_lib.is_main():
+        print(f"model weights from {path}")
 
 
 def run(cfg, cwd: str = ".", device: Optional[str] = None,
         resume_dir: Optional[str] = None) -> Dict:
     """One training run.  ``device``: "cuda" (default; raises without a
-    GPU) or "cpu".  ``resume_dir``: continue that run dir from its newest
-    checkpoint (step, model, optimizer, schedule and generator).
+    GPU; a rank of a world: ``cuda:LOCAL_RANK``), "cuda:k" or "cpu".
+    ``resume_dir``: continue that run dir from its newest checkpoint (step,
+    model, optimizer, schedule and generator).  A ``train.mesh`` needs the
+    world joined first (``parallel/mesh.init_distributed``; the train CLI
+    does it).
 
     Returns the run dir, the model, the feed taken, the first step run,
-    the last train and validation metrics, the wall-clock seconds of
-    every step and the profile trace's path (or None)."""
+    the last train and validation metrics (the global batch's), the
+    wall-clock seconds of every step and the profile trace's path (or
+    None)."""
     dev = resolve_device(device)
     configure_float32()
-    _check_options(cfg)
+    check_options(cfg)
+    mesh = mesh_lib.mesh_from_config(cfg, dev.type)
+    main = mesh_lib.is_main()
     if cfg.main.experiment_name is None:
         cfg.main.experiment_name = "RSSM"
     seed = int(cfg.main.seed or 0)
+    B, L = int(cfg.train.batch_size), int(cfg.train.chunk_size)
+    dp = (None if mesh is None else
+          mesh_lib.data_parallel(mesh, B, tr.resolve_grad_accum(cfg)))
+    if dp is not None and main:
+        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+              f"{dp.train.size} ranks ({torch.distributed.get_backend()}); "
+              f"{dp.train.local_batch} rows of the batch of {B} a rank")
     D = build_buffer(cfg, seed=seed)
     load_dataset(cwd, D, cfg.train.train_data_path)
     D_val = build_buffer(cfg, seed=seed + 1)
@@ -224,17 +281,18 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
     optimizer, scheduler = tr.build_optimizer(cfg, model)
     aug_spec = tr.build_aug_spec(D)
     draws = tr.HostAugmentDraws(D, aug_spec, seed=seed)
-    B, L = int(cfg.train.batch_size), int(cfg.train.chunk_size)
+    train_rows = None if dp is None else dp.train.rows
+    eval_rows = None if dp is None else dp.eval.rows
 
-    feed, replay = select_feed(cfg, D, dev, seed)
+    feed, replay = select_feed(cfg, D, dev, seed, dp)
     if replay is not None:
         val_replay = DeviceReplay(D_val, dev)
         train_step, eval_step = tr.make_device_resident_steps(
             model, cfg, optimizer, scheduler, aug_spec, dev,
-            D.observation_names, replay.row_shapes)
+            D.observation_names, replay.row_shapes, dp=dp)
     else:
         train_step, eval_step = tr.make_train_step(
-            model, cfg, optimizer, scheduler, aug_spec, dev)
+            model, cfg, optimizer, scheduler, aug_spec, dev, dp=dp)
     generator = torch.Generator(dev).manual_seed(seed)
 
     results_dir = make_run_dir(cfg, cwd, resume_dir)
@@ -249,7 +307,8 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
         draws.rng.bit_generator.state = rng["augment"]
         if feed == "stream" and "stream" in rng:
             replay.set_state(rng["stream"])
-        print(f"resumed from step {start_step}")
+        if main:
+            print(f"resumed from step {start_step}")
     elif resume_dir is not None and ckpt.latest_checkpoint(
             results_dir, (".msgpack",)):
         raise ValueError(
@@ -258,6 +317,8 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
             "train.model_path=<its models_N.msgpack>")
     elif cfg.train.model_path:
         load_model_path(cfg, cwd, model, optimizer, scheduler)
+    if dp is not None:
+        mesh_lib.broadcast_module_(model, dp.group)
 
     total = int(cfg.train.train_iteration)
     val_every = int(cfg.train.validation_interval)
@@ -265,12 +326,13 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
     keep = int(cfg.train.get("keep_checkpoints", 0) or 0)
     refresh_every = max(1, int(cfg.train.get("stream_refresh_interval", 1)))
     hist_every = int(cfg.train.get("histogram_interval", 0) or 0)
-    grad_fn = tr.make_grad_fn(model, cfg, aug_spec, dev) if hist_every else None
+    grad_fn = (tr.make_grad_fn(model, cfg, aug_spec, dev, dp) if hist_every
+               else None)
     profile_dir = cfg.train.get("profile_dir")
     window = (ProfileWindow(os.path.join(cwd, str(profile_dir)),
                             start_step + 10, start_step + 15, dev)
-              if profile_dir else None)
-    saver = ckpt.AsyncCheckpointer()
+              if profile_dir and main else None)
+    saver = ckpt.AsyncCheckpointer() if main else None
     # the buffer generator's state after the last batch a step took (the
     # host feed's prefetch thread draws ahead)
     buffer_state = D.rng.bit_generator.state
@@ -284,25 +346,35 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
             rng["stream"] = replay.state()
         return {"generator": generator.get_state(), "rng": rng}
 
+    def stop_flags() -> Optional[torch.Tensor]:
+        """The ranks' stop requests summed (queued; read a step later)."""
+        if dp is None:
+            return None
+        flag = torch.full((1,), float(shutdown.requested), device=dev)
+        torch.distributed.all_reduce(flag, group=dp.group)
+        return flag
+
     step_seconds = []
     last, last_val = {}, {}
     completed = last_saved = start_step
+    stop = False   # agreed under dp (the flags read a step late)
     shutdown = GracefulShutdown()
-    with MetricLogger(results_dir) as logger, shutdown:
-        prefetcher = (Prefetcher(HostBatchFeed(D, B, L, dev), depth=2,
-                                 device=dev)
+    logger = MetricLogger(results_dir) if main else NullLogger()
+    with logger, shutdown:
+        prefetcher = (Prefetcher(HostBatchFeed(D, B, L, dev, train_rows),
+                                 depth=2, device=dev)
                       if replay is None else None)
         try:
             pending = None
             t_prev = t_start = time.perf_counter()
             for itr in range(start_step + 1, total + 1):
-                if shutdown.requested:
+                if stop or (dp is None and shutdown.requested):
                     break
                 if window is not None:
                     window.at_start(itr)
                 step_draws = draws.draw()
                 if replay is not None:
-                    idxs = replay.sample_indices(B, L)
+                    idxs = replay.sample_indices(B, L, train_rows)
                     metrics = train_step(replay.arrays, idxs, step_draws,
                                          generator)
                 else:
@@ -320,23 +392,29 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
                         torch.Generator(dev).manual_seed(seed + itr)), itr)
                 if feed == "stream" and itr % refresh_every == 0:
                     replay.refresh()
+                flags = stop_flags()
                 if pending is not None:
                     last = _host(pending[1])
                     logger.log(last, pending[0], "train")
-                pending = (itr, metrics)
+                    stop = stop or (pending[2] is not None
+                                    and float(pending[2]) > 0)
+                pending = (itr, metrics, flags)
                 if itr % val_every == 0:
                     if replay is not None:
-                        vmetrics = eval_step(val_replay.arrays,
-                                             val_replay.sample_indices(B, L),
-                                             draws.draw(), generator)
+                        vmetrics = eval_step(
+                            val_replay.arrays,
+                            val_replay.sample_indices(B, L, eval_rows),
+                            draws.draw(), generator)
                     else:
-                        vmetrics = eval_step(to_device(D_val.sample(B, L), dev),
-                                             draws.draw(), generator)
+                        vmetrics = eval_step(
+                            to_device(D_val.sample(B, L, eval_rows), dev),
+                            draws.draw(), generator)
                     last_val = _host(vmetrics)
                     logger.log(last_val, itr, "validation")
                 if ckpt_every and itr % ckpt_every == 0:
-                    saver.save(results_dir, itr, model, optimizer, scheduler,
-                               state_extra(), keep=keep)
+                    if saver is not None:
+                        saver.save(results_dir, itr, model, optimizer,
+                                   scheduler, state_extra(), keep=keep)
                     last_saved = itr
                 completed = itr
                 if window is not None:
@@ -352,20 +430,27 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
         if pending is not None:
             last = _host(pending[1])
             logger.log(last, pending[0], "train")
-        saver.wait()   # the write in flight; raises the writer's error
-        if (shutdown.requested and completed > last_saved
-                and bool(cfg.train.get("checkpoint_on_preempt", True))):
-            path = ckpt.save_checkpoint(
-                results_dir, completed, model, optimizer, scheduler,
-                state_extra())
-            print(f"preempted at step {completed}; checkpoint saved to {path}")
+            stop = stop or (pending[2] is not None and float(pending[2]) > 0)
+        requested = stop if dp is not None else shutdown.requested
+        if saver is not None:
+            saver.wait()   # the write in flight; raises the writer's error
+            if (requested and completed > last_saved
+                    and bool(cfg.train.get("checkpoint_on_preempt", True))):
+                path = ckpt.save_checkpoint(
+                    results_dir, completed, model, optimizer, scheduler,
+                    state_extra())
+                print(f"preempted at step {completed}; checkpoint saved to "
+                      f"{path}")
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         elapsed = time.perf_counter() - t_start
         if completed > start_step:
             logger.log({"steps_per_sec": (completed - start_step) / elapsed},
                        completed, "perf")
+    if dp is not None:   # rank 0's files are written before any rank returns
+        mesh_lib.barrier(dev, dp.group)
     return {"results_dir": results_dir, "model": model, "feed": feed,
             "start_step": start_step, "metrics": last,
             "validation_metrics": last_val, "step_seconds": step_seconds,
-            "profile_trace": None if window is None else window.path}
+            "profile_trace": None if window is None else window.path,
+            "preempted": requested}

@@ -15,7 +15,15 @@ Port of the JAX package's ``train/trainer.py``:
   ``grad_norm_<module>`` (the JAX package's module names);
 - ``train.grad_accum``: the prepared batch split into equal micro-batches
   along axis 1, their gradients and metrics averaged before one clip and
-  one Adam step.
+  one Adam step;
+- data parallelism (``dp``, ``parallel/mesh.DataParallel``): each rank
+  steps on its rows of the global batch; the draws of the input pipeline
+  and of the state noise are made for the global batch and cut to the
+  rank's rows, the norms take global batch statistics
+  (``synced_batch_stats``), and the gradients (one all-reduce per dtype)
+  and the metrics are averaged over the ranks before the clip, so every
+  rank clips the same global norm and takes the same Adam step, as optax
+  after XLA's psum.
 
 Randomness comes from an explicit ``torch.Generator`` on the data's device;
 ``generator=None`` in the loss is the deterministic path (posterior and
@@ -34,10 +42,13 @@ from multimodal_rssm_torch.data import augment as aug
 from multimodal_rssm_torch.data.device_buffer import gather_batch
 from multimodal_rssm_torch.losses import elbo
 from multimodal_rssm_torch.losses.overshoot import overshooting_losses
-from multimodal_rssm_torch.models.layers import frozen_running_stats
+from multimodal_rssm_torch.models.layers import (
+    frozen_running_stats, synced_batch_stats)
 from multimodal_rssm_torch.models.world_model import WorldModel
 from multimodal_rssm_torch.ops import cuda_kernels
-from multimodal_rssm_torch.ops.image import normalize_image
+from multimodal_rssm_torch.ops.image import normalize_image_deterministic
+from multimodal_rssm_torch.parallel.mesh import (
+    BatchShard, DataParallel, all_reduce_mean_, mean_metrics)
 
 # the JAX package's top-level parameter groups, for grad_norm_<module>
 GRAD_GROUPS = {"encoder": "encoder", "transition_model": "core",
@@ -187,17 +198,30 @@ def kernel_normalize_enabled(cfg, device: torch.device) -> bool:
     return device.type == "cuda"
 
 
+def _global_draw(draw: Callable, shape, shard: Optional[BatchShard],
+                 device: torch.device) -> torch.Tensor:
+    """``draw(shape)``, or under ``shard`` the rank's rows (axis 1) of a
+    draw for the global batch."""
+    if shard is None:
+        return draw(tuple(shape))
+    full = draw((shape[0], shard.batch_size, *shape[2:]))
+    return full.index_select(1, torch.as_tensor(shard.rows, device=device))
+
+
 def prepare_observations(observations: Mapping[str, torch.Tensor],
                          spec: AugSpec,
                          draws: Mapping[str, Mapping[str, np.ndarray]],
                          bit_depth: int, generator: torch.Generator,
-                         kernel_normalize: bool = False
+                         kernel_normalize: bool = False,
+                         shard: Optional[BatchShard] = None
                          ) -> Dict[str, torch.Tensor]:
     """Device half of the input pipeline (ref memory.py:189-209): crop /
     noise / PCA / clip for images, then the bit-depth normalise ("bin"
     images: no normalise).  ``kernel_normalize`` routes the normalise
     through ``cuda_kernels.normalize_image`` with a seed drawn on the
-    device from ``generator`` (no host sync)."""
+    device from ``generator`` (no host sync).  ``shard``: the observations
+    are one rank's rows of a global batch; every draw is the one of the
+    global batch, cut to those rows (K1 counts its noise in global rows)."""
     out = {}
     for name, arr in observations.items():
         mspec = spec.get(name)
@@ -212,8 +236,10 @@ def prepare_observations(observations: Mapping[str, torch.Tensor],
             img = img[:, :, dh:dh + oh, dw:dw + ow]
         delta = None
         if mspec.noise:
-            delta = torch.randn(img.shape, generator=generator,
-                                device=img.device) * (float(entry["noise"]) * 255.0)
+            delta = _global_draw(
+                lambda shp: torch.randn(shp, generator=generator,
+                                        device=img.device),
+                img.shape, shard, img.device) * (float(entry["noise"]) * 255.0)
         if mspec.pca:
             pca = torch.as_tensor(entry["pca"], device=img.device)
             delta = pca if delta is None else delta + pca
@@ -223,9 +249,16 @@ def prepare_observations(observations: Mapping[str, torch.Tensor],
             if kernel_normalize:
                 seed = torch.randint(0, 2 ** 62, (), generator=generator,
                                      device=img.device, dtype=torch.int64)
-                img = cuda_kernels.normalize_image(img, bit_depth, seed)
+                img = cuda_kernels.normalize_image(
+                    img, bit_depth, seed,
+                    None if shard is None else shard.row_map)
             else:
-                img = normalize_image(img, bit_depth, generator)
+                noise = _global_draw(
+                    lambda shp: torch.rand(shp, generator=generator,
+                                           device=img.device),
+                    img.shape, shard, img.device)
+                img = (normalize_image_deterministic(img, bit_depth)
+                       + noise / 2 ** bit_depth)
         out[name] = img
     return out
 
@@ -315,7 +348,8 @@ def make_loss_fn(model: WorldModel, cfg) -> Callable:
                     else None, states, actions, rewards, nonterminals,
                     chunk_size, overshooting_distance, free_nats,
                     overshooting_reward_scale, generator,
-                    "MoPoE" if mopoe else "PoE", model.latent_dist)
+                    "MoPoE" if mopoe else "PoE", model.latent_dist,
+                    model.noise_rows)
             kl_loss_sum = kl_loss_sum + overshooting_kl_beta * kl_os
             if predict_reward:
                 reward_l = reward_l + reward_os
@@ -411,16 +445,59 @@ def accumulated_backward(loss_fn: Callable, model: torch.nn.Module, batch,
             for k in per_micro[0]}
 
 
+@contextlib.contextmanager
+def data_parallel_scope(model: WorldModel, dp: Optional[DataParallel],
+                        shard: Optional[BatchShard] = None,
+                        micro: bool = True):
+    """Under ``dp``: the norms' batch statistics over the data group and the
+    state noise cut to ``shard``'s rows (default ``dp.train``; ``micro``:
+    the rows inside each micro-batch, else inside the whole batch).
+    Nothing without ``dp``."""
+    if dp is None:
+        yield
+        return
+    shard = dp.train if shard is None else shard
+    device = next(model.parameters()).device
+    with synced_batch_stats(model, dp.group), \
+            model.sharded_noise(shard.noise_rows(device, micro)):
+        yield
+
+
+def optimizer_step(model: WorldModel, loss_fn: Callable, batch,
+                   generator: Optional[torch.Generator], optimizer,
+                   scheduler, accum: int, max_norm: float,
+                   dp: Optional[DataParallel] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """One step on a prepared batch: ``accumulated_backward``, under ``dp``
+    the gradients and the metrics averaged over the data group, then the
+    clip and the optimizer's step (``apply_gradients``).  Returns the
+    metrics and the gradient norms."""
+    optimizer.zero_grad(set_to_none=True)
+    with data_parallel_scope(model, dp):
+        metrics = accumulated_backward(loss_fn, model, batch, generator,
+                                       accum)
+    if dp is not None:
+        all_reduce_mean_([p.grad for p in model.parameters()
+                          if p.grad is not None], dp.group)
+        metrics = mean_metrics(metrics, dp.group)
+    metrics.update(apply_gradients(model, optimizer, scheduler, max_norm))
+    return metrics
+
+
 def make_train_step(model: WorldModel, cfg, optimizer, scheduler,
                     aug_spec: AugSpec, device: torch.device,
-                    kernel_normalize: Optional[bool] = None):
+                    kernel_normalize: Optional[bool] = None,
+                    dp: Optional[DataParallel] = None):
     """(train_step, eval_step), each ``step(raw_batch, draws, generator) ->
     metrics`` (0-d device tensors; nothing synchronises).  ``train_step``
     updates the parameters, the optimizer state and the norms' running
     stats in place, over ``train.grad_accum`` micro-batches (which must
     divide ``train.batch_size``: ``ValueError`` here otherwise).
     ``kernel_normalize`` routes the normalise through K1's wrapper, or not;
-    None reads ``train.pallas_normalize``."""
+    None reads ``train.pallas_normalize``.  Under ``dp`` a raw batch is
+    this rank's rows of the global one (``dp.train.rows`` for a train
+    step, ``dp.eval.rows`` for an eval step) and the metrics are the global
+    batch's."""
     accum = resolve_grad_accum(cfg)
     if int(cfg.train.batch_size) % accum:
         raise ValueError(f"train.batch_size={cfg.train.batch_size} not "
@@ -431,31 +508,32 @@ def make_train_step(model: WorldModel, cfg, optimizer, scheduler,
                   if kernel_normalize is None else kernel_normalize)
     max_norm = float(cfg.rssm.grad_clip_norm)
 
-    def _prepare(raw_batch, draws, generator):
+    def _prepare(raw_batch, draws, generator, shard):
         observations, actions, rewards, nonterminals = raw_batch
         observations = prepare_observations(
-            observations, aug_spec, draws, bit_depth, generator, use_kernel)
+            observations, aug_spec, draws, bit_depth, generator, use_kernel,
+            shard)
         return observations, actions, rewards, nonterminals
 
     def train_step(raw_batch, draws, generator):
-        batch = _prepare(raw_batch, draws, generator)
-        optimizer.zero_grad(set_to_none=True)
-        metrics = accumulated_backward(loss_fn, model, batch, generator,
-                                       accum)
-        metrics.update(apply_gradients(model, optimizer, scheduler, max_norm))
-        return metrics
+        batch = _prepare(raw_batch, draws, generator,
+                         None if dp is None else dp.train)
+        return optimizer_step(model, loss_fn, batch, generator, optimizer,
+                              scheduler, accum, max_norm, dp)
 
     @torch.no_grad()
     def eval_step(raw_batch, draws, generator):
-        batch = _prepare(raw_batch, draws, generator)
-        _, metrics = loss_fn(batch, generator, False)
-        return metrics
+        batch = _prepare(raw_batch, draws, generator,
+                         None if dp is None else dp.eval)
+        with data_parallel_scope(model, dp, None if dp is None else dp.eval):
+            _, metrics = loss_fn(batch, generator, False)
+        return metrics if dp is None else mean_metrics(metrics, dp.group)
 
     return train_step, eval_step
 
 
 def make_grad_fn(model: WorldModel, cfg, aug_spec: AugSpec,
-                 device: torch.device):
+                 device: torch.device, dp: Optional[DataParallel] = None):
     """``grad_fn(raw_batch, draws, generator) -> {name: gradient}``: one
     forward and backward of the train step's loss (the whole batch, its
     input pipeline and normalise path), for ``train.histogram_interval``'s
@@ -463,7 +541,9 @@ def make_grad_fn(model: WorldModel, cfg, aug_spec: AugSpec,
     only: the caller passes a generator of its own, no norm's running stats
     move (``frozen_running_stats``), and the gradients come from
     ``torch.autograd.grad``, so no ``.grad`` and no optimizer state is
-    touched.  A parameter the loss does not reach gets a zero gradient."""
+    touched.  A parameter the loss does not reach gets a zero gradient.
+    Under ``dp`` the raw batch is this rank's train rows and the gradients
+    are averaged over the data group (the global batch's)."""
     loss_fn = make_loss_fn(model, cfg)
     bit_depth = int(cfg.env.bit_depth)
     use_kernel = kernel_normalize_enabled(cfg, device)
@@ -472,28 +552,35 @@ def make_grad_fn(model: WorldModel, cfg, aug_spec: AugSpec,
     def grad_fn(raw_batch, draws, generator):
         observations, actions, rewards, nonterminals = raw_batch
         observations = prepare_observations(
-            observations, aug_spec, draws, bit_depth, generator, use_kernel)
-        with frozen_running_stats(model):
+            observations, aug_spec, draws, bit_depth, generator, use_kernel,
+            None if dp is None else dp.train)
+        with frozen_running_stats(model), \
+                data_parallel_scope(model, dp, micro=False):
             loss, _ = loss_fn((observations, actions, rewards, nonterminals),
                               generator, True)
-        grads = torch.autograd.grad(loss, [p for _, p in named],
-                                    allow_unused=True)
-        return {n: torch.zeros_like(p) if g is None else g
-                for (n, p), g in zip(named, grads)}
+            grads = torch.autograd.grad(loss, [p for _, p in named],
+                                        allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(named, grads)}
+        if dp is not None:
+            all_reduce_mean_(grads.values(), dp.group)
+        return grads
 
     return grad_fn
 
 
 def make_device_resident_steps(model: WorldModel, cfg, optimizer, scheduler,
                                aug_spec: AugSpec, device: torch.device,
-                               observation_names, row_shapes):
+                               observation_names, row_shapes,
+                               dp: Optional[DataParallel] = None):
     """(train_step, eval_step) over a device-resident replay
     (``data/device_buffer.py``), each ``step(buffer_arrays, idxs, draws,
     generator) -> metrics``: the chunks are gathered on the device from
-    the [n, L] index matrix, then the step is ``make_train_step``'s on the
-    same raw batch layout."""
+    the [n, L] index matrix (under ``dp``: this rank's rows of the global
+    one), then the step is ``make_train_step``'s on the same raw batch
+    layout."""
     train_raw, eval_raw = make_train_step(model, cfg, optimizer, scheduler,
-                                          aug_spec, device)
+                                          aug_spec, device, dp=dp)
     names = tuple(observation_names)
 
     def train_step(buffer_arrays, idxs, draws, generator):

@@ -260,11 +260,14 @@ def test_synchronous_cadence_checkpoints_raise(data_dir):
     ("train.mesh.data=4", "item 14"),
     ("train.mesh.model=2", "item 14")])
 def test_unported_options_raise(data_dir, override, match):
-    """A mesh of more than one device (multi-GPU training, not ported);
+    """The model axis (column-sharded kernels, ROADMAP item 14b), alone and
+    beside 4 data ranks, raises before any rank starts; the data and slice
+    axes train (tests/test_torch_port_parallel.py), and
     ``train.histogram_interval`` and ``train.profile_dir`` no longer raise
     (tests/test_torch_port_bridges.py)."""
-    with pytest.raises(NotImplementedError, match=match):
-        cli_train.main(_args(data_dir, "train.train_iteration=1", override))
+    with pytest.raises(NotImplementedError, match=match + "b"):
+        cli_train.main(_args(data_dir, "train.train_iteration=1", override,
+                             "train.mesh.model=2"))
 
 
 # -- resume and preemption through the CLI ---------------------------------------------

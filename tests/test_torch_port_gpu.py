@@ -909,3 +909,53 @@ def test_exported_artifacts_on_card_answer_over_http(cuda, tmp_path, amp):
     assert sorted(paths) == ["agent_step", "decode", "filter_step",
                              "plan_step"]
     assert not any(ck.launch_counts().values())
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_world_trains_like_no_mesh(cuda, tmp_path):
+    """``train.mesh.data=1`` through the train CLI is a one-rank NCCL world
+    in this process: 3 float32 steps and a validation at small widths, K1
+    once per train and validation step, the first step's loss within rtol
+    1e-5 of the mesh-less run's (the same weights and draws; BatchNorm takes
+    its moments from all-reduced sums there); no world is left joined.
+    Then K1 on rank 1's shard of 2 (offset 2 of 4 rows), bit-equal to the
+    plain version's rows of the global draw."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from multimodal_rssm_torch.cli import train as cli_train
+    from multimodal_rssm_torch.data.synthetic import write_synthetic_dataset
+    from multimodal_rssm_torch.parallel.mesh import BatchShard
+
+    shapes = {"image_horizon": [3, 64, 64], "sound": [128, 20]}
+    write_synthetic_dataset(str(tmp_path / "train"), 2, 30, shapes)
+    write_synthetic_dataset(str(tmp_path / "val"), 1, 30, shapes, seed=9)
+    losses = []
+    for i, mesh in enumerate(([], ["train.mesh.data=1"])):
+        ck.reset_launch_counts()
+        result = cli_train.main(SMALL + [
+            f"train.train_data_path=[{tmp_path}/train]",
+            f"train.validation_data_path=[{tmp_path}/val]",
+            "train.batch_size=4", "train.chunk_size=4",
+            "train.train_iteration=3", "train.validation_interval=3",
+            "train.experience_size=200", "train.pallas_normalize=true",
+            f"main.experiment_name=nccl_{i}", *mesh, "--device", "cuda",
+            "--cwd", str(tmp_path)])
+        assert ck.launch_counts()["normalize_image"] == 4
+        assert not dist.is_initialized()
+        with open(os.path.join(result["results_dir"], "metrics.jsonl")) as f:
+            losses.append([r["loss/train"] for r in map(json.loads, f)
+                           if "loss/train" in r])
+    assert len(losses[1]) == 3
+    assert abs(losses[1][0] - losses[0][0]) <= 1e-5 * abs(losses[0][0])
+
+    x = torch.randint(0, 256, (3, 4, 64, 64, 3), device=cuda,
+                      dtype=torch.uint8).float()
+    seed = torch.tensor(5, device=cuda)
+    shard = BatchShard(4, 1, 2)
+    before = ck.normalize_image.launches
+    got = ck.normalize_image(x[:, 2:], 5, seed, shard.row_map)
+    assert ck.normalize_image.launches == before + 1
+    assert torch.equal(got, ck.normalize_image_plain(x, 5, seed)[:, 2:])

@@ -368,7 +368,8 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 # the training run's feed and persistence, and the native gather's source
 FEED_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
     "core.runtime", "data.native", "data.device_buffer", "train.prefetch",
-    "io.checkpoint", "train.loop", "cli.train")]
+    "io.checkpoint", "train.loop", "cli.train", "parallel.mesh",
+    "parallel.feed", "parallel.launch")]
 # offline evaluation and its entry points
 EVAL_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
     "eval.state_estimation", "eval.imagination", "eval.metrics",
