@@ -34,7 +34,24 @@ each printed as one JSON line:
                same global batch (the JAX package's DP tolerance, the ranks
                bit-equal), then 6 bf16 steps and a validation through
                train.loop.run (steps/s, each rank's peak memory, K1 7
-               times a rank, one run dir);
+               times a rank, one run dir); the model axis
+               (train.mesh.model, phase_model_axis): (c) data=1 x model=2,
+               two ranks the same way, the float32 step on the whole
+               global batch (10 of the 50 rows: two ranks each holding
+               every row fit no more) held against one rank at the JAX
+               package's model-axis tolerance (the ranks' whole weights
+               bit-equal, each rank's blocks its columns of the whole),
+               then 6 bf16 steps and a validation at batch 50 x chunk 50
+               through train.loop.run and one traced step (steps/s, peak
+               memory, K1 7 times a rank, model-group collectives and the
+               model_parallel spans' ms a step); (d) data=2 x model=2
+               through the train CLI, four ranks joined as torchrun joins
+               them (over gloo on one card: more ranks than cards), batch
+               8 x chunk 10:
+               3 steps, --resume to 5 bit-equal to a 5-step run, the
+               checkpoint whole and read mesh-less by the check_model CLI
+               (`python3 chip_smoke.py --model-axis` runs the build and
+               (c), (d) alone);
 3b. feed    -- the same CLI on a dataset of a real set's size (360 x 120
                episodes, 43,200 rows, 0.97 GB; experience_size to match),
                12 steps a run, with train.device_replay=true (the whole
@@ -122,7 +139,8 @@ each printed as one JSON line:
                stored values, and the reader's MB/s;
 3h. serve   -- serving on 3c's run (models_6.pt, full width, bf16) with
                3f's behavior/ checkpoint: the export_model CLI (all four
-               artifacts at batch 1, --plan with rssm.predict_reward=true;
+               artifacts at batch 1, --plan with rssm.predict_reward=true
+               and 2 CEM iterations of 10: the export traces each;
                seconds per artifact, .pt2 bytes), each artifact loaded
                (seconds) and held against the eager port on the same raw
                frame and key (filter_step and decode within 1e-5 of max
@@ -1541,7 +1559,11 @@ def phase_bridges(tmp: str, run_dir: str, device_name: str) -> dict:
 SERVE_CALLS = 50       # timed calls a path, after SERVE_WARMUP
 SERVE_WARMUP = 5
 SERVE_RTOL = 1e-5      # artifact against the eager port, relative to max |eager|
-SERVE_OVERRIDES = ["rssm.predict_reward=true"]   # the control phase's CEM
+# the control phase's CEM, at 2 of its 10 iterations: torch.export traces
+# every iteration on the host (125-198 s for plan_step's export and 18-30 s
+# for its load at 10 on an H100's host, the script's longest step)
+SERVE_OVERRIDES = ["rssm.predict_reward=true",
+                   "planner.optimisation_iters=2"]
 
 
 def _post_npz(url: str, arrays: dict) -> dict:
@@ -1579,7 +1601,7 @@ def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
     """Serving on the checkpoint phase's run (models_6.pt, the default
     configuration at full width, bf16, with the control phase's behavior/
     checkpoint): the export CLI (all four artifacts at batch 1,
-    ``--plan`` with rssm.predict_reward=true; seconds per artifact, .pt2
+    ``--plan`` with ``SERVE_OVERRIDES``; seconds per artifact, .pt2
     bytes), each artifact loaded (seconds) and held against the eager port
     on the same raw frame and key (filter_step and decode within SERVE_RTOL
     of max |eager|, in bf16 as shipped and exported again in float32; the
@@ -2710,15 +2732,15 @@ PARALLEL_RTOL, PARALLEL_ATOL, PARALLEL_LOOSE = 2e-4, 2e-5, 5e-4
 PARALLEL_STATS_RTOL, PARALLEL_STATS_ATOL = 1e-4, 1e-6
 
 
-def _two_tier(got: dict, want: dict, lr: float) -> dict:
-    """The JAX package's data-parallel bound of ``got`` against ``want``
-    (name -> tensor)."""
+def _two_tier(got: dict, want: dict, lr: float, rtol: float = PARALLEL_RTOL,
+              atol: float = PARALLEL_ATOL) -> dict:
+    """The JAX package's two-tier bound of ``got`` against ``want`` (name
+    -> tensor): its data-parallel tolerance by default."""
     total = loose = 0
     worst = 0.0
     for name, w in want.items():
         d = (got[name].double() - w.double()).abs()
-        loose += int((d > PARALLEL_ATOL + PARALLEL_RTOL * w.double().abs())
-                     .sum())
+        loose += int((d > atol + rtol * w.double().abs()).sum())
         total += d.numel()
         worst = max(worst, float(d.max()) if d.numel() else 0.0)
     return {"worst_abs": worst, "loose": loose, "elements": total,
@@ -2740,13 +2762,16 @@ def _stats_err(got: dict, want: dict) -> float:
 
 def parallel_f32_step(spec: dict, dev, dp) -> dict:
     """One float32 train step (K1 on, the spec's generator seed) on the
-    spec's global raw batch, or under ``dp`` on this rank's rows of it:
-    metrics, parameters, running stats, K1's launches, peak memory."""
+    spec's global raw batch, or under ``dp`` on this rank's rows of it
+    (under ``dp.model`` with the weights column-sharded first): metrics,
+    the whole parameters, this rank's blocks of the sharded ones, running
+    stats, K1's launches, peak memory."""
     import torch
 
     from multimodal_rssm_torch.core.config import compose
     from multimodal_rssm_torch.models.world_model import WorldModel
     from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.parallel import tensor as tensor_lib
     from multimodal_rssm_torch.parallel.mesh import shard_batch
     from multimodal_rssm_torch.train import trainer as tr
 
@@ -2755,6 +2780,9 @@ def parallel_f32_step(spec: dict, dev, dp) -> dict:
     model.load_state_dict(spec["state_dict"])
     model.to(dev)
     opt, sched = tr.build_optimizer(cfg, model)
+    if dp is not None and dp.model is not None:
+        tensor_lib.shard_model_(model, dp.model,
+                                tensor_lib.MIN_SHARD_WIDTH, opt)
     train_step, _ = tr.make_train_step(model, cfg, opt, sched,
                                        spec["aug_spec"], dev,
                                        kernel_normalize=True, dp=dp)
@@ -2766,9 +2794,12 @@ def parallel_f32_step(spec: dict, dev, dp) -> dict:
     metrics = train_step(raw, spec["draws"],
                          torch.Generator(dev).manual_seed(spec["seed"]))
     torch.cuda.synchronize(dev)
+    params = tensor_lib.full_named(
+        {n: p.detach() for n, p in model.named_parameters()}, model)
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
-           "params": {n: p.detach().cpu()
-                      for n, p in model.named_parameters()},
+           "params": {n: p.cpu() for n, p in params.items()},
+           "blocks": {n: p.detach().cpu() for n, (p, _, _)
+                      in tensor_lib.sharded(model).items()},
            "stats": {k: v.cpu() for k, v in model.state_dict().items()
                      if k.endswith(("running_mean", "running_var"))},
            "k1_launches": ck.launch_counts()["normalize_image"],
@@ -2844,21 +2875,534 @@ def parallel_rank(rank: int, nprocs: int, init_method: str, backend: str,
         dist.destroy_process_group()
 
 
-def _collective_device_ms(trace_path: str) -> dict:
+# the model axis (train.mesh.model: column-sharded weights, parallel/tensor.py)
+MODEL_AXIS_MESH = ["train.mesh.data=1", "train.mesh.model=2"]
+# (c)'s float32 step: the largest global batch of these that two ranks, each
+# holding every row, fit beside each other, by the one-process float32
+# step's 75.28 GiB at batch 50 (PR 13) and the 5.91 GiB the card held
+# beyond two ranks' allocators there
+MODEL_AXIS_F32_BATCHES = (50, 25, 10)
+F32_STEP_GIB_AT_50, TWO_RANK_OVERHEAD_GIB = 75.28, 5.91
+# the JAX package's model-axis tolerance (tests/sharded_cases.py
+# case_model_axis): the loss within rtol 1e-5, all but 5e-4 of the
+# parameters within rtol 2e-2 / atol 5e-4 and every one within 2 lr
+MODEL_AXIS_RTOL, MODEL_AXIS_ATOL = 2e-2, 5e-4
+# (d): the global batch of data=2 x model=2 ranks, and its chunk (cut from
+# 50: every RSSM step adds 18 model-group collectives, each of which waits
+# for the other ranks' work on the shared card)
+MODEL_AXIS_CLI_BATCH, MODEL_AXIS_CLI_CHUNK = 8, 10
+MODEL_AXIS_CLI_STEPS = (3, 5)   # (d): the run resumed, and the whole run
+# --model-axis-pairs: the arms (model_axis_cli_rank's ``strict``) and how
+# many (3-step, 5-step) pairs of (d)'s worlds each runs at once on the card
+MODEL_AXIS_PAIR_ARMS = (None, "flag", "fill")
+MODEL_AXIS_PAIRS = 2
+
+
+def model_axis_rank(rank: int, nprocs: int, init_method: str, backend: str,
+                    spec_path: str, out_dir: str) -> None:
+    """One rank of (c)'s ``train.mesh.model=2`` world (spawned by
+    ``parallel.launch.spawn``): the float32 step on the whole global batch
+    with the weights column-sharded, then the shipped bf16 settings through
+    ``train.loop.run``, then one more bf16 step on the run's model traced
+    by ``torch.profiler`` (the ``model_parallel`` spans); writes
+    ``rank{rank}.pt``.  The allocator grows its segments in place
+    (``expandable_segments``): two full-width ranks at batch 50 fill the
+    card but for ~0.1 GiB with fixed segments."""
+    import gc
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.core.device import configure_float32
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.parallel import mesh as mesh_lib
+    from multimodal_rssm_torch.parallel import tensor as tensor_lib
+    from multimodal_rssm_torch.train import trainer as tr
+    from multimodal_rssm_torch.train.loop import ranks_per_device, run
+
+    os.environ["LOCAL_WORLD_SIZE"] = str(nprocs)
+    configure_float32()
+    spec = torch.load(spec_path, weights_only=False)
+    dev = mesh_lib.init_distributed(
+        "cuda:0" if backend == "gloo" else f"cuda:{rank}", backend,
+        init_method, rank, nprocs, PARALLEL_COLLECTIVE_S)
+    try:
+        cfg = compose(overrides=spec["f32_overrides"] + MODEL_AXIS_MESH)
+        dp = mesh_lib.data_parallel(mesh_lib.mesh_from_config(cfg, "cuda"),
+                                    int(cfg.train.batch_size))
+        torch.backends.cudnn.deterministic = True
+        try:
+            out = {"rank": rank, "model_rank": dp.model.rank,
+                   "rows": dp.train.rows.tolist(),
+                   "f32": parallel_f32_step(spec, dev, dp)}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ck.reset_launch_counts()
+        bf16_cfg = compose(overrides=spec["bf16_overrides"])
+        result = run(bf16_cfg, cwd=spec["root"], device=str(dev))
+        out["bf16"] = {
+            "launches": ck.launch_counts(), "feed": result["feed"],
+            "step_seconds": result["step_seconds"],
+            "loss": result["metrics"]["loss"],
+            "grad_norm": result["metrics"]["grad_norm"],
+            "validation_loss": result["validation_metrics"]["loss"],
+            "results_dir": result["results_dir"],
+            "sharded": len(tensor_lib.sharded(result["model"])),
+            "max_memory_allocated_GiB":
+                torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "max_memory_reserved_GiB":
+                torch.cuda.max_memory_reserved(dev) / 2 ** 30,
+            "ranks_per_device": ranks_per_device(dev, dp)}
+        # one more step on the run's (sharded) model, traced
+        model = result["model"]
+        del result
+        opt, sched = tr.build_optimizer(bf16_cfg, model)
+        dp50 = mesh_lib.data_parallel(
+            mesh_lib.mesh_from_config(bf16_cfg, "cuda"),
+            int(bf16_cfg.train.batch_size))
+        train_step, _ = tr.make_train_step(model, bf16_cfg, opt, sched,
+                                           spec["aug_spec"], dev,
+                                           kernel_normalize=True, dp=dp50)
+        obs, *rest = spec["raw_bf16"]
+        raw = ({k: v.to(dev) for k, v in obs.items()},
+               *(x.to(dev) for x in rest))
+        g = torch.Generator(dev).manual_seed(spec["seed"])
+        torch.cuda.synchronize(dev)
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            train_step(raw, spec["draws"], g)
+            torch.cuda.synchronize(dev)
+            out["traced_step_s"] = time.perf_counter() - t0
+        trace = os.path.join(out_dir, f"trace_rank{rank}.json")
+        prof.export_chrome_trace(trace)
+        out["trace"] = _collective_device_ms(trace, tensor_lib.SPAN)
+        # one model-group all-reduce with no other work queued: an RSSM
+        # layer's [50, 1024] output, and up_conversion's [2450, 32768]
+        out["idle_all_reduce_ms"] = {}
+        for shape, reps in (((50, 1024), 20), ((2450, 32768), 5)):
+            x = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+            dist.all_reduce(x, group=dp50.model.group)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                dist.all_reduce(x, group=dp50.model.group)
+            torch.cuda.synchronize(dev)
+            out["idle_all_reduce_ms"][str(list(shape))] = (
+                (time.perf_counter() - t0) / reps * 1e3)
+            del x
+        mesh_lib.barrier(dev)
+        free, total = torch.cuda.mem_get_info(dev)
+        out["bf16"]["card_used_GiB"] = (total - free) / 2 ** 30
+        mesh_lib.barrier(dev)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def model_axis_cli_rank(rank: int, nprocs: int, port: int, cards: int,
+                        argv: list, out_dir: str,
+                        strict: Optional[str] = None) -> None:
+    """One rank of (d)'s world: the train CLI joined as ``torchrun`` joins
+    it (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``;
+    every rank sees the one card), with deterministic cuDNN, so that a
+    resumed run can equal the whole one bit for bit (``strict``: "flag"
+    adds ``torch.use_deterministic_algorithms``, "fill" that and its fill
+    of uninitialised memory); writes the rank's backend, K1 launches, peak
+    memory and result to ``cli{rank}.pt``."""
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(nprocs),
+                      LOCAL_RANK=str(rank % cards),
+                      LOCAL_WORLD_SIZE=str(nprocs),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    sys.path.insert(0, REPO)
+    from multimodal_rssm_torch.cli.train import main as train_main
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.parallel.mesh import default_backend
+
+    torch.backends.cudnn.deterministic = True
+    if strict is not None:
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = (
+            strict == "fill")
+    ck.reset_launch_counts()
+    result = train_main(argv)
+    torch.save({"backend": default_backend(torch.device("cuda")),
+                "launches": ck.launch_counts(),
+                "max_memory_allocated_GiB":
+                    torch.cuda.max_memory_allocated() / 2 ** 30,
+                "result": {k: v for k, v in result.items() if k != "model"}},
+               os.path.join(out_dir, f"cli{rank}.pt"))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _metric_lines(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [{k: v for k, v in r.items() if k != "time"}
+                for r in map(json.loads, f)
+                if not any(k.endswith("/perf") for k in r)]
+
+
+def _same_state(a, b) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_state(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_state(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def _model_axis_cli_tail(tmp: str) -> list:
+    return ["--device", "cuda", "--cwd", tmp,
+            "--dist-timeout", str(PARALLEL_COLLECTIVE_S)]
+
+
+def _model_axis_cli_argv(tmp: str, steps: int, experiment: str) -> list:
+    """(d)'s train CLI arguments: ``data=2 x model=2`` at
+    ``MODEL_AXIS_CLI_BATCH`` x ``MODEL_AXIS_CLI_CHUNK``, ``steps`` steps
+    with a checkpoint at the last, a validation every 3."""
+    return [f"train.train_data_path=[{tmp}/train]",
+            f"train.validation_data_path=[{tmp}/validation]",
+            f"train.batch_size={MODEL_AXIS_CLI_BATCH}",
+            f"train.chunk_size={MODEL_AXIS_CLI_CHUNK}",
+            "train.experience_size=1000",
+            "train.pallas_normalize=true", "train.mesh.data=2",
+            "train.mesh.model=2", "train.validation_interval=3",
+            f"train.train_iteration={steps}",
+            f"train.checkpoint_interval={steps}",
+            f"main.experiment_name={experiment}",
+            *_model_axis_cli_tail(tmp)]
+
+
+def phase_model_axis(tmp: str, device_name: str) -> dict:
+    """The model axis (``train.mesh.model``) on the card, in phase
+    parallel.  (c) ``data=1 x model=2``: two ranks (NCCL on two cards where
+    there are two, else both on this card over gloo) through
+    ``parallel.launch.spawn``: the float32 step (deterministic cuDNN, K1
+    on) of each rank on the whole global batch (the largest of
+    ``MODEL_AXIS_F32_BATCHES`` two ranks fit) held against a one-rank
+    replicated step here on the same batch and weights at the JAX
+    package's model-axis tolerance, the ranks' whole parameters bit-equal,
+    each rank's blocks its columns of the whole; then the shipped bf16
+    settings for 6 steps and a validation at batch 50 x chunk 50 through
+    ``train.loop.run`` (``rssm.remat=true`` where two ranks do not fit
+    without it), and one more traced step: steps/s a rank, each rank's
+    peak memory, K1's launches, the model group's collectives and the
+    ``model_parallel`` spans' ms a step.  (d) ``data=2 x model=2`` through
+    the train CLI (NCCL on four cards, else gloo: the CLI's choice where
+    the ranks outnumber the cards, every rank on the one card), four ranks
+    joined as ``torchrun`` joins them, batch 8 x chunk 10, deterministic cuDNN: 3
+    steps with a checkpoint at 3, ``--resume`` to 5 against an
+    uninterrupted 5-step run (equal metrics and ``models_5.pt``), then
+    ``models_3.pt`` mesh-less through the check_model CLI.  Returns K1's
+    launches by path."""
+    import gc
+
+    import torch
+    import torch.multiprocessing  # noqa: F401 (ProcessRaisedException)
+
+    from multimodal_rssm_torch.cli import check_model
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.data.buffer import build_buffer, load_dataset
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.parallel import launch
+    from multimodal_rssm_torch.parallel import tensor as tensor_lib
+    from multimodal_rssm_torch.train import trainer as tr
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    record = {"phase": "parallel/model_axis", "device": device_name,
+              "backend": backend, "cards": cards}
+    bad = []
+
+    # (c) data=1 x model=2
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    f32_batch = max(b for b in MODEL_AXIS_F32_BATCHES
+                    if 2 * F32_STEP_GIB_AT_50 * b / 50
+                    + TWO_RANK_OVERHEAD_GIB <= total_gib
+                    or b == MODEL_AXIS_F32_BATCHES[-1])
+    base = [f"train.train_data_path=[{tmp}/train]",
+            f"train.validation_data_path=[{tmp}/validation]",
+            f"train.chunk_size={SHAPE[0]}", "train.experience_size=1000"]
+    cfg = compose(overrides=base + [f"train.batch_size={SHAPE[1]}"])
+    D = build_buffer(cfg, seed=0)
+    load_dataset(tmp, D, cfg.train.train_data_path)
+    aug_spec = tr.build_aug_spec(D)
+    raw = D.sample(SHAPE[1], SHAPE[0])
+    raw = ({k: torch.from_numpy(v) for k, v in raw[0].items()},
+           *(torch.from_numpy(x) for x in raw[1:]))
+    cut = ({k: v[:, :f32_batch] for k, v in raw[0].items()},
+           *(x[:, :f32_batch] for x in raw[1:]))
+    model = WorldModel.from_config(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    lr = float(cfg.rssm.model_learning_rate)
+    spec_c = {"f32_overrides": base + [f"train.batch_size={f32_batch}",
+                                       "train.use_amp=false"],
+              "state_dict": model.state_dict(), "aug_spec": aug_spec,
+              "raw": cut, "raw_bf16": raw,
+              "draws": tr.HostAugmentDraws(D, aug_spec, seed=1).draw(),
+              "seed": 5, "root": tmp}
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = parallel_f32_step(spec_c, torch.device("cuda"), None)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    for remat in ("false", "true"):
+        spec_c["bf16_overrides"] = base + MODEL_AXIS_MESH + [
+            f"train.batch_size={SHAPE[1]}",
+            f"train.train_iteration={PARALLEL_BF16_STEPS}",
+            f"train.validation_interval={PARALLEL_BF16_STEPS}",
+            "train.pallas_normalize=true", f"rssm.remat={remat}",
+            f"main.experiment_name=model_axis_{remat}"]
+        spec_path = os.path.join(tmp, "model_axis_spec.pt")
+        torch.save(spec_c, spec_path)
+        out_dir = os.path.join(tmp, f"model_axis_ranks_{remat}")
+        os.makedirs(out_dir, exist_ok=True)
+        try:
+            t0 = time.perf_counter()
+            with launch.file_rendezvous() as init_method:
+                launch.spawn(model_axis_rank, 2, (2, init_method, backend,
+                                                  spec_path, out_dir),
+                             timeout=PARALLEL_WORLD_S)
+            world_s = time.perf_counter() - t0
+        except torch.multiprocessing.ProcessRaisedException as e:
+            if remat == "true" or "out of memory" not in str(e).lower():
+                raise
+            emit({"phase": "parallel/model_axis", "note": "two full-width "
+                  "model-axis ranks do not fit the card at batch 50: "
+                  "rssm.remat=true", "error": str(e)[-400:]})
+            gc.collect()
+            continue
+        break
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in (0, 1)]
+    check = {"f32_batch": f32_batch, "f32_batch_cut_from": SHAPE[1],
+             "remat": remat == "true", "world_seconds": world_s,
+             "one_rank": {"loss": one["metrics"]["loss"],
+                          "grad_norm": one["metrics"]["grad_norm"],
+                          "k1_launches": one["k1_launches"],
+                          "max_memory_allocated_GiB":
+                              one["max_memory_allocated_GiB"]},
+             "tolerance": {"loss_rtol": PARALLEL_LOSS_RTOL,
+                           "param_rtol": MODEL_AXIS_RTOL,
+                           "param_atol": MODEL_AXIS_ATOL,
+                           "param_max_loose": PARALLEL_LOOSE,
+                           "param_hard_abs": 2 * lr,
+                           "stats_rtol": PARALLEL_STATS_RTOL,
+                           "stats_atol_x_max": PARALLEL_STATS_ATOL}}
+    want_blocks = tensor_lib.param_spec(model, 2)
+    for r, got in enumerate(ranks):
+        f = got["f32"]
+        loss_rel = abs(f["metrics"]["loss"] - one["metrics"]["loss"]) / abs(
+            one["metrics"]["loss"])
+        norm_rel = abs(f["metrics"]["grad_norm"]
+                       - one["metrics"]["grad_norm"]) / abs(
+            one["metrics"]["grad_norm"])
+        params = _two_tier(f["params"], one["params"], lr, MODEL_AXIS_RTOL,
+                           MODEL_AXIS_ATOL)
+        stats = _stats_err(f["stats"], one["stats"])
+        columns = set(f["blocks"]) == set(want_blocks) and all(
+            torch.equal(block, f["params"][n].narrow(
+                want_blocks[n], got["model_rank"] * block.shape[
+                    want_blocks[n]], block.shape[want_blocks[n]]))
+            for n, block in f["blocks"].items())
+        check[f"rank{r}"] = {
+            "rows": [got["rows"][0], got["rows"][-1]],
+            "loss": f["metrics"]["loss"], "loss_rel_err": loss_rel,
+            "grad_norm_rel_err": norm_rel, "params": params,
+            "stats_err_over_tol": stats, "blocks": len(f["blocks"]),
+            "blocks_are_columns_of_the_whole": columns,
+            "k1_launches_f32": f["k1_launches"],
+            "f32_max_memory_allocated_GiB": f["max_memory_allocated_GiB"]}
+        if (loss_rel > PARALLEL_LOSS_RTOL or norm_rel > 1e-4
+                or not params["ok"] or stats > 1 or not columns):
+            bad.append(f"(c) rank {r}: {check[f'rank{r}']}")
+        if f["k1_launches"] != 1:
+            bad.append(f"(c) rank {r}: K1 launched {f['k1_launches']} times")
+    same = all(torch.equal(ranks[0]["f32"][part][k], ranks[1]["f32"][part][k])
+               for part in ("params", "stats") for k in ranks[0]["f32"][part])
+    check["ranks_bit_equal"] = same
+    if not same:
+        bad.append("(c) the two ranks' whole parameters differ")
+    record["c_f32"] = check
+    bf = {}
+    for r, got in enumerate(ranks):
+        b, t = got["bf16"], got["trace"]
+        bf[f"rank{r}"] = {
+            "steps_per_s_median_after_2": 1.0 / statistics.median(
+                b["step_seconds"][2:-1]),
+            "step_seconds": b["step_seconds"], "feed": b["feed"],
+            "sharded_weights": b["sharded"],
+            "max_memory_allocated_GiB": b["max_memory_allocated_GiB"],
+            "max_memory_reserved_GiB": b["max_memory_reserved_GiB"],
+            "ranks_per_device": b["ranks_per_device"],
+            "k1_launches": b["launches"]["normalize_image"],
+            "loss": b["loss"], "validation_loss": b["validation_loss"],
+            "traced_step_s": got["traced_step_s"],
+            "model_group_collectives_per_step": t["spans"],
+            "model_parallel_span_device_ms_per_step": t["span_ms"],
+            "model_parallel_span_device_events_per_step":
+                t["span_device_events"],
+            "model_parallel_span_host_ms_per_step": t["span_host_ms"],
+            "idle_bf16_all_reduce_ms": got["idle_all_reduce_ms"],
+            "nccl_kernels_per_step": t["nccl_kernels"]}
+        if b["ranks_per_device"] != (1 if cards >= 2 else 2):
+            bad.append(f"(c) rank {r}: ranks_per_device "
+                       f"{b['ranks_per_device']} with {cards} card(s)")
+        if (b["launches"]["normalize_image"] != PARALLEL_BF16_STEPS + 1
+                or b["sharded"] != len(want_blocks) or not t["spans"]
+                or not all(math.isfinite(v) for v in
+                           (b["loss"], b["validation_loss"]))):
+            bad.append(f"(c) rank {r} bf16: {bf[f'rank{r}']}")
+    bf["losses_bit_equal"] = (ranks[0]["bf16"]["loss"]
+                              == ranks[1]["bf16"]["loss"])
+    bf["card_used_GiB"] = ranks[0]["bf16"]["card_used_GiB"]
+    record["c_bf16"] = bf
+    record["c_run_dirs"] = len({got["bf16"]["results_dir"]
+                                for got in ranks})
+    if record["c_run_dirs"] != 1:
+        bad.append(f"(c) {record['c_run_dirs']} run dirs")
+    del model, one, ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) data=2 x model=2 through the train CLI, four ranks
+    d_backend = "nccl" if cards >= 4 else "gloo"
+    tail = _model_axis_cli_tail(tmp)
+    first, whole = MODEL_AXIS_CLI_STEPS
+    worlds = {"first": _model_axis_cli_argv(tmp, first, "model_axis_cli_3"),
+              "whole": _model_axis_cli_argv(tmp, whole, "model_axis_cli_5")}
+
+    def cli_world(name, argv):
+        out_dir = os.path.join(tmp, f"model_axis_cli_{name}")
+        os.makedirs(out_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        launch.spawn(model_axis_cli_rank, 4, (4, _free_port(), cards, argv,
+                                              out_dir),
+                     timeout=PARALLEL_WORLD_S)
+        got = [torch.load(os.path.join(out_dir, f"cli{r}.pt"),
+                          weights_only=False) for r in range(4)]
+        got[0]["wall_seconds"] = time.perf_counter() - t0
+        return got
+
+    # one world at a time, so that the resume check holds the checkpoint
+    # alone: on an H100 a 3-step run made once beside the whole run parted
+    # from it by 4e-6 of the loss at step 3, a split of unknown source
+    # that --model-axis-pairs (12 runs side by side) did not reproduce
+    cli = {name: cli_world(name, argv) for name, argv in worlds.items()}
+    cli["resume"] = cli_world("resume", [
+        f"train.train_iteration={whole}",
+        f"train.checkpoint_interval={whole}", "--resume",
+        cli["first"][0]["result"]["results_dir"], *tail])
+    run_dir = cli["first"][0]["result"]["results_dir"]
+    resumed = _metric_lines(run_dir)
+    straight_dir = cli["whole"][0]["result"]["results_dir"]
+    a = torch.load(os.path.join(run_dir, f"models_{whole}.pt"),
+                   weights_only=False)
+    b = torch.load(os.path.join(straight_dir, f"models_{whole}.pt"),
+                   weights_only=False)
+    equal = {part: _same_state(a[part], b[part])
+             for part in ("model", "optimizer", "extra")}
+    equal["metrics"] = resumed == _metric_lines(straight_dir)
+    whole_model = WorldModel.from_config(compose())
+    shapes_whole = all(a["model"][n].shape == p.shape
+                       for n, p in whole_model.state_dict().items())
+    d = {"batch": MODEL_AXIS_CLI_BATCH, "chunk": MODEL_AXIS_CLI_CHUNK,
+         "chunk_cut_from": SHAPE[0],
+         "backend": d_backend,
+         "resume_equals_whole_run": equal,
+         "checkpoint_holds_whole_tensors": shapes_whole}
+    for name, got in cli.items():
+        d[name] = {
+            "wall_seconds": got[0]["wall_seconds"],
+            "start_step": got[0]["result"]["start_step"],
+            "steps": len(got[0]["result"]["step_seconds"]),
+            "steps_per_s_median": 1.0 / statistics.median(
+                got[0]["result"]["step_seconds"]),
+            "k1_launches": [g["launches"]["normalize_image"] for g in got],
+            "max_memory_allocated_GiB": [g["max_memory_allocated_GiB"]
+                                         for g in got],
+            "loss": got[0]["result"]["metrics"]["loss"]}
+        want_k1 = {"first": first + 1, "resume": whole - first,
+                   "whole": whole + 1}[name]
+        if {g["backend"] for g in got} != {d_backend}:
+            bad.append(f"(d) {name}: backends {[g['backend'] for g in got]}"
+                       f" with {cards} card(s)")
+        if d[name]["k1_launches"] != [want_k1] * 4:
+            bad.append(f"(d) {name}: K1 launched {d[name]['k1_launches']}")
+    if not all(equal.values()) or not shapes_whole:
+        bad.append(f"(d) resume against the whole run: {equal}, whole "
+                   f"tensors {shapes_whole}")
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = check_model.main(["--run", run_dir, "--itr", str(first),
+                               "--episode", "0", "--t-start",
+                               str(EVAL_T_START), "--horizon",
+                               str(EVAL_HORIZON), "--cwd", tmp])
+    check_k1 = ck.launch_counts()["normalize_image"]
+    d["check_model"] = {"seconds": time.perf_counter() - t0,
+                        "k1_launches": check_k1,
+                        "mse": report["mse"]}
+    if not check_k1 or not _all_finite(report["mse"]):
+        bad.append(f"(d) check_model: {d['check_model']}")
+    record["d_cli"] = d
+    record["wall_seconds"] = time.perf_counter() - t_phase
+    emit(record)
+    if bad:
+        raise AssertionError(f"parallel/model_axis: {bad}")
+    by_path = {}
+    for r in (0, 1):
+        by_path[f"parallel/model_axis/rank{r}/bf16"] = bf[f"rank{r}"][
+            "k1_launches"]
+    for name in cli:
+        by_path[f"parallel/model_axis_cli/{name}"] = d[name]["k1_launches"]
+    by_path["parallel/model_axis_cli/check_model"] = check_k1
+    return by_path
+
+
+def _collective_device_ms(trace_path: str, span: Optional[str] = None
+                          ) -> dict:
     """In a Chrome trace of ``torch.profiler``: NCCL's kernels (ms, count),
     and the device work (kernels, copies, sets) launched inside the
-    ``parallel.mesh.SPAN`` spans around the step's all-reduces (the flat
-    copies, the reduction and the division; matched to their launches by
-    correlation id)."""
+    ``span`` spans (default ``parallel.mesh.SPAN``, around the step's
+    all-reduces: the flat copies, the reduction and the division; matched
+    to their launches by correlation id), and the spans' own host ms."""
     from multimodal_rssm_torch.parallel.mesh import SPAN
 
+    span = span or SPAN
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     device = [e for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     nccl = [e for e in device if "nccl" in e.get("name", "").lower()]
     spans = [e for e in events if e.get("cat") == "user_annotation"
-             and e.get("name") == SPAN]
+             and e.get("name") == span]
     launched = set()
     for e in events:
         if e.get("cat") != "cuda_runtime":
@@ -2873,7 +3417,8 @@ def _collective_device_ms(trace_path: str) -> dict:
     return {"nccl_ms": sum(e.get("dur", 0) for e in nccl) / 1e3,
             "nccl_kernels": len(nccl),
             "span_ms": sum(e.get("dur", 0) for e in mine) / 1e3,
-            "span_device_events": len(mine), "spans": len(spans)}
+            "span_device_events": len(mine), "spans": len(spans),
+            "span_host_ms": sum(e.get("dur", 0) for e in spans) / 1e3}
 
 
 def k1_under_a_mesh(device_name: str) -> dict:
@@ -2922,6 +3467,94 @@ def k1_under_a_mesh(device_name: str) -> dict:
                 block, BIT_DEPTH, seed), 20),
             "bound_ms": n * 8 / hbm_rate(device_name) * 1e3}
     return out
+
+
+def phase_model_axis_pairs(tmp: str) -> dict:
+    """Whether (d)'s 3-step and 5-step worlds log the same steps 1-3 when
+    they share the card at once ((d) runs them one at a time): for each
+    arm of ``MODEL_AXIS_PAIR_ARMS`` (deterministic cuDNN; and
+    ``torch.use_deterministic_algorithms``; and that with its fill of
+    uninitialised memory), ``MODEL_AXIS_PAIRS`` pairs side by side, four
+    worlds of four ranks.  Per pair: the steps whose logged metrics
+    differ and the loss's largest relative difference, and how far each
+    run's steps differ from the first pair's 5-step run of the first arm.
+    ``python3 chip_smoke.py --model-axis-pairs``."""
+    import threading
+
+    import torch
+
+    from multimodal_rssm_torch.parallel import launch
+
+    cards = torch.cuda.device_count()
+    record = {"phase": "parallel/model_axis_pairs", "cards": cards,
+              "arms": {}}
+    reference = None
+    t_phase = time.perf_counter()
+    for arm in MODEL_AXIS_PAIR_ARMS:
+        label = arm or "cudnn"
+        runs, errors = {}, []
+
+        def world(key, steps):
+            name = f"pairs_{label}_{key}"
+            out_dir = os.path.join(tmp, name)
+            os.makedirs(out_dir, exist_ok=True)
+            try:
+                launch.spawn(model_axis_cli_rank, 4, (
+                    4, _free_port(), cards,
+                    _model_axis_cli_argv(tmp, steps, name), out_dir, arm),
+                    timeout=PARALLEL_WORLD_S)
+                runs[key] = _metric_lines(torch.load(
+                    os.path.join(out_dir, "cli0.pt"),
+                    weights_only=False)["result"]["results_dir"])
+            except Exception as e:   # recorded: the probe measures
+                errors.append(f"{key}: {e!r}"[-3000:])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=world, args=(f"{i}_{n}", n))
+                   for i in range(MODEL_AXIS_PAIRS)
+                   for n in MODEL_AXIS_CLI_STEPS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        rec = {"wall_seconds": time.perf_counter() - t0, "errors": errors,
+               "pairs": []}
+        first = MODEL_AXIS_CLI_STEPS[0]
+        early = {key: [r for r in lines if r["step"] <= first]
+                 for key, lines in runs.items()}
+        if reference is None and f"0_{MODEL_AXIS_CLI_STEPS[1]}" in early:
+            reference = early[f"0_{MODEL_AXIS_CLI_STEPS[1]}"]
+        for i in range(MODEL_AXIS_PAIRS):
+            a, b = (early.get(f"{i}_{n}") for n in MODEL_AXIS_CLI_STEPS)
+            if a is None or b is None:
+                continue
+            rec["pairs"].append({"differ_at": _differ_at(a, b),
+                                 "loss_max_rel": _loss_rel(a, b)})
+        rec["against_reference"] = {
+            key: _differ_at(lines, reference) for key, lines in early.items()
+            if reference is not None}
+        rec["finite"] = all(math.isfinite(v) for lines in early.values()
+                            for r in lines for v in r.values()
+                            if isinstance(v, float))
+        record["arms"][label] = rec
+    record["wall_seconds"] = time.perf_counter() - t_phase
+    return record
+
+
+def _differ_at(a: list, b: list) -> list:
+    """The steps at which two runs' logged lines differ."""
+    return sorted({r["step"] for r, q in zip(a, b) if r != q}
+                  | ({-1} if len(a) != len(b) else set()))
+
+
+def _loss_rel(a: list, b: list) -> float:
+    """The largest relative difference of two runs' logged losses."""
+    rel = 0.0
+    for r, q in zip(a, b):
+        for k, v in r.items():
+            if k.startswith("loss/") and k in q and v != q[k]:
+                rel = max(rel, abs(v - q[k]) / max(abs(q[k]), 1e-30))
+    return rel
 
 
 def phase_parallel(tmp: str, device_name: str) -> dict:
@@ -3126,6 +3759,7 @@ def phase_parallel(tmp: str, device_name: str) -> dict:
     for r in (0, 1):
         by_path[f"parallel/two_ranks/rank{r}/bf16"] = bf[f"rank{r}"][
             "k1_launches"]
+    by_path.update(phase_model_axis(tmp, device_name))   # (c), (d)
     return by_path
 
 
@@ -3190,5 +3824,34 @@ if __name__ == "__main__":
         sys.path.insert(0, REPO)
         arg = sys.argv[2] if len(sys.argv) > 2 else ""
         emit(budget_run(int(arg) if arg else None, sys.argv[3:]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--model-axis-pairs"]:   # (d)'s worlds side by side
+        sys.path.insert(0, REPO)
+        import torch
+
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is visible")
+        from multimodal_rssm_torch.core.device import configure_float32
+
+        configure_float32()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            write_dataset(tmp, 4)
+            emit(phase_model_axis_pairs(tmp))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--model-axis"]:   # phase parallel's (c), (d) alone
+        sys.path.insert(0, REPO)
+        import torch
+
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is visible")
+        from multimodal_rssm_torch.core.device import configure_float32
+
+        configure_float32()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            write_dataset(tmp, 4)
+            emit({"model_axis_k1": phase_model_axis(
+                tmp, torch.cuda.get_device_name(0))})
         sys.exit(0)
     sys.exit(main())

@@ -17,19 +17,25 @@ config (``hydra_config.yaml``) and the command line's overrides on top
 recently modified run of the composed ``main.experiment_name``.
 
 Several GPUs (``train.mesh.data=N``, ``train.mesh.slice=S``: data
-parallelism over N x S ranks, one process per GPU, ``parallel/mesh.py``):
+parallelism over N x S ranks; ``train.mesh.model=M``: the wide weights and
+their Adam moments column-sharded over M ranks of each (slice, data)
+coordinate; one process per GPU, ``parallel/mesh.py``,
+``parallel/tensor.py``):
 
     torchrun --standalone --nproc_per_node=N -m multimodal_rssm_torch.cli.train \\
         train.mesh.data=N
-    python -m multimodal_rssm_torch.cli.train train.mesh.data=N
+    python -m multimodal_rssm_torch.cli.train train.mesh.data=N \\
+        [train.mesh.model=M]
 
 Under ``torchrun`` each process joins the world (NCCL on ``cuda:LOCAL_RANK``).
 Without it, a mesh of more than one rank makes this command start the
-ranks itself (one per visible GPU at most; ``--device cpu``: gloo ranks on
-the CPU) and wait for them; ``train.mesh.data=1`` is a one-rank world in
-this process.  ``--dist-timeout`` fails a collective that waits longer
-(default 1800 s).  Rank 0 writes the run dir; the command returns its
-result.
+S x N x M ranks itself (one per visible GPU at most; ``--device cpu``: gloo
+ranks on the CPU) and wait for them; ``train.mesh.data=1`` is a one-rank
+world in this process.  The ranks join over NCCL, or over gloo where a
+launcher puts more ranks on a host than it has visible GPUs (NCCL refuses
+two ranks on one card; gloo runs them, slowly: ``mesh.default_backend``).
+``--dist-timeout`` fails a collective that waits longer (default 1800 s).
+Rank 0 writes the run dir; the command returns its result.
 """
 
 from __future__ import annotations
@@ -184,7 +190,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if sizes is None:
         return _train(args, parser, args.device)
     nprocs = math.prod(sizes)
-    mesh_lib.local_rows(int(cfg.train.batch_size), 0, nprocs,
+    mesh_lib.local_rows(int(cfg.train.batch_size), 0, sizes[0] * sizes[1],
                         resolve_grad_accum(cfg))
     if nprocs == 1:   # a one-rank world in this process
         with launch.file_rendezvous() as init_method:

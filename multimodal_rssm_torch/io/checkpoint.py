@@ -16,7 +16,11 @@ A behavior checkpoint ``behavior/models_{itr}.pt``
 
 In a data-parallel run (``train/loop.py``) rank 0 alone writes, with the
 same asynchronous writer: the weights are replicated and the generators'
-states are the same on every rank, so its file is the whole state.  Every
+states are the same on every rank, so its file is the whole state.  Under
+a model axis the loop hands the writers whole ``state_dict``s in place of
+the model and the optimizer (``parallel/tensor.full_state_dict``, gathered
+by every rank on the loop's thread), so the file is the one a mesh-less run
+writes.  Every
 rank loads the same file on ``--resume`` and ``train.model_path``; the
 loop then broadcasts rank 0's weights and buffers.  (The JAX package saves
 synchronously under more than one process, ``train/loop.py:208-215``.)
@@ -72,9 +76,13 @@ def _map_tensors(tree, fn: Callable[[torch.Tensor], torch.Tensor]):
     return tree
 
 
+def _state(obj) -> Dict[str, Any]:
+    return obj if isinstance(obj, Mapping) else obj.state_dict()
+
+
 def _payload(step: int, model, optimizer, scheduler, extra) -> Dict[str, Any]:
-    return {"step": int(step), "model": model.state_dict(),
-            "optimizer": optimizer.state_dict(),
+    return {"step": int(step), "model": _state(model),
+            "optimizer": _state(optimizer),
             "scheduler": None if scheduler is None else scheduler.state_dict(),
             "extra": dict(extra or {})}
 
@@ -92,7 +100,8 @@ def save_checkpoint(results_dir: str, step: int, model, optimizer,
                     scheduler=None, extra: Optional[Dict[str, Any]] = None
                     ) -> str:
     """Write ``models_{step}.pt`` atomically, tensors on the CPU; returns
-    its path.  Blocks until the device's tensors are copied and the file
+    its path.  ``model`` / ``optimizer``: the objects or their
+    ``state_dict``s (here and in ``AsyncCheckpointer.save``).  Blocks until the device's tensors are copied and the file
     is written."""
     payload = _map_tensors(_payload(step, model, optimizer, scheduler, extra),
                            lambda t: t.detach().cpu())

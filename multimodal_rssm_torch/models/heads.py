@@ -5,7 +5,9 @@ Heads emit float32 ``loc`` and ``scale = softplus(raw) + min_std``.
 ``ObsEncoder`` keeps the reference's single ``fc1`` over [h, o]; the RSSM
 core applies its observation columns to all timesteps at once
 (``project_obs``) and its belief columns inside the time loop
-(``step_raw``), which is the same affine map split over its input blocks.
+(``step_raw``), which is the same affine map split over its input blocks
+(under a model axis, ``parallel/tensor.column_linear`` gathers each
+block's output features).
 The latent heads take ``out_size``, the width of ``fc2`` (default 2 *
 state: loc and raw scale); the RSSM core reads their raw output (``raw``,
 ``step_raw``) as (loc, raw scale) or as V * K categorical logits.
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_rssm_torch.models.layers import act_fn, fold_tb, unfold_tb
+from multimodal_rssm_torch.parallel.tensor import column_linear
 
 
 def scale_from_raw(raw: torch.Tensor, min_std_dev: float) -> torch.Tensor:
@@ -72,13 +75,15 @@ class ObsEncoder(nn.Module):
 
     def project_obs(self, obs_emb: torch.Tensor) -> torch.Tensor:
         """Observation columns of fc1, for all timesteps at once."""
-        return F.linear(obs_emb, self.fc1.weight[:, self.belief_size:])
+        return column_linear(obs_emb, self.fc1.weight[:, self.belief_size:],
+                             None, self.fc1)
 
     def step_raw(self, h: torch.Tensor, obs_proj: torch.Tensor,
                  w_h: torch.Tensor) -> torch.Tensor:
         """fc2's output on one timestep: the belief columns ``w_h`` of fc1
         (plus its bias) on ``h``, the hoisted ``obs_proj`` added."""
-        return self.fc2(self.act(F.linear(h, w_h, self.fc1.bias) + obs_proj))
+        return self.fc2(self.act(
+            column_linear(h, w_h, self.fc1.bias, self.fc1) + obs_proj))
 
     def forward(self, h: torch.Tensor, obs_emb: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:

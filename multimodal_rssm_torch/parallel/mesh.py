@@ -7,10 +7,23 @@ psum; the port runs one process per GPU (a "rank": NCCL on the card, gloo
 on the CPU) and makes each collective itself.  The axis names carry over:
 
 - ``slice`` x ``data`` shard the batch dimension (axis 1 of the time-major
-  [L, B, ...] batch); parameters are replicated, so every rank holds the
-  whole model and the whole replay;
-- ``model`` (column-sharded wide kernels) is not ported yet: a mesh with
-  ``model`` > 1 raises ``NotImplementedError`` (ROADMAP queue 1 item 14b).
+  [L, B, ...] batch); every rank keeps the whole replay;
+- ``model`` column-shards the wide weights and their Adam moments
+  (``parallel/tensor.py``); the ranks of one model group hold the same
+  rows of the batch.
+
+The ranks are laid out as the JAX package's ``create_mesh`` /
+``create_hybrid_mesh`` reshape their devices: rank = (s * D + d) * M + m,
+``model`` innermost, so a model group is neighbouring ranks (on a host of
+several GPUs, neighbouring cards).  Two kinds of process group cut the
+world (``dist.new_group`` over rank lists read from the ``DeviceMesh``'s
+``mesh`` tensor, no private ``DeviceMesh`` API; every rank creates every
+group, in one order): ``data_axes`` -- the ranks sharing a model coordinate
+(slice x data flattened), over which the batch is sharded and the
+gradients, metrics and BatchNorm statistics reduce; ``model_group`` -- the
+ranks sharing a (slice, data) coordinate, over which a sharded layer's
+outputs are gathered.  With ``model`` 1 the data group is the whole world
+and there is no model group.
 
 ``train.mesh`` has the JAX package's keys and meanings: ``data`` 0 with
 ``model`` 1 and ``slice`` 1 is no mesh; ``-1`` (or 0 beside a larger
@@ -27,7 +40,8 @@ weights after init or load (``broadcast_``) and small host values
 ``torch.profiler`` span named ``SPAN``, so a trace attributes their device
 work (the flat copies, the reduction, the division) to them.
 
-``BatchShard`` says which rows of the global batch a rank holds.  Under
+``BatchShard`` says which rows of the global batch a rank holds, by its
+rank in the data group (its coordinate on slice x data).  Under
 ``train.grad_accum`` the JAX package cuts the GLOBAL batch into micro-batches
 and shards each over the data axes, so rank r's rows of micro-batch k are
 ``[k m + r m / n, k m + (r + 1) m / n)`` (m = B / grad_accum, n ranks); the
@@ -66,6 +80,17 @@ def in_launched_world() -> bool:
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
+def default_backend(device: torch.device) -> str:
+    """The backend a rank on ``device`` joins over when none is given:
+    gloo on the CPU, and for ranks that share a card (more ranks on this
+    host, ``LOCAL_WORLD_SIZE``, than visible GPUs: NCCL refuses two ranks
+    on one card, gloo runs them, through host memory); NCCL otherwise."""
+    if device.type != "cuda":
+        return "gloo"
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    return "gloo" if local > torch.cuda.device_count() else "nccl"
+
+
 def init_distributed(device: str = "cuda", backend: Optional[str] = None,
                      init_method: Optional[str] = None,
                      rank: Optional[int] = None,
@@ -77,16 +102,15 @@ def init_distributed(device: str = "cuda", backend: Optional[str] = None,
     ``torchrun`` world from ``RANK`` / ``WORLD_SIZE`` (and ``MASTER_ADDR`` /
     ``MASTER_PORT``).  ``device``: "cuda" gives ``cuda:LOCAL_RANK`` (raises
     where that GPU is missing), "cuda:k" that card, "cpu" the CPU.
-    ``backend``: NCCL for a CUDA device and gloo for the CPU unless given
-    (gloo also runs ranks that share one card).  A collective waiting longer
-    than ``timeout_s`` fails."""
+    ``backend``: ``default_backend``'s unless given.  A collective waiting
+    longer than ``timeout_s`` fails."""
     from multimodal_rssm_torch.core.device import resolve_device
 
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if backend is None:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        backend = default_backend(dev)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(
@@ -189,16 +213,44 @@ def mesh_from_config(cfg, device_type: str = "cuda"):
     return create_mesh(n_data, n_model, device_type)
 
 
-def data_axes(mesh):
-    """The process group the batch and the gradients reduce over: slice x
-    data flattened.  With ``model`` 1 that is the whole world (the mesh
-    covers it)."""
+def _model_size(mesh) -> int:
     names = tuple(mesh.mesh_dim_names)
-    if MODEL_AXIS in names and mesh.size(names.index(MODEL_AXIS)) > 1:
-        raise NotImplementedError(
-            "train.mesh.model > 1: the model axis (column-sharded kernels "
-            "and their Adam moments) is ROADMAP queue 1 item 14b")
-    return dist.group.WORLD
+    return mesh.size(names.index(MODEL_AXIS)) if MODEL_AXIS in names else 1
+
+
+def _own_group(rank_lists):
+    """``dist.new_group`` over every list (every rank creates every group,
+    in the same order); the one holding this rank."""
+    me = dist.get_rank()
+    mine = None
+    for ranks in rank_lists:
+        group = dist.new_group(ranks)
+        if me in ranks:
+            mine = group
+    return mine
+
+
+def data_axes(mesh):
+    """The process group the batch, the gradients, the metrics and the
+    BatchNorm statistics reduce over: the ranks of slice x data that share
+    this rank's model coordinate.  With ``model`` 1 that is the whole world
+    (the mesh covers it)."""
+    n_model = _model_size(mesh)
+    if n_model == 1:
+        return dist.group.WORLD
+    grid = mesh.mesh.reshape(-1, n_model)
+    return _own_group([grid[:, m].tolist() for m in range(n_model)])
+
+
+def model_group(mesh):
+    """The process group of the ranks that share this rank's (slice, data)
+    coordinate (its model group: the same rows, each with its own columns
+    of the sharded weights), or None for ``model`` 1."""
+    n_model = _model_size(mesh)
+    if n_model == 1:
+        return None
+    grid = mesh.mesh.reshape(-1, n_model)
+    return _own_group([row.tolist() for row in grid])
 
 
 # -- a rank's rows ------------------------------------------------------------------
@@ -260,24 +312,40 @@ class BatchShard(NamedTuple):
                       block_rows=ml, block_stride=m)
 
 
+class ModelGroup(NamedTuple):
+    """A model group (``model_group``) and this rank's place in it: a
+    sharded weight's block ``rank`` of ``size`` along its output
+    features."""
+
+    group: object
+    rank: int
+    size: int
+
+
 class DataParallel(NamedTuple):
     """A data-parallel step's group, and this rank's rows of a train batch
     (cut into ``grad_accum`` micro-batches) and of a validation batch
-    (one)."""
+    (one); ``model``: this rank's model group, or None (``model`` 1)."""
 
     group: object
     train: BatchShard
     eval: BatchShard
+    model: Optional[ModelGroup] = None
 
 
 def data_parallel(mesh, batch_size: int, accum: int = 1) -> DataParallel:
-    """This rank's ``DataParallel`` over ``data_axes(mesh)``; raises
-    ``ValueError`` unless slice x data x ``accum`` divides ``batch_size``."""
+    """This rank's ``DataParallel`` over ``data_axes(mesh)`` (its rows by
+    its rank there) and ``model_group(mesh)``; raises ``ValueError`` unless
+    slice x data x ``accum`` divides ``batch_size``."""
     group = data_axes(mesh)
     rank, size = dist.get_rank(group), dist.get_world_size(group)
     local_rows(batch_size, rank, size, accum)
+    mgroup = model_group(mesh)
+    model = (None if mgroup is None else
+             ModelGroup(mgroup, dist.get_rank(mgroup),
+                        dist.get_world_size(mgroup)))
     return DataParallel(group, BatchShard(batch_size, rank, size, accum),
-                        BatchShard(batch_size, rank, size, 1))
+                        BatchShard(batch_size, rank, size, 1), model)
 
 
 def shard_batch(batch, shard: BatchShard):

@@ -25,8 +25,9 @@ and the flattened class probabilities as ``*_means``, and the experts as
 The action columns of ``fc_embed_state_action`` and the observation columns
 of each expert's ``fc1`` do not depend on the recurrent carry, so they are
 applied to all timesteps before the loop (``_project_obs``); only the
-carry-dependent columns run per step.  The belief and the state are carried
-in float32.  The posterior rollout (``forward``) and the open-loop prior
+carry-dependent columns run per step (``parallel/tensor.column_linear``:
+whole output features under a model axis as without one).  The belief and
+the state are carried in float32.  The posterior rollout (``forward``) and the open-loop prior
 rollout (``prior_rollout``, imagination and overshooting) share that step
 (``_transition``).
 
@@ -40,13 +41,13 @@ from __future__ import annotations
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from multimodal_rssm_torch.models.heads import (
     ObsEncoder, StochasticStateModel, loc_scale)
 from multimodal_rssm_torch.models.layers import GRUCell, act_fn
 from multimodal_rssm_torch.ops import categorical, fusion
+from multimodal_rssm_torch.parallel.tensor import column_linear
 
 PRIOR_EXPERT = "prior_expert"
 EXPERT_DISTS = ("q(st|ht,ot)", "q(st|ot)")
@@ -175,9 +176,10 @@ class TransitionModel(nn.Module):
         if nonterminals is None:
             nonterminals = torch.ones(*actions.shape[:2], 1,
                                       device=actions.device)
-        w_sa = self.fc_embed_state_action.weight
+        fc = self.fc_embed_state_action
         S = self.state_size
-        return nonterminals, F.linear(actions, w_sa[:, S:]), w_sa[:, :S]
+        a_proj = column_linear(actions, fc.weight[:, S:], None, fc)
+        return nonterminals, a_proj, fc.weight[:, :S]
 
     def _transition(self, h: torch.Tensor, s: torch.Tensor,
                     nonterminal: torch.Tensor, a_proj: torch.Tensor,
@@ -185,8 +187,9 @@ class TransitionModel(nn.Module):
         """One step of the belief and the prior: h_t = GRU(act(W_s
         (s_{t-1} * nonterminal) + W_a a_{t-1} + b), h_{t-1}) in float32,
         then p(s_t | h_t)."""
-        hidden = self.act(F.linear(s * nonterminal, w_s,
-                                   self.fc_embed_state_action.bias) + a_proj)
+        fc = self.fc_embed_state_action
+        hidden = self.act(column_linear(s * nonterminal, w_s, fc.bias, fc)
+                          + a_proj)
         h = self.rnn(hidden, h).float()
         return h, self._dist(self.stochastic_state_model.raw(h))
 

@@ -38,15 +38,23 @@ the host's work for step k + 1 overlaps the device's for step k.
 data-parallel in a world of ranks, one process per GPU, which the train
 CLI or ``torchrun`` starts: every rank loads the dataset and keeps its
 replay, draws the global batch's indices and augmentation choices from the
-shared seed and gathers only its rows (``DataParallel``); the weights are
-broadcast from rank 0 after init or load; each step averages gradients
-and metrics over the ranks.  Rank 0 alone creates the run dir and writes
-metrics, histograms, the profile trace and the checkpoints (every rank
-loads the same file on ``--resume`` and ``train.model_path``).  The
-device budget for the replay is agreed (the least over the ranks).  A
-preemption stop is agreed too: each step all-reduces the ranks' stop flags
-and every rank reads the sum one step later, so all stop after the same
-step and rank 0 writes that step's checkpoint (a rank stopping alone would
+shared seed and gathers only its rows (``DataParallel``, by its data-group
+rank); the weights are broadcast from rank 0 after init or load; each step
+averages gradients and metrics over the data group.  ``train.mesh.model``
+> 1 then column-shards the wide weights over each model group
+(``parallel/tensor.shard_model_``, at ``train.mesh.min_shard_width``) --
+after the init, restore or load and the broadcast, so that restored Adam
+moments are cut with their weights, as the JAX package's ``_place``.
+Rank 0 alone creates the run dir and writes metrics, histograms, the
+profile trace and the checkpoints (every rank loads the same file on
+``--resume`` and ``train.model_path``); under a model axis every rank
+first gathers the sharded weights and moments on the loop's thread (never
+in the writer thread: the ranks' collectives must run in one order), so
+every file holds whole tensors.  The device budget for the replay is
+agreed over the world (the least over the ranks).  A preemption stop is
+agreed too: each step all-reduces the ranks' stop flags over the world and
+every rank reads the sum one step later, so all stop after the same step
+and rank 0 writes that step's checkpoint (a rank stopping alone would
 leave the others waiting in their next collective).
 """
 
@@ -71,6 +79,7 @@ from multimodal_rssm_torch.io.metrics import (
     MetricLogger, NullLogger, make_run_dir)
 from multimodal_rssm_torch.models.world_model import WorldModel, init_parameters
 from multimodal_rssm_torch.parallel import mesh as mesh_lib
+from multimodal_rssm_torch.parallel import tensor as tensor_lib
 from multimodal_rssm_torch.train import trainer as tr
 from multimodal_rssm_torch.train.prefetch import Prefetcher
 
@@ -87,35 +96,35 @@ def check_options(cfg) -> None:
                          "(a synchronous save holds the loop for the whole "
                          "write); the key is kept for the JAX package's "
                          "config")
-    model = int((cfg.train.get("mesh") or {}).get("model", 1) or 1)
-    if model > 1:
-        raise NotImplementedError(
-            f"train.mesh.model={model}: the port shards the batch over "
-            "train.mesh.data / slice only; the model axis (column-sharded "
-            "kernels and their Adam moments) is ROADMAP queue 1 item 14b")
 
 
 def ranks_per_device(device: torch.device,
                      dp: Optional[mesh_lib.DataParallel] = None) -> int:
-    """Ranks of ``dp``'s group on this rank's card, by the cards' UUIDs:
-    right whatever each rank sees (every GPU of the host, or one card bound
-    to it by the launcher).  1 on the CPU or outside a world."""
+    """Ranks of the world on this rank's card (under ``dp``), by the
+    cards' UUIDs: right whatever each rank sees (every GPU of the host, or
+    one card bound to it by the launcher).  1 on the CPU or outside a
+    world."""
     if device.type != "cuda" or dp is None:
         return 1
     uuid = str(torch.cuda.get_device_properties(device).uuid).encode()
     mine = int.from_bytes(hashlib.sha1(uuid).digest()[:7], "little")
-    ids = torch.zeros(dp.train.size, dtype=torch.int64, device=device)
-    ids[dp.train.rank] = mine
-    torch.distributed.all_reduce(ids, group=dp.group)
+    ids = torch.zeros(torch.distributed.get_world_size(), dtype=torch.int64,
+                      device=device)
+    ids[torch.distributed.get_rank()] = mine
+    torch.distributed.all_reduce(ids)
     return int((ids == mine).sum())
 
 
 def log_histograms(logger: MetricLogger, model, grads: Dict[str, torch.Tensor],
                    step: int) -> None:
     """The parameters' and the gradients' histograms, per top-level module
-    of ``model`` (``params_<module>/hist``, ``grads_<module>/hist``)."""
-    for prefix, tensors in (("params", dict(model.named_parameters())),
-                            ("grads", grads)):
+    of ``model`` (``params_<module>/hist``, ``grads_<module>/hist``), of
+    whole tensors: a sharded weight's blocks are gathered first (every
+    rank calls it; ``logger`` writes on rank 0)."""
+    for prefix, tensors in (
+            ("params", tensor_lib.full_named(dict(model.named_parameters()),
+                                             model)),
+            ("grads", tensor_lib.full_named(grads, model))):
         logger.log_histograms(
             {mod: [tensors[f"{mod}.{n}"] for n, _ in child.named_parameters()]
              for mod, child in model.named_children()}, step, prefix)
@@ -182,8 +191,7 @@ def select_feed(cfg, D, device: torch.device, seed: int,
                                     ranks_per_device(device, dp)))
     if dp is not None:
         agreed = torch.tensor([budget], dtype=torch.float64, device=device)
-        torch.distributed.all_reduce(agreed, torch.distributed.ReduceOp.MIN,
-                                     group=dp.group)
+        torch.distributed.all_reduce(agreed, torch.distributed.ReduceOp.MIN)
         budget = int(agreed.item())
     nbytes = DeviceReplay.nbytes(D)
     if mode == "true" or (mode == "auto" and DeviceReplay.fits(D, budget)):
@@ -268,7 +276,8 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
           mesh_lib.data_parallel(mesh, B, tr.resolve_grad_accum(cfg)))
     if dp is not None and main:
         print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
-              f"{dp.train.size} ranks ({torch.distributed.get_backend()}); "
+              f"{torch.distributed.get_world_size()} ranks "
+              f"({torch.distributed.get_backend()}); "
               f"{dp.train.local_batch} rows of the batch of {B} a rank")
     D = build_buffer(cfg, seed=seed)
     load_dataset(cwd, D, cfg.train.train_data_path)
@@ -318,7 +327,15 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
     elif cfg.train.model_path:
         load_model_path(cfg, cwd, model, optimizer, scheduler)
     if dp is not None:
-        mesh_lib.broadcast_module_(model, dp.group)
+        mesh_lib.broadcast_module_(model)
+    if dp is not None and dp.model is not None:
+        spec = tensor_lib.shard_model_(
+            model, dp.model,
+            int(cfg.train.mesh.get("min_shard_width",
+                                   tensor_lib.MIN_SHARD_WIDTH)), optimizer)
+        if main:
+            print(f"model axis: {len(spec)} weights column-sharded over "
+                  f"{dp.model.size} ranks")
 
     total = int(cfg.train.train_iteration)
     val_every = int(cfg.train.validation_interval)
@@ -347,12 +364,21 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
         return {"generator": generator.get_state(), "rng": rng}
 
     def stop_flags() -> Optional[torch.Tensor]:
-        """The ranks' stop requests summed (queued; read a step later)."""
+        """The ranks' stop requests summed over the world (queued; read a
+        step later)."""
         if dp is None:
             return None
         flag = torch.full((1,), float(shutdown.requested), device=dev)
-        torch.distributed.all_reduce(flag, group=dp.group)
+        torch.distributed.all_reduce(flag)
         return flag
+
+    def saved_state():
+        """(model, optimizer) for a checkpoint: the objects, or under a
+        model axis their whole state_dicts (every rank gathers)."""
+        if dp is None or dp.model is None:
+            return model, optimizer
+        return (tensor_lib.full_state_dict(model),
+                tensor_lib.full_optimizer_state_dict(model, optimizer))
 
     step_seconds = []
     last, last_val = {}, {}
@@ -412,9 +438,11 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
                     last_val = _host(vmetrics)
                     logger.log(last_val, itr, "validation")
                 if ckpt_every and itr % ckpt_every == 0:
+                    state = saved_state()
                     if saver is not None:
-                        saver.save(results_dir, itr, model, optimizer,
-                                   scheduler, state_extra(), keep=keep)
+                        saver.save(results_dir, itr, *state, scheduler,
+                                   state_extra(), keep=keep)
+                    del state
                     last_saved = itr
                 completed = itr
                 if window is not None:
@@ -434,11 +462,12 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
         requested = stop if dp is not None else shutdown.requested
         if saver is not None:
             saver.wait()   # the write in flight; raises the writer's error
-            if (requested and completed > last_saved
-                    and bool(cfg.train.get("checkpoint_on_preempt", True))):
-                path = ckpt.save_checkpoint(
-                    results_dir, completed, model, optimizer, scheduler,
-                    state_extra())
+        if (requested and completed > last_saved
+                and bool(cfg.train.get("checkpoint_on_preempt", True))):
+            state = saved_state()   # every rank: the stop is agreed
+            if saver is not None:
+                path = ckpt.save_checkpoint(results_dir, completed, *state,
+                                            scheduler, state_extra())
                 print(f"preempted at step {completed}; checkpoint saved to "
                       f"{path}")
         if dev.type == "cuda":
@@ -448,7 +477,7 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
             logger.log({"steps_per_sec": (completed - start_step) / elapsed},
                        completed, "perf")
     if dp is not None:   # rank 0's files are written before any rank returns
-        mesh_lib.barrier(dev, dp.group)
+        mesh_lib.barrier(dev)
     return {"results_dir": results_dir, "model": model, "feed": feed,
             "start_step": start_step, "metrics": last,
             "validation_metrics": last_val, "step_seconds": step_seconds,

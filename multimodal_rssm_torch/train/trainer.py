@@ -23,7 +23,15 @@ Port of the JAX package's ``train/trainer.py``:
   (``synced_batch_stats``), and the gradients (one all-reduce per dtype)
   and the metrics are averaged over the ranks before the clip, so every
   rank clips the same global norm and takes the same Adam step, as optax
-  after XLA's psum.
+  after XLA's psum;
+- a model axis (``dp.model``, ``parallel/tensor.py``): the sharded
+  weights' gradients and Adam moments are this rank's blocks; the
+  gradients still average over the data group only (the ranks of a model
+  group hold the same rows; the replicated ones are then taken from the
+  group's first rank, so the group's replicated weights stay bit-equal),
+  and the gradient norms are the whole model's: each sharded gradient's
+  sum of squares added over the model group, each replicated one counted
+  once.
 
 Randomness comes from an explicit ``torch.Generator`` on the data's device;
 ``generator=None`` in the loss is the deterministic path (posterior and
@@ -37,6 +45,7 @@ from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from multimodal_rssm_torch.data import augment as aug
 from multimodal_rssm_torch.data.device_buffer import gather_batch
@@ -48,7 +57,10 @@ from multimodal_rssm_torch.models.world_model import WorldModel
 from multimodal_rssm_torch.ops import cuda_kernels
 from multimodal_rssm_torch.ops.image import normalize_image_deterministic
 from multimodal_rssm_torch.parallel.mesh import (
-    BatchShard, DataParallel, all_reduce_mean_, mean_metrics)
+    BatchShard, DataParallel, ModelGroup, all_reduce_mean_, mean_metrics)
+from multimodal_rssm_torch.parallel.tensor import SPAN as MODEL_SPAN
+from multimodal_rssm_torch.parallel.tensor import (
+    broadcast_replicated_grads_, sharded)
 
 # the JAX package's top-level parameter groups, for grad_norm_<module>
 GRAD_GROUPS = {"encoder": "encoder", "transition_model": "core",
@@ -370,21 +382,47 @@ def make_loss_fn(model: WorldModel, cfg) -> Callable:
 # -- steps ----------------------------------------------------------------------
 
 
-def grad_norms(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """``grad_norm`` over all parameters and ``grad_norm_<module>`` per
-    top-level module (the reference's wandb.watch analogue)."""
-    out = {"grad_norm": global_norm([p.grad for p in model.parameters()])}
+def _norm_groups(model: torch.nn.Module):
+    yield "grad_norm", list(model.parameters())
     for child, group in GRAD_GROUPS.items():
-        out[f"grad_norm_{group}"] = global_norm(
-            [p.grad for p in getattr(model, child).parameters()])
-    return out
+        yield f"grad_norm_{group}", list(getattr(model, child).parameters())
+
+
+def grad_norms(model: torch.nn.Module, mg: Optional[ModelGroup] = None
+               ) -> Dict[str, torch.Tensor]:
+    """``grad_norm`` over all parameters and ``grad_norm_<module>`` per
+    top-level module (the reference's wandb.watch analogue).  Under a model
+    group ``mg``: the norms of the whole parameters (the sharded blocks'
+    sums of squares added over the group in one all-reduce)."""
+    if mg is None:
+        return {name: global_norm([p.grad for p in params])
+                for name, params in _norm_groups(model)}
+    blocks = {id(p) for p, _, _ in sharded(model).values()}
+    device = next(model.parameters()).device
+
+    def sum_sq(grads):
+        return torch.stack([torch.zeros((), device=device)]
+                           + [torch.sum(torch.square(g.float()))
+                              for g in grads if g is not None]).sum()
+
+    names, whole, split = [], [], []
+    for name, params in _norm_groups(model):
+        names.append(name)
+        whole.append(sum_sq([p.grad for p in params if id(p) not in blocks]))
+        split.append(sum_sq([p.grad for p in params if id(p) in blocks]))
+    split = torch.stack(split)
+    with record_function(MODEL_SPAN):
+        torch.distributed.all_reduce(split, group=mg.group)
+    return dict(zip(names, torch.sqrt(torch.stack(whole) + split).unbind()))
 
 
 def apply_gradients(model: torch.nn.Module, optimizer, scheduler,
-                    max_norm: float) -> Dict[str, torch.Tensor]:
-    """Gradient norms of the accumulated ``.grad``s, then clip by global
-    norm and one optimizer (and schedule) step.  Returns the norms."""
-    norms = grad_norms(model)
+                    max_norm: float, mg: Optional[ModelGroup] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Gradient norms of the accumulated ``.grad``s (the whole model's under
+    a model group ``mg``), then clip by global norm and one optimizer (and
+    schedule) step.  Returns the norms."""
+    norms = grad_norms(model, mg)
     clip_by_global_norm_([p.grad for p in model.parameters()],
                          norms["grad_norm"], max_norm)
     optimizer.step()
@@ -470,8 +508,9 @@ def optimizer_step(model: WorldModel, loss_fn: Callable, batch,
                    ) -> Dict[str, torch.Tensor]:
     """One step on a prepared batch: ``accumulated_backward``, under ``dp``
     the gradients and the metrics averaged over the data group, then the
-    clip and the optimizer's step (``apply_gradients``).  Returns the
-    metrics and the gradient norms."""
+    clip and the optimizer's step (``apply_gradients``; the whole model's
+    norms under ``dp.model``).  Returns the metrics and the gradient
+    norms."""
     optimizer.zero_grad(set_to_none=True)
     with data_parallel_scope(model, dp):
         metrics = accumulated_backward(loss_fn, model, batch, generator,
@@ -479,8 +518,11 @@ def optimizer_step(model: WorldModel, loss_fn: Callable, batch,
     if dp is not None:
         all_reduce_mean_([p.grad for p in model.parameters()
                           if p.grad is not None], dp.group)
+        if dp.model is not None:
+            broadcast_replicated_grads_(model, dp.model)
         metrics = mean_metrics(metrics, dp.group)
-    metrics.update(apply_gradients(model, optimizer, scheduler, max_norm))
+    metrics.update(apply_gradients(model, optimizer, scheduler, max_norm,
+                                   None if dp is None else dp.model))
     return metrics
 
 
@@ -543,7 +585,9 @@ def make_grad_fn(model: WorldModel, cfg, aug_spec: AugSpec,
     ``torch.autograd.grad``, so no ``.grad`` and no optimizer state is
     touched.  A parameter the loss does not reach gets a zero gradient.
     Under ``dp`` the raw batch is this rank's train rows and the gradients
-    are averaged over the data group (the global batch's)."""
+    are averaged over the data group (the global batch's); a sharded
+    weight's is its block (``parallel/tensor.full_named`` makes it
+    whole)."""
     loss_fn = make_loss_fn(model, cfg)
     bit_depth = int(cfg.env.bit_depth)
     use_kernel = kernel_normalize_enabled(cfg, device)

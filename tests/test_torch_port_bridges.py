@@ -916,14 +916,15 @@ def test_run_archive_records_the_git_hash(data_dir, tmp_path):
 def test_a_mesh_other_than_one_device_raises(data_dir, override):
     """What a CPU command cannot start raises before any rank does: 4 data
     ranks for a batch of 2 (naming the batch, the ranks and grad_accum),
-    ``data=-1`` and a slice beside ``data=0`` (every rank left: there is
-    no world to count without torchrun or GPUs), the model axis (ROADMAP
-    item 14b).  ``data=2`` trains (tests/test_torch_port_parallel.py)."""
+    ``data=-1`` and a slice or a model axis beside ``data=0`` (every rank
+    left: there is no world to count without torchrun or GPUs).
+    ``data=2`` trains (tests/test_torch_port_parallel.py), and
+    ``data=1 model=2`` (tests/test_torch_port_model_axis.py)."""
     error, match = {
         "train.mesh.data=4": (ValueError, "batch_size=2 .* 4 ranks .*"
                               "grad_accum=1"),
         "train.mesh.data=-1": (ValueError, "every rank left"),
-        "train.mesh.model=2": (NotImplementedError, "item 14b"),
+        "train.mesh.model=2": (ValueError, "every rank left"),
         "train.mesh.slice=2": (ValueError, "every rank left")}[override]
     with pytest.raises(error, match=match):
         _train(data_dir, "train.train_iteration=1", override)

@@ -257,15 +257,18 @@ def test_synchronous_cadence_checkpoints_raise(data_dir):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("train.mesh.data=4", "item 14"),
-    ("train.mesh.model=2", "item 14")])
+    ("train.mesh.data=4", "batch_size=2 .* 4 ranks"),
+    ("train.mesh.model=2", "every rank left")])
 def test_unported_options_raise(data_dir, override, match):
-    """The model axis (column-sharded kernels, ROADMAP item 14b), alone and
-    beside 4 data ranks, raises before any rank starts; the data and slice
-    axes train (tests/test_torch_port_parallel.py), and
+    """Beside the model axis, what a CPU command cannot start raises
+    before any rank starts: 4 data ranks for a batch of 2 (the batch is cut
+    over slice x data only; a model group's ranks share their rows), and no
+    data axis given (every rank left: no world to count).  The model axis
+    trains (tests/test_torch_port_model_axis.py), as do the data and slice
+    axes (tests/test_torch_port_parallel.py), and
     ``train.histogram_interval`` and ``train.profile_dir`` no longer raise
     (tests/test_torch_port_bridges.py)."""
-    with pytest.raises(NotImplementedError, match=match + "b"):
+    with pytest.raises(ValueError, match=match):
         cli_train.main(_args(data_dir, "train.train_iteration=1", override,
                              "train.mesh.model=2"))
 

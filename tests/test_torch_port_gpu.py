@@ -959,3 +959,75 @@ def test_one_rank_nccl_world_trains_like_no_mesh(cuda, tmp_path):
     got = ck.normalize_image(x[:, 2:], 5, seed, shard.row_map)
     assert ck.normalize_image.launches == before + 1
     assert torch.equal(got, ck.normalize_image_plain(x, 5, seed)[:, 2:])
+
+
+@pytest.mark.gpu
+def test_model_axis_step_on_card_matches_the_replicated_step(cuda, tmp_path):
+    """One float32 step at ``train.mesh.model=2`` (small widths,
+    ``min_shard_width=1``, deterministic cuDNN) on two ranks (NCCL on two
+    cards where there are two, else both on this card over gloo) against
+    the replicated step on the card on the same batch and weights: the
+    loss within rtol 1e-5, the gradient norm within rtol 1e-4, the
+    parameters inside the JAX package's model-axis bound (all but 5e-4 of
+    the elements within rtol 2e-2 / atol 5e-4, every one within 2 lr), the
+    two ranks' whole parameters bit-equal and each rank's blocks its
+    columns of the whole."""
+    import numpy as np
+
+    import torch_port_parallel_cases as cases
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.core.device import configure_float32
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.parallel import launch
+    from multimodal_rssm_torch.parallel import tensor as tensor_lib
+
+    configure_float32()   # no TF32 convolutions here nor in the ranks
+    over = SMALL + ["train.batch_size=4", "train.mesh.min_shard_width=1"]
+    cfg = compose(overrides=over)
+    model = WorldModel.from_config(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    t = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32))
+    batch = ({"image_horizon": t(4, 4, 64, 64, 3).clamp(-0.5, 0.5),
+              "sound": t(4, 4, 128, 20)}, t(4, 4, 3), t(4, 4),
+             torch.ones(4, 4, 1))
+    inputs = {"overrides": over, "state_dict": model.state_dict(),
+              "batch": batch}
+    torch.save(inputs, str(tmp_path / "inputs.pt"))
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = cases.deterministic_step(cfg, model.state_dict(), batch, None,
+                                       cuda)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    with launch.file_rendezvous() as init_method:
+        launch.spawn(cases.gpu_model_axis_world, 2,
+                     (2, init_method, backend, str(tmp_path / "inputs.pt"),
+                      str(tmp_path)), timeout=600)
+    ranks = [torch.load(str(tmp_path / f"gpu_model_axis_{r}.pt"))
+             for r in (0, 1)]
+    spec = tensor_lib.param_spec(model, 2, 1)
+    loose = total = 0
+    for got in ranks:
+        assert abs(got["metrics"]["loss"] - one["metrics"]["loss"]) <= (
+            1e-5 * abs(one["metrics"]["loss"]))
+        assert abs(got["metrics"]["grad_norm"]
+                   - one["metrics"]["grad_norm"]) <= (
+            1e-4 * one["metrics"]["grad_norm"])
+        for name, want in one["params"].items():
+            diff = (got["params"][name].double() - want.double()).abs()
+            assert float(diff.max()) <= 2e-3, name   # 2 lr
+            loose += int((diff > 5e-4 + 2e-2 * want.double().abs()).sum())
+            total += diff.numel()
+        assert set(got["blocks"]) == set(spec)
+        for name, dim in spec.items():
+            block = got["blocks"][name]
+            n = block.shape[dim]
+            assert torch.equal(block, got["params"][name].narrow(
+                dim, got["model_rank"] * n, n)), name
+    assert loose <= 5e-4 * total
+    for name in ranks[0]["params"]:
+        assert torch.equal(ranks[0]["params"][name], ranks[1]["params"][name])

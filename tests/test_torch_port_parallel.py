@@ -396,11 +396,30 @@ def test_a_rank_takes_its_card(monkeypatch, visible, local_rank, want):
     assert loop.ranks_per_device(torch.device("cpu"), None) == 1
 
 
-def test_model_axis_raises_naming_item_14b(steps):
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        loop.check_options(_mesh_cfg("model=2"))
+@pytest.mark.parametrize("device,local_world,visible,want", [
+    ("cuda", "4", 4, "nccl"),   # a card a rank
+    ("cuda", "4", 1, "gloo"),   # four ranks sharing the one card
+    ("cuda", "2", 1, "gloo"),
+    ("cuda", None, 1, "nccl"),   # an explicit rendezvous, one rank a host
+    ("cpu", "4", 0, "gloo"),
+])
+def test_ranks_sharing_a_card_join_over_gloo(monkeypatch, device,
+                                             local_world, visible, want):
+    """With no backend given, the ranks of a host join over NCCL unless
+    they outnumber its visible cards (NCCL refuses two ranks on one card);
+    the CPU's are gloo."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
+    if local_world is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local_world)
+    assert mesh_lib.default_backend(torch.device(device)) == want
+
+
+def test_mesh_refuses_a_world_it_does_not_cover(steps):
+    """A mesh of 4 ranks in a world of 2, and a world of 2 without a mesh,
+    raise on every rank."""
     for refusals in steps["refusals"]:
-        assert "item 14b" in refusals["model_axis"]
         assert "needs 4 ranks, the world has 2" in refusals["mesh_over_world"]
         assert "train.mesh.data" in refusals["world_without_mesh"]
 

@@ -21,6 +21,7 @@ from multimodal_rssm_torch.data.device_buffer import (
 from multimodal_rssm_torch.models.world_model import WorldModel
 from multimodal_rssm_torch.parallel import feed
 from multimodal_rssm_torch.parallel import mesh as mesh_lib
+from multimodal_rssm_torch.parallel import tensor as tensor_lib
 from multimodal_rssm_torch.train import trainer as tr
 
 TIMEOUT_S = 300.0   # a collective (or the rendezvous) waiting longer fails
@@ -33,27 +34,41 @@ def _join(rank, nprocs, init_method):
                               world_size=nprocs, timeout_s=TIMEOUT_S)
 
 
-def _model(cfg, state_dict):
+def _model(cfg, state_dict, device=CPU):
     model = WorldModel.from_config(cfg)
     model.load_state_dict(state_dict)
-    return model
+    return model.to(device)
 
 
 def _result(model, metrics):
+    """The metrics, the whole parameters (a sharded weight's blocks
+    gathered), this rank's blocks of the sharded weights and the running
+    stats, on the CPU."""
+    params = {n: p.detach() for n, p in model.named_parameters()}
     return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "params": {n: p.detach().clone()
-                       for n, p in model.named_parameters()},
-            "stats": {k: v.clone() for k, v in model.state_dict().items()
+            "params": {n: p.cpu().clone() for n, p in
+                       tensor_lib.full_named(params, model).items()},
+            "blocks": {n: params[n].cpu().clone()
+                       for n in tensor_lib.sharded(model)},
+            "stats": {k: v.cpu().clone()
+                      for k, v in model.state_dict().items()
                       if k.endswith(("running_mean", "running_var"))}}
 
 
-def deterministic_step(cfg, state_dict, batch, dp):
+def deterministic_step(cfg, state_dict, batch, dp, device=CPU):
     """One clipped Adam step on ``dp``'s rows of a prepared global batch,
-    deterministic (no generator): the step the tests hold against the JAX
-    package's on the whole batch."""
-    model = _model(cfg, state_dict)
+    deterministic (no generator), on ``device``: the step the tests hold
+    against the JAX package's on the whole batch.  Under ``dp.model`` the
+    weights are column-sharded first (``train.mesh.min_shard_width``)."""
+    model = _model(cfg, state_dict, device)
     opt, sched = tr.build_optimizer(cfg, model)
+    if dp is not None and dp.model is not None:
+        tensor_lib.shard_model_(model, dp.model,
+                                int(cfg.train.mesh.min_shard_width), opt)
     local = batch if dp is None else mesh_lib.shard_batch(batch, dp.train)
+    observations, *rest = local
+    local = ({k: v.to(device) for k, v in observations.items()},
+             *(x.to(device) for x in rest))
     metrics = tr.optimizer_step(
         model, tr.make_loss_fn(model, cfg), local, None, opt, sched,
         tr.resolve_grad_accum(cfg), float(cfg.rssm.grad_clip_norm), dp)
@@ -101,10 +116,6 @@ def step_world(rank, nprocs, init_method, in_path, out_dir):
         out["rows"] = dp.train.rows.tolist()
         torch.save(out, os.path.join(out_dir, f"{name}_{rank}.pt"))
     refusals = {}
-    try:
-        mesh_lib.data_axes(mesh_lib.create_mesh(1, 2, "cpu"))
-    except NotImplementedError as e:
-        refusals["model_axis"] = str(e)
     try:
         mesh_lib.create_mesh(4, 1, "cpu")
     except ValueError as e:
@@ -189,4 +200,67 @@ def sigterm_world(rank, nprocs, init_method, argv, signal_rank, signal_step,
     result = cli_train._train(parser.parse_args(argv), parser, "cpu")
     torch.save({k: v for k, v in result.items() if k != "model"},
                os.path.join(out_dir, f"sigterm_{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def model_axis_world(rank, nprocs, init_method, in_path, out_dir):
+    """The model-axis step cases of this world's size (``inputs["cases"]``:
+    name -> (world size, overrides)), each on the same weights and batch,
+    with this rank's groups; in a world of 2, the refusals of meshes that
+    do not cover it."""
+    _join(rank, nprocs, init_method)
+    inputs = torch.load(in_path, weights_only=False)
+    for name, (size, overrides) in inputs["cases"].items():
+        if size != nprocs:
+            continue
+        cfg = compose(overrides=inputs["overrides"] + list(overrides))
+        mesh = mesh_lib.mesh_from_config(cfg, "cpu")
+        dp = mesh_lib.data_parallel(mesh, int(cfg.train.batch_size),
+                                    tr.resolve_grad_accum(cfg))
+        out = deterministic_step(cfg, inputs["state_dict"], inputs["batch"],
+                                 dp)
+        out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        out["rows"] = dp.train.rows.tolist()
+        out["data_rank"], out["model_rank"] = dp.train.rank, dp.model.rank
+        out["model_size"] = dp.model.size
+        torch.save(out, os.path.join(out_dir, f"{name}_{rank}.pt"))
+    if nprocs == 2:
+        refusals = {}
+        for key, over in (("mesh", ["train.mesh.data=2",
+                                    "train.mesh.model=2"]),
+                          ("no_data", ["train.mesh.data=-1",
+                                       "train.mesh.model=4"])):
+            try:
+                mesh_lib.mesh_from_config(compose(overrides=over), "cpu")
+            except ValueError as e:
+                refusals[key] = str(e)
+        try:
+            mesh_lib.create_mesh(2, 2, "cpu")
+        except ValueError as e:
+            refusals["create_mesh"] = str(e)
+        torch.save(refusals, os.path.join(out_dir, f"refusals_{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def gpu_model_axis_world(rank, nprocs, init_method, backend, in_path,
+                         out_dir):
+    """``deterministic_step`` at ``train.mesh.model=2`` on the card (both
+    ranks on card 0 over gloo, or a card each over NCCL), deterministic
+    cuDNN, no TF32: ``tests/test_torch_port_gpu.py``'s model-axis world."""
+    from multimodal_rssm_torch.core.device import configure_float32
+
+    configure_float32()
+    torch.backends.cudnn.deterministic = True
+    dev = mesh_lib.init_distributed(
+        "cuda:0" if backend == "gloo" else f"cuda:{rank}", backend,
+        init_method, rank, nprocs, TIMEOUT_S)
+    inputs = torch.load(in_path, weights_only=False)
+    cfg = compose(overrides=inputs["overrides"] + ["train.mesh.data=1",
+                                                   "train.mesh.model=2"])
+    dp = mesh_lib.data_parallel(mesh_lib.mesh_from_config(cfg, "cuda"),
+                                int(cfg.train.batch_size))
+    out = deterministic_step(cfg, inputs["state_dict"], inputs["batch"], dp,
+                             dev)
+    out["model_rank"] = dp.model.rank
+    torch.save(out, os.path.join(out_dir, f"gpu_model_axis_{rank}.pt"))
     dist.destroy_process_group()
