@@ -20,9 +20,9 @@ each printed as one JSON line:
                losses and every kernel of the path launched (counts reset
                just before);
 3a. parallel -- data parallelism (train.mesh): the train CLI at
-               train.mesh.data=1 (a one-rank NCCL world in process) against
-               the mesh-less CLI, alternated, 12 steps each (steps/s over
-               steps 3-9, peak memory, K1 once per step; the last run
+               train.mesh.data=1 (a one-rank NCCL world in process) after
+               the mesh-less CLI, 12 steps each (steps/s over
+               steps 3-9, peak memory, K1 once per step; the second run
                traces steps 10-12: NCCL's kernels and the device work
                inside the all-reduce spans a step); K1 on rank 1's shard
                of the main-path batch (row map; grad_accum 1 and 5)
@@ -41,14 +41,18 @@ each printed as one JSON line:
                every row fit no more) held against one rank at the JAX
                package's model-axis tolerance (the ranks' whole weights
                bit-equal, each rank's blocks its columns of the whole),
-               then 6 bf16 steps and a validation at batch 50 x chunk 50
-               through train.loop.run and one traced step (steps/s, peak
-               memory, K1 7 times a rank, model-group collectives and the
-               model_parallel spans' ms a step); (d) data=2 x model=2
+               then 4 bf16 steps and a validation at batch 50 x chunk 50
+               through train.loop.run (steps/s, peak memory, K1 5 times a
+               rank; under --model-axis also one traced step: model-group
+               collectives and the model_parallel spans' ms a step);
+               (d) data=2 x model=2
                through the train CLI, four ranks joined as torchrun joins
                them (over gloo on one card: more ranks than cards), batch
                8 x chunk 10:
-               3 steps, --resume to 5 bit-equal to a 5-step run, the
+               3 steps, then a 5-step run, each rank's gradient digests
+               at steps 1-3 (after the data group's average, before the
+               clip; the first step and layer where the two runs part,
+               F6), --resume to 5 bit-equal to the 5-step run, the
                checkpoint whole and read mesh-less by the check_model CLI
                (`python3 chip_smoke.py --model-axis` runs the build and
                (c), (d) alone);
@@ -57,8 +61,8 @@ each printed as one JSON line:
                12 steps a run, with train.device_replay=true (the whole
                replay on the card), =stream (train.replay_budget_gb=0.5: a
                working set of 119 of 216 segments, one replaced a step) and
-               =false (host batches behind the prefetch thread), run in the
-               order true, stream, false, false, stream, true; then at that
+               =false (host batches behind the prefetch thread), one run
+               each in that order; then at that
                size the load (serial against 4 threads), one batch's host
                gather (native into the host feed's pinned batch at 1-8
                threads and into fresh memory, NumPy), NumPy + pin + copy
@@ -149,7 +153,7 @@ each printed as one JSON line:
                over HTTP (a 3-frame streaming carry equal to the direct
                calls; 400 for a missing input and an unknown artifact, 404
                for an unknown path), ms per call at batch 1 direct and over
-               HTTP (median of 50 after 5), and no kernel launched;
+               HTTP (median of 20 after 5), and no kernel launched;
 3d. budget  -- in a fresh process, as the CLI starts, for the default
                configuration and for the 256 px GroupNorm one: a
                device-resident replay as large as hbm_budget_bytes allows
@@ -223,6 +227,19 @@ each printed as one JSON line:
                and never the WMMA ones (and none of them in the train
                phase).  The kernels line gives each two-kernel step's
                launches by variant from that run.
+
+5b. tools  -- the measurement CLIs in process at full width (batch 50 x
+               chunk 50, bf16, K1 on through train.pallas_normalize=auto),
+               the launch counts reset before each: op_profile (3 traced
+               steps after 3 warm-up: the kernels' self time by category,
+               K1 under hand-written once a traced step, the device's idle
+               share), micro_bench (the six codec cases' fwd and fwd+bwd
+               ms), profile_host_feed (each host-feed component, 3 calls
+               each), sweep_perf (remat and poe, 3 steps each, no row
+               FAILED) and bench_scaling (1x1, 3 steps); K1 once per step
+               of each tool that steps; in a process of its own
+               (`python3 chip_smoke.py --tools`, which also runs the
+               build and this phase alone);
 
 6. quality -- the learning gate (cli/quality_gate.py): the default
                configuration, seed 0, 300 iterations at batch 8 x chunk 20
@@ -586,14 +603,16 @@ def _host_ms(fn, reps: int) -> float:
 FEED_EPISODES = 360     # x 120 steps: 43,200 rows, 0.97 GB
 FEED_STEPS = 12        # short runs: the whole script must stay well inside its time limit
 FEED_STREAM_GB = 0.5
+# train.device_replay, feed: one run each (earlier versions ran each twice,
+# in mirrored order; no feed was faster than the spread between two runs of
+# one, and the script needed the time)
 FEED_ORDER = (("true", "device_resident"), ("stream", "stream"),
-              ("false", "host"), ("false", "host"), ("stream", "stream"),
-              ("true", "device_resident"))   # train.device_replay, feed
+              ("false", "host"))
 
 
 def phase_feed(device_name: str):
     """The three feeds through the CLI on a dataset of a real set's size,
-    FEED_STEPS steps each, twice each in mirrored order; then the load and
+    FEED_STEPS steps each, one run a feed; then the load and
     one batch's gather at that size, on the host and on the card."""
     import torch
 
@@ -1556,7 +1575,7 @@ def phase_bridges(tmp: str, run_dir: str, device_name: str) -> dict:
     return launches
 
 
-SERVE_CALLS = 50       # timed calls a path, after SERVE_WARMUP
+SERVE_CALLS = 20       # timed calls a path, after SERVE_WARMUP
 SERVE_WARMUP = 5
 SERVE_RTOL = 1e-5      # artifact against the eager port, relative to max |eager|
 # the control phase's CEM, at 2 of its 10 iterations: torch.export traces
@@ -2715,11 +2734,132 @@ def phase_fused_codec(device_name: str, train_launches):
     return lines
 
 
+# the tools phase: the measurement CLIs (cli/op_profile, micro_bench,
+# profile_host_feed, sweep_perf, bench_scaling) in process at full width
+TOOLS_STEPS = 3          # op_profile's traced steps (after 3 warm-up and
+                         # one the profiler drops)
+TOOLS_REPS = 3           # profile_host_feed's timed calls a component
+TOOLS_SWEEP = ("remat", "poe")
+TOOLS_SWEEP_STEPS = 3    # sweep_perf's and bench_scaling's timed steps
+
+
+def phase_tools(tmp: str, device_name: str) -> dict:
+    """The repo's measurement tools on the card, each through its
+    ``main(argv)`` at the default configuration's full width (batch 50 x
+    chunk 50, bf16), the launch counts reset just before each: op_profile
+    (``TOOLS_STEPS`` traced steps; K1 must show under ``hand-written``,
+    once a traced step), micro_bench (all six codec cases, finite times),
+    profile_host_feed (every component, ``TOOLS_REPS`` calls each; K1 once
+    a step), sweep_perf (``TOOLS_SWEEP``, ``TOOLS_SWEEP_STEPS`` steps each;
+    no row ``FAILED``) and bench_scaling (1x1, as many steps); K1 once per
+    step of each.  One JSON line per tool.  Returns K1's launches by path."""
+    from multimodal_rssm_torch.cli import (
+        bench_scaling, micro_bench, op_profile, profile_host_feed,
+        sweep_perf)
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    bad, by_path = [], {}
+
+    def run(name, fn, argv, want_k1):
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn(argv)
+        k1 = ck.launch_counts()["normalize_image"]
+        rec = {"phase": f"tools/{name}", "device": device_name,
+               "argv": argv, "wall_seconds": time.perf_counter() - t0,
+               "k1_launches": k1}
+        if want_k1 is not None:
+            by_path[f"tools/{name}"] = k1
+            if k1 != want_k1:
+                bad.append(f"{name}: K1 launched {k1} times, not {want_k1}")
+        return result, rec
+
+    prof, rec = run("op_profile", op_profile.main,
+                    ["--steps", str(TOOLS_STEPS), "--top", "15",
+                     "--trace-dir", os.path.join(tmp, "op_profile")],
+                    3 + 1 + TOOLS_STEPS)
+    k1 = {k: v for k, v in prof["hand_written"].items()
+          if "normalize_image" in k}
+    rec.update({k: prof[k] for k in ("total_ms_per_step", "window_ms",
+                                     "device_idle_share",
+                                     "categories_ms_per_step",
+                                     "hand_written")},
+               top=prof["top"],
+               other=[k for k in prof["kernels"]
+                      if k["category"] == "other"][:12])
+    emit(rec)
+    if sum(v["count"] for v in k1.values()) != TOOLS_STEPS:
+        bad.append(f"op_profile: K1 under hand-written {k1}, not once in "
+                   f"each of {TOOLS_STEPS} steps")
+
+    codecs, rec = run("micro_bench", micro_bench.main, [], None)
+    rec["cases"] = codecs
+    emit(rec)
+    if (sorted(codecs) != sorted(micro_bench.CASES)
+            or not _finite([v for c in codecs.values() for v in c.values()])):
+        bad.append(f"micro_bench: {codecs}")
+
+    feed, rec = run("profile_host_feed", profile_host_feed.main,
+                    ["--reps", str(TOOLS_REPS)], 1 + 3 * (2 + TOOLS_REPS))
+    rec["components"] = feed
+    emit(rec)
+    if not _finite([v for v in feed.values()]):
+        bad.append(f"profile_host_feed: {feed}")
+
+    rows, rec = run("sweep_perf", sweep_perf.main,
+                    ["--variants", ",".join(TOOLS_SWEEP), "--steps",
+                     str(TOOLS_SWEEP_STEPS)],
+                    len(TOOLS_SWEEP) * (3 + TOOLS_SWEEP_STEPS))
+    rec["rows"] = rows
+    emit(rec)
+    bad += [f"sweep_perf: {r}" for r in rows if "failed" in r]
+
+    rows, rec = run("bench_scaling", bench_scaling.main,
+                    ["--meshes", "1x1", "--steps", str(TOOLS_SWEEP_STEPS),
+                     "--json"], 3 + TOOLS_SWEEP_STEPS)
+    rec["rows"] = rows
+    emit(rec)
+    if len(rows) != 1:
+        bad.append(f"bench_scaling: {rows}")
+
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "tools", "device": device_name, "wall_seconds": wall,
+          "k1_launches": by_path})
+    if bad:
+        raise AssertionError(f"tools: {bad}")
+    return by_path
+
+
+def phase_tools_process() -> dict:
+    """``phase_tools`` in a fresh process (``chip_smoke.py --tools``), as a
+    user runs each tool: in this process earlier phases have traced with
+    ``torch.profiler``, and a later trace here lost the records of a few
+    dozen kernels, one K1 among them (two whole-script runs on an H100).
+    Returns K1's launches by path."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()   # this process's cached blocks back to the card
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--tools"], capture_output=True, text=True,
+                          timeout=600)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        raise AssertionError(f"tools failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])["tools_k1"]
+
+
 # the parallel phase (data parallelism: train.mesh.data as torch.distributed
 # ranks, parallel/)
 PARALLEL_STEPS = 12       # a CLI run of (a); the last traces steps 10-12
 PARALLEL_TIMED = slice(2, 9)   # steps 3-9: after the warm-up, before the trace
 PARALLEL_BF16_STEPS = 6
+MODEL_AXIS_BF16_STEPS = 4   # (c)'s bf16 run: ~8 s a step, two ranks on a card
 PARALLEL_WORLD_S = 900    # a spawned world's limit
 PARALLEL_COLLECTIVE_S = 300   # a collective waiting longer fails the world
 # two ranks against one on the same global batch, float32: the JAX
@@ -2903,9 +3043,8 @@ def model_axis_rank(rank: int, nprocs: int, init_method: str, backend: str,
     """One rank of (c)'s ``train.mesh.model=2`` world (spawned by
     ``parallel.launch.spawn``): the float32 step on the whole global batch
     with the weights column-sharded, then the shipped bf16 settings through
-    ``train.loop.run``, then one more bf16 step on the run's model traced
-    by ``torch.profiler`` (the ``model_parallel`` spans); writes
-    ``rank{rank}.pt``.  The allocator grows its segments in place
+    ``train.loop.run``, then where ``spec["traced"]``
+    ``_traced_model_axis_step``; writes ``rank{rank}.pt``.  The allocator grows its segments in place
     (``expandable_segments``): two full-width ranks at batch 50 fill the
     card but for ~0.1 GiB with fixed segments."""
     import gc
@@ -2959,45 +3098,12 @@ def model_axis_rank(rank: int, nprocs: int, init_method: str, backend: str,
             "max_memory_reserved_GiB":
                 torch.cuda.max_memory_reserved(dev) / 2 ** 30,
             "ranks_per_device": ranks_per_device(dev, dp)}
-        # one more step on the run's (sharded) model, traced
         model = result["model"]
         del result
-        opt, sched = tr.build_optimizer(bf16_cfg, model)
-        dp50 = mesh_lib.data_parallel(
-            mesh_lib.mesh_from_config(bf16_cfg, "cuda"),
-            int(bf16_cfg.train.batch_size))
-        train_step, _ = tr.make_train_step(model, bf16_cfg, opt, sched,
-                                           spec["aug_spec"], dev,
-                                           kernel_normalize=True, dp=dp50)
-        obs, *rest = spec["raw_bf16"]
-        raw = ({k: v.to(dev) for k, v in obs.items()},
-               *(x.to(dev) for x in rest))
-        g = torch.Generator(dev).manual_seed(spec["seed"])
-        torch.cuda.synchronize(dev)
-        activities = [torch.profiler.ProfilerActivity.CPU,
-                      torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            train_step(raw, spec["draws"], g)
-            torch.cuda.synchronize(dev)
-            out["traced_step_s"] = time.perf_counter() - t0
-        trace = os.path.join(out_dir, f"trace_rank{rank}.json")
-        prof.export_chrome_trace(trace)
-        out["trace"] = _collective_device_ms(trace, tensor_lib.SPAN)
-        # one model-group all-reduce with no other work queued: an RSSM
-        # layer's [50, 1024] output, and up_conversion's [2450, 32768]
-        out["idle_all_reduce_ms"] = {}
-        for shape, reps in (((50, 1024), 20), ((2450, 32768), 5)):
-            x = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-            dist.all_reduce(x, group=dp50.model.group)
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                dist.all_reduce(x, group=dp50.model.group)
-            torch.cuda.synchronize(dev)
-            out["idle_all_reduce_ms"][str(list(shape))] = (
-                (time.perf_counter() - t0) / reps * 1e3)
-            del x
+        if spec["traced"]:
+            out.update(_traced_model_axis_step(spec, model, bf16_cfg, dev,
+                                               out_dir, rank))
+        del model
         mesh_lib.barrier(dev)
         free, total = torch.cuda.mem_get_info(dev)
         out["bf16"]["card_used_GiB"] = (total - free) / 2 ** 30
@@ -3005,6 +3111,59 @@ def model_axis_rank(rank: int, nprocs: int, init_method: str, backend: str,
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _traced_model_axis_step(spec: dict, model, bf16_cfg, dev, out_dir: str,
+                            rank: int) -> dict:
+    """(c) under ``--model-axis``: one more bf16 step on the run's sharded
+    model, traced by ``torch.profiler`` (the ``model_parallel`` spans' device
+    and host ms), then model-group all-reduces with no other work queued (an
+    RSSM layer's [50, 1024] output, up_conversion's [2450, 32768])."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_rssm_torch.parallel import mesh as mesh_lib
+    from multimodal_rssm_torch.parallel import tensor as tensor_lib
+    from multimodal_rssm_torch.train import trainer as tr
+
+    out = {}
+    opt, sched = tr.build_optimizer(bf16_cfg, model)
+    dp50 = mesh_lib.data_parallel(
+        mesh_lib.mesh_from_config(bf16_cfg, "cuda"),
+        int(bf16_cfg.train.batch_size))
+    train_step, _ = tr.make_train_step(model, bf16_cfg, opt, sched,
+                                       spec["aug_spec"], dev,
+                                       kernel_normalize=True, dp=dp50)
+    obs, *rest = spec["raw_bf16"]
+    raw = ({k: v.to(dev) for k, v in obs.items()},
+           *(x.to(dev) for x in rest))
+    g = torch.Generator(dev).manual_seed(spec["seed"])
+    torch.cuda.synchronize(dev)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        train_step(raw, spec["draws"], g)
+        torch.cuda.synchronize(dev)
+        out["traced_step_s"] = time.perf_counter() - t0
+    trace = os.path.join(out_dir, f"trace_rank{rank}.json")
+    prof.export_chrome_trace(trace)
+    out["trace"] = _collective_device_ms(trace, tensor_lib.SPAN)
+    # one model-group all-reduce with no other work queued: an RSSM
+    # layer's [50, 1024] output, and up_conversion's [2450, 32768]
+    out["idle_all_reduce_ms"] = {}
+    for shape, reps in (((50, 1024), 20), ((2450, 32768), 5)):
+        x = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        dist.all_reduce(x, group=dp50.model.group)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dist.all_reduce(x, group=dp50.model.group)
+        torch.cuda.synchronize(dev)
+        out["idle_all_reduce_ms"][str(list(shape))] = (
+            (time.perf_counter() - t0) / reps * 1e3)
+        del x
+    return out
 
 
 def model_axis_cli_rank(rank: int, nprocs: int, port: int, cards: int,
@@ -3035,13 +3194,61 @@ def model_axis_cli_rank(rank: int, nprocs: int, port: int, cards: int,
         torch.utils.deterministic.fill_uninitialized_memory = (
             strict == "fill")
     ck.reset_launch_counts()
+    digests = _digest_gradients()
     result = train_main(argv)
     torch.save({"backend": default_backend(torch.device("cuda")),
                 "launches": ck.launch_counts(),
                 "max_memory_allocated_GiB":
                     torch.cuda.max_memory_allocated() / 2 ** 30,
+                "grad_digests": digests,
                 "result": {k: v for k, v in result.items() if k != "model"}},
                os.path.join(out_dir, f"cli{rank}.pt"))
+
+
+F6_STEPS = 3   # (d): the steps whose gradients each rank digests
+
+
+def _digest_gradients() -> list:
+    """From now on in this process, each of the first ``F6_STEPS`` train
+    steps records a digest of every parameter's gradient (its bytes' SHA-1,
+    16 hex digits; a sharded weight's: this rank's block) after the data
+    group's average and before the clip, where ``train/trainer.py``'s
+    ``optimizer_step`` calls ``apply_gradients``.  Returns the list the
+    steps fill, one ``{name: digest}`` a step."""
+    import hashlib
+
+    from multimodal_rssm_torch.train import trainer as tr
+
+    digests, apply = [], tr.apply_gradients
+
+    def digesting(model, *args, **kwargs):
+        if len(digests) < F6_STEPS:
+            digests.append({
+                name: hashlib.sha1(
+                    p.grad.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+                for name, p in model.named_parameters()
+                if p.grad is not None})
+        return apply(model, *args, **kwargs)
+
+    tr.apply_gradients = digesting
+    return digests
+
+
+def _first_parting(a: list, b: list):
+    """The first (step, parameter) whose gradient digests differ between two
+    runs' ``_digest_gradients`` lists (steps from 1), or None."""
+    for step, (x, y) in enumerate(zip(a, b), start=1):
+        for name in x:
+            if x[name] != y.get(name):
+                return [step, name]
+    return None
+
+
+def _combined_digest(step: dict) -> str:
+    """One digest of a step's per-parameter digests, in parameter order."""
+    import hashlib
+
+    return hashlib.sha1("".join(step.values()).encode()).hexdigest()[:16]
 
 
 def _free_port() -> int:
@@ -3095,7 +3302,8 @@ def _model_axis_cli_argv(tmp: str, steps: int, experiment: str) -> list:
             *_model_axis_cli_tail(tmp)]
 
 
-def phase_model_axis(tmp: str, device_name: str) -> dict:
+def phase_model_axis(tmp: str, device_name: str, traced: bool = False
+                     ) -> dict:
     """The model axis (``train.mesh.model``) on the card, in phase
     parallel.  (c) ``data=1 x model=2``: two ranks (NCCL on two cards where
     there are two, else both on this card over gloo) through
@@ -3107,9 +3315,11 @@ def phase_model_axis(tmp: str, device_name: str) -> dict:
     each rank's blocks its columns of the whole; then the shipped bf16
     settings for 6 steps and a validation at batch 50 x chunk 50 through
     ``train.loop.run`` (``rssm.remat=true`` where two ranks do not fit
-    without it), and one more traced step: steps/s a rank, each rank's
-    peak memory, K1's launches, the model group's collectives and the
-    ``model_parallel`` spans' ms a step.  (d) ``data=2 x model=2`` through
+    without it): steps/s a rank, each rank's peak memory, K1's launches;
+    with ``traced`` (``--model-axis``; the whole script leaves it out to
+    keep within its time) one more traced step and idle all-reduces: the
+    model group's collectives and the ``model_parallel`` spans' ms a step.
+    (d) ``data=2 x model=2`` through
     the train CLI (NCCL on four cards, else gloo: the CLI's choice where
     the ranks outnumber the cards, every rank on the one card), four ranks
     joined as ``torchrun`` joins them, batch 8 x chunk 10, deterministic cuDNN: 3
@@ -3165,7 +3375,7 @@ def phase_model_axis(tmp: str, device_name: str) -> dict:
               "state_dict": model.state_dict(), "aug_spec": aug_spec,
               "raw": cut, "raw_bf16": raw,
               "draws": tr.HostAugmentDraws(D, aug_spec, seed=1).draw(),
-              "seed": 5, "root": tmp}
+              "seed": 5, "root": tmp, "traced": traced}
     torch.backends.cudnn.deterministic = True
     try:
         one = parallel_f32_step(spec_c, torch.device("cuda"), None)
@@ -3176,8 +3386,8 @@ def phase_model_axis(tmp: str, device_name: str) -> dict:
     for remat in ("false", "true"):
         spec_c["bf16_overrides"] = base + MODEL_AXIS_MESH + [
             f"train.batch_size={SHAPE[1]}",
-            f"train.train_iteration={PARALLEL_BF16_STEPS}",
-            f"train.validation_interval={PARALLEL_BF16_STEPS}",
+            f"train.train_iteration={MODEL_AXIS_BF16_STEPS}",
+            f"train.validation_interval={MODEL_AXIS_BF16_STEPS}",
             "train.pallas_normalize=true", f"rssm.remat={remat}",
             f"main.experiment_name=model_axis_{remat}"]
         spec_path = os.path.join(tmp, "model_axis_spec.pt")
@@ -3253,7 +3463,7 @@ def phase_model_axis(tmp: str, device_name: str) -> dict:
     record["c_f32"] = check
     bf = {}
     for r, got in enumerate(ranks):
-        b, t = got["bf16"], got["trace"]
+        b = got["bf16"]
         bf[f"rank{r}"] = {
             "steps_per_s_median_after_2": 1.0 / statistics.median(
                 b["step_seconds"][2:-1]),
@@ -3263,20 +3473,26 @@ def phase_model_axis(tmp: str, device_name: str) -> dict:
             "max_memory_reserved_GiB": b["max_memory_reserved_GiB"],
             "ranks_per_device": b["ranks_per_device"],
             "k1_launches": b["launches"]["normalize_image"],
-            "loss": b["loss"], "validation_loss": b["validation_loss"],
-            "traced_step_s": got["traced_step_s"],
-            "model_group_collectives_per_step": t["spans"],
-            "model_parallel_span_device_ms_per_step": t["span_ms"],
-            "model_parallel_span_device_events_per_step":
-                t["span_device_events"],
-            "model_parallel_span_host_ms_per_step": t["span_host_ms"],
-            "idle_bf16_all_reduce_ms": got["idle_all_reduce_ms"],
-            "nccl_kernels_per_step": t["nccl_kernels"]}
+            "loss": b["loss"], "validation_loss": b["validation_loss"]}
+        if traced:
+            t = got["trace"]
+            bf[f"rank{r}"].update({
+                "traced_step_s": got["traced_step_s"],
+                "model_group_collectives_per_step": t["spans"],
+                "model_parallel_span_device_ms_per_step": t["span_ms"],
+                "model_parallel_span_device_events_per_step":
+                    t["span_device_events"],
+                "model_parallel_span_host_ms_per_step": t["span_host_ms"],
+                "idle_bf16_all_reduce_ms": got["idle_all_reduce_ms"],
+                "nccl_kernels_per_step": t["nccl_kernels"]})
+            if not t["spans"]:
+                bad.append(f"(c) rank {r}: the traced step holds no "
+                           "model-group span")
         if b["ranks_per_device"] != (1 if cards >= 2 else 2):
             bad.append(f"(c) rank {r}: ranks_per_device "
                        f"{b['ranks_per_device']} with {cards} card(s)")
-        if (b["launches"]["normalize_image"] != PARALLEL_BF16_STEPS + 1
-                or b["sharded"] != len(want_blocks) or not t["spans"]
+        if (b["launches"]["normalize_image"] != MODEL_AXIS_BF16_STEPS + 1
+                or b["sharded"] != len(want_blocks)
                 or not all(math.isfinite(v) for v in
                            (b["loss"], b["validation_loss"]))):
             bad.append(f"(c) rank {r} bf16: {bf[f'rank{r}']}")
@@ -3313,8 +3529,10 @@ def phase_model_axis(tmp: str, device_name: str) -> dict:
 
     # one world at a time, so that the resume check holds the checkpoint
     # alone: on an H100 a 3-step run made once beside the whole run parted
-    # from it by 4e-6 of the loss at step 3, a split of unknown source
-    # that --model-axis-pairs (12 runs side by side) did not reproduce
+    # from it by 4e-6 of the loss at step 3 (F6); three whole-script runs
+    # with the two side by side did not part, each rank's gradient digests
+    # at steps 1-3 equal in all.  The digests stay, so that a
+    # parting names its first step and layer
     cli = {name: cli_world(name, argv) for name, argv in worlds.items()}
     cli["resume"] = cli_world("resume", [
         f"train.train_iteration={whole}",
@@ -3359,6 +3577,17 @@ def phase_model_axis(tmp: str, device_name: str) -> dict:
     if not all(equal.values()) or not shapes_whole:
         bad.append(f"(d) resume against the whole run: {equal}, whole "
                    f"tensors {shapes_whole}")
+    d["f6"] = {
+        "steps": F6_STEPS,
+        "parameters_digested": [len(g["grad_digests"][0])
+                                for g in cli["first"]],
+        "first_parting": [_first_parting(f["grad_digests"],
+                                         w["grad_digests"])
+                          for f, w in zip(cli["first"], cli["whole"])],
+        "digests": {name: [[_combined_digest(step)
+                            for step in g["grad_digests"][:F6_STEPS]]
+                           for g in cli[name]]
+                    for name in ("first", "whole")}}
     ck.reset_launch_counts()
     t0 = time.perf_counter()
     report = check_model.main(["--run", run_dir, "--itr", str(first),
@@ -3560,9 +3789,10 @@ def _loss_rel(a: list, b: list) -> float:
 def phase_parallel(tmp: str, device_name: str) -> dict:
     """Data parallelism (``train.mesh``) on the card.  (a) The train CLI at
     ``train.mesh.data=1`` (a one-rank NCCL world in this process) against
-    the mesh-less CLI, alternated (none, data=1, none, data=1), 12 steps
+    the mesh-less CLI (none, then data=1; four alternated runs did not
+    fit the script's time), 12 steps
     each, batch 50 x chunk 50, bf16, K1 on: steps/s over steps 3-9, peak
-    memory, K1 once per step; the last run traces steps 10-12 for NCCL's
+    memory, K1 once per step; the data=1 run traces steps 10-12 for NCCL's
     device time per step.  K1 on a shard (``k1_under_a_mesh``).  (b) Two
     ranks: NCCL on two cards where there are two, else both on this card
     over gloo (NCCL refuses two ranks on one GPU), launched through
@@ -3595,11 +3825,11 @@ def phase_parallel(tmp: str, device_name: str) -> dict:
     common = [f"train.train_iteration={PARALLEL_STEPS}",
               f"train.validation_interval={PARALLEL_STEPS}"]
     runs = []
-    for i, mesh in enumerate(("none", "data=1", "none", "data=1")):
+    for i, mesh in enumerate(("none", "data=1")):
         args = [*common, f"main.experiment_name=parallel_{i}"]
         if mesh != "none":
             args.append(f"train.mesh.{mesh}")
-        if i == 3:
+        if i == 1:
             args.append(f"train.profile_dir={tmp}/parallel_trace")
         rec, result, counts = train_run(f"parallel/{mesh}", tmp, args,
                                         PARALLEL_STEPS, "device_resident")
@@ -3763,6 +3993,14 @@ def phase_parallel(tmp: str, device_name: str) -> dict:
     return by_path
 
 
+def print_card() -> None:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3798,6 +4036,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         codecs_k1, k1_shapes = phase_codecs(tmp, name, default)
     fused = phase_fused_codec(name, launches)
+    tools_k1 = phase_tools_process()
     with tempfile.TemporaryDirectory() as tmp:
         phase_quality(tmp)
     kernel["launches"] = launches["normalize_image"]
@@ -3805,15 +4044,13 @@ def main() -> int:
         "train": launches["normalize_image"],
         "estimate_state": eval_k1["estimate_state"],
         "check_model": eval_k1["check_model"], **control_k1["launches"],
-        **bridges_k1, **variants_k1, **codecs_k1, **parallel_k1}
+        **bridges_k1, **variants_k1, **codecs_k1, **parallel_k1,
+        **tools_k1}
     kernel["eval_episode_shape_ms"] = eval_k1["episode_shape_ms"]
     kernel["agent_frame_shape"] = control_k1["frame_shape"]
     kernel["codec_shapes"] = k1_shapes
     emit({"kernels": [kernel, *fused]})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print_card()
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
@@ -3839,6 +4076,21 @@ if __name__ == "__main__":
             write_dataset(tmp, 4)
             emit(phase_model_axis_pairs(tmp))
         sys.exit(0)
+    if sys.argv[1:2] == ["--tools"]:   # phase tools alone
+        sys.path.insert(0, REPO)
+        import torch
+
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is visible")
+        from multimodal_rssm_torch.core.device import configure_float32
+
+        configure_float32()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            k1 = phase_tools(tmp, torch.cuda.get_device_name(0))
+        print_card()
+        emit({"tools_k1": k1})
+        sys.exit(0)
     if sys.argv[1:2] == ["--model-axis"]:   # phase parallel's (c), (d) alone
         sys.path.insert(0, REPO)
         import torch
@@ -3852,6 +4104,6 @@ if __name__ == "__main__":
         with tempfile.TemporaryDirectory() as tmp:
             write_dataset(tmp, 4)
             emit({"model_axis_k1": phase_model_axis(
-                tmp, torch.cuda.get_device_name(0))})
+                tmp, torch.cuda.get_device_name(0), traced=True)})
         sys.exit(0)
     sys.exit(main())

@@ -5,7 +5,9 @@
 
 Builds the configured model (default: the shipped configuration with the
 normalise kernel on, batch 50 x chunk 50) on random weights and one random
-uint8/float batch, warms up, then over ``--steps`` steps prints JSON lines:
+uint8/float batch (``cli/_profiling_common.build_step_setup``, which the
+other measurement tools share), warms up, then over ``--steps`` steps
+prints JSON lines:
 
 - ``phases``: device milliseconds per step of the input pipeline, the
   encoder, the RSSM time loop, the decoders (each forward only, from CUDA
@@ -26,12 +28,9 @@ import statistics
 import time
 from typing import Dict, List, Optional, Sequence
 
-import numpy as np
 import torch
 
-from multimodal_rssm_torch.core.config import compose
-from multimodal_rssm_torch.core.device import configure_float32, resolve_device
-from multimodal_rssm_torch.models.world_model import WorldModel, init_parameters
+from multimodal_rssm_torch.cli._profiling_common import build_step_setup
 from multimodal_rssm_torch.train import trainer as tr
 
 
@@ -74,18 +73,6 @@ class _Spans:
         return out
 
 
-def _random_batch(cfg, device, rng):
-    L, B = int(cfg.train.chunk_size), int(cfg.train.batch_size)
-    obs = {"image_horizon": rng.integers(0, 256, (L, B, 64, 64, 3), np.uint8),
-           "sound": rng.normal(size=(L, B, 128, 20)).astype(np.float32)}
-    A = int(cfg.env.action_size)
-    batch = (obs, rng.normal(size=(L, B, A)).astype(np.float32),
-             rng.normal(size=(L, B)).astype(np.float32),
-             np.ones((L, B, 1), np.float32))
-    to = lambda a: torch.from_numpy(a).to(device)
-    return ({k: to(v) for k, v in batch[0].items()}, *map(to, batch[1:]))
-
-
 def main(argv: Optional[Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("overrides", nargs="*")
@@ -94,20 +81,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--trace", default=None)
     args = parser.parse_args(argv)
 
-    device = resolve_device("cuda")
-    configure_float32()
-    cfg = compose(overrides=["train.pallas_normalize=true", *args.overrides])
-    model = WorldModel.from_config(cfg)
-    init_parameters(model, torch.Generator().manual_seed(0))
-    model.to(device)
-    optimizer, scheduler = tr.build_optimizer(cfg, model)
+    (cfg, model, optimizer, scheduler, spec, _, raw, generator, device,
+     _) = build_step_setup(None, None, ["train.pallas_normalize=true",
+                                        *args.overrides])
     loss_fn = tr.make_loss_fn(model, cfg)
-    spec = tr.AugSpec(modalities=(("image_horizon", tr.ModalityAugSpec(
-        out_size=(64, 64), needs_crop=False, noise=False, pca=False,
-        normalize=True)),))
     use_kernel = tr.kernel_normalize_enabled(cfg, device)
-    generator = torch.Generator(device).manual_seed(0)
-    raw = _random_batch(cfg, device, np.random.default_rng(0))
 
     spans = _Spans()
     spans.hook(model.encoder, "encoder")

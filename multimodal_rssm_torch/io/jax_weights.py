@@ -69,9 +69,11 @@ def _conv1d(p: Mapping) -> Dict[str, np.ndarray]:
 
 
 def _conv1d_cols_hwc(p: Mapping, C: int, H: int, W: int) -> Dict[str, np.ndarray]:
-    w = np.asarray(p["kernel"]).T                     # [out (h, w, c), in]
-    w = w.reshape(H, W, C, -1).transpose(2, 0, 1, 3).reshape(C * H * W, -1)
-    return {"weight": w[:, :, None]}
+    k = np.asarray(p["kernel"])                       # [in, out (h, w, c)]
+    # permute within each input row (contiguous), then transpose as a view,
+    # as _conv1d does: a strided transpose of the whole matrix costs ~10x
+    w = np.ascontiguousarray(k.reshape(-1, H, W, C).transpose(0, 3, 1, 2))
+    return {"weight": w.reshape(len(k), C * H * W).T[:, :, None]}
 
 
 def _norm(p: Mapping, stats: Optional[Mapping]) -> Dict[str, np.ndarray]:

@@ -1031,3 +1031,27 @@ def test_model_axis_step_on_card_matches_the_replicated_step(cuda, tmp_path):
     assert loose <= 5e-4 * total
     for name in ranks[0]["params"]:
         assert torch.equal(ranks[0]["params"][name], ranks[1]["params"][name])
+
+
+@pytest.mark.gpu
+def test_op_profile_on_card_lists_k1_as_hand_written(cuda, tmp_path):
+    """``cli/op_profile`` at the --small widths on the card (K1 on, as
+    ``train.pallas_normalize=auto`` takes it on CUDA): K1's kernel in the
+    trace under ``hand-written``, once in each traced step, its wrapper
+    counting the warm-up, the profiler's dropped and the traced steps;
+    device kernels in the categories."""
+    from multimodal_rssm_torch.cli import _profiling_common as pc
+    from multimodal_rssm_torch.cli import op_profile
+
+    ck.reset_launch_counts()
+    out = op_profile.main(["--batch-size", "4", "--chunk-size", "6",
+                           "--steps", "2", "--trace-dir", str(tmp_path),
+                           *[a for o in pc.SMALL for a in ("--override", o)]])
+    k1 = {k: v for k, v in out["hand_written"].items()
+          if "normalize_image" in k}
+    facts = (out["hand_written"], ck.launch_counts(),
+             out["categories_ms_per_step"], out["device_idle_share"])
+    assert sum(v["count"] for v in k1.values()) == 2, facts
+    assert ck.launch_counts()["normalize_image"] == 3 + 1 + 2, facts
+    assert out["categories_ms_per_step"]["conv"] > 0, facts
+    assert 0 <= out["device_idle_share"] < 1, facts

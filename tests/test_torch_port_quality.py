@@ -12,7 +12,8 @@ replay of a seeded synthetic set, its augmentation draws
 the prepared batch handed to both.  The loss runs the deterministic path
 (``key=None`` / generator None: zero latent noise), then a clip at 100 and
 Adam at lr 1e-3, eps 1e-7, for ``STEPS`` = 30 steps; for the gate's
-``default`` and ``categorical`` configs.  Two readings:
+``default`` and ``categorical`` configs (the categorical run in
+``test_torch_port_quality_categorical.py``).  Two readings:
 
 - the free run: each package trains on its own for the 30 steps.  For
   the default config each step's loss is compared: step 1's (before any
@@ -83,9 +84,15 @@ def LOSS_RTOL(step: int) -> float:
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _one_thread():
+def _learning_threads():
+    """Under xdist (6 workers on 8 cores) the other port files take one
+    torch thread each; the two learning runs (this file's and
+    ``test_torch_port_quality_categorical.py``'s) take four.  They are the
+    suite's longest runs, and the categorical one, in a file of two tests,
+    is among the last that ``--dist loadfile`` hands out (it orders the
+    files by their test counts), when most workers have finished."""
     if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(1)
+        torch.set_num_threads(4)
 
 
 def _t(a):
@@ -97,15 +104,22 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module", params=["default", "categorical"])
-def learning_run(request, tmp_path_factory):
+def learning_run_for(config: str, tmp_path_factory) -> dict:
     """STEPS steps of both packages from the same weights on the same
     prepared batches: the JAX run's losses, the port's free run's, the
-    forced steps' losses and, per forced step, (the largest parameter
-    difference over its bound, the entries held to the 2 lr bound)."""
+    forced steps' losses and, per forced step, the shares of gradient and
+    parameter entries within the one-step bounds.  ``config`` names one
+    of ``qg.CONFIGS``; each config's run is the ``learning_run`` fixture
+    of a file of its own (this one: default;
+    ``test_torch_port_quality_categorical.py``), so that xdist's
+    ``--dist loadfile`` runs them on two workers.
+
+    Each JAX state is laid out in the port's names once: the JAX run's
+    parameters after a step are both what that forced step is held to and
+    where the next forced step starts."""
     over = qg.TINY + [f"train.batch_size={B}", f"train.chunk_size={L}",
                       "train.experience_size=400",
-                      *qg.CONFIGS[request.param][0]]
+                      *qg.CONFIGS[config][0]]
     jcfg = jax_compose(overrides=over + ["rssm.remat=false"])
     cfg = compose(overrides=over)
     ds = str(tmp_path_factory.mktemp("learning_ds"))
@@ -150,63 +164,80 @@ def learning_run(request, tmp_path_factory):
     def port_state(params, stats):
         return state_dict_from_jax(_np_tree(params), _np_tree(stats))
 
-    def port_step(model, opt, sched, batch):
-        """One step; returns (loss, the gradients before the clip)."""
+    def port_step(model, opt, sched, batch, keep_grads):
+        """One step; returns (loss, the gradients before the clip, or
+        None)."""
         obs, act, rew, nt = batch
         loss, _ = tr.make_loss_fn(model, cfg)(
             ({k: _t(v) for k, v in obs.items()}, _t(act), _t(rew), _t(nt)),
             None, True)
         opt.zero_grad(set_to_none=True)
         loss.backward()
-        grads = {n: p.grad.clone() for n, p in model.named_parameters()
-                 if p.grad is not None}
+        grads = ({n: p.grad.clone() for n, p in model.named_parameters()
+                  if p.grad is not None} if keep_grads else None)
         tr.apply_gradients(model, opt, sched, float(cfg.rssm.grad_clip_norm))
         return float(loss.detach()), grads
 
+    @torch.no_grad()
+    def share(got, want, what):
+        """The share of ``want``'s entries that ``got`` holds within the
+        one-step bounds: the gradients rtol 1e-4, atol 1e-5 x the tensor's
+        largest; the parameters after the step rtol 1e-5, atol 2e-5 (a
+        missing ``got`` counts as zeros)."""
+        n_ok = n_all = 0
+        for name, w in want.items():
+            w = w.contiguous()   # a converted Linear's is a transposed view
+            g = got.get(name)
+            g = torch.zeros_like(w) if g is None else g.detach()
+            tol = w.abs()
+            if what == "params":
+                tol.mul_(1e-5).add_(2e-5)
+            else:
+                atol = 1e-5 * tol.max()
+                tol.mul_(1e-4).add_(atol)
+            n_ok += int(torch.le((g - w).abs_(), tol).sum())
+            n_all += w.numel()
+        return n_ok / n_all
+
     free = WorldModel.from_config(cfg)
-    free.load_state_dict(port_state(params, stats))
+    start = port_state(params, stats)   # the JAX run's state at step 1
+    free.load_state_dict(start)
     free_opt, free_sched = tr.build_optimizer(cfg, free)
     forced = WorldModel.from_config(cfg)
     forced_opt, forced_sched = tr.build_optimizer(cfg, forced)
+    param_names = [n for n, _ in forced.named_parameters()]
 
     out = {"jax": [], "free": [], "forced": [], "forced_grads": [],
            "forced_params": []}
     opt_state = optimizer.init(params)
     for batch in batches:
-        forced.load_state_dict(port_state(params, stats))
+        forced.load_state_dict(start)
         if out["jax"]:   # the JAX run's Adam state at this step
             _load_adam(forced_opt, forced, _np_tree(
                 flax.serialization.to_state_dict(opt_state)),
                 lambda tree: state_dict_from_jax(tree, None), "jax")
-        floss, fgrads = port_step(forced, forced_opt, forced_sched, batch)
+        floss, fgrads = port_step(forced, forced_opt, forced_sched, batch,
+                                  True)
         out["forced"].append(floss)
         params, stats, opt_state, jloss, grads, _ = jstep(
             params, stats, opt_state,
             jax.tree_util.tree_map(jnp.asarray, batch))
         out["jax"].append(float(jloss))
-        out["free"].append(port_step(free, free_opt, free_sched, batch)[0])
-        # the share of entries within the one-step bounds: the gradients
-        # rtol 1e-4, atol 1e-5 x the tensor's largest; the parameters after
-        # the step rtol 1e-5, atol 2e-5
-        share = {}
-        for what, got, want in (
-                ("grads", fgrads, grads),
-                ("params", dict(forced.named_parameters()), params)):
-            want = state_dict_from_jax(_np_tree(want), None)
-            n_ok = n_all = 0
-            for name, w in want.items():
-                w = w.numpy()
-                g = got.get(name)
-                g = np.zeros_like(w) if g is None else g.detach().numpy()
-                tol = (1e-5 * np.abs(w) + 2e-5 if what == "params"
-                       else 1e-4 * np.abs(w) + 1e-5 * np.abs(w).max())
-                n_ok += int((np.abs(g - w) <= tol).sum())
-                n_all += w.size
-            share[what] = n_ok / n_all
-        for what, v in share.items():
-            out[f"forced_{what}"].append(v)
-    out["config"] = request.param
+        out["free"].append(port_step(free, free_opt, free_sched, batch,
+                                     False)[0])
+        start = port_state(params, stats)
+        out["forced_grads"].append(share(
+            fgrads, state_dict_from_jax(_np_tree(grads), None), "grads"))
+        out["forced_params"].append(share(
+            dict(forced.named_parameters()),
+            {n: start[n] for n in param_names}, "params"))
+    out["config"] = config
     return out
+
+
+@pytest.fixture(scope="module", params=["default"])
+def learning_run(request, tmp_path_factory):
+    return learning_run_for(request.param, tmp_path_factory)
 
 
 def test_free_run_learns_as_jax_does(learning_run):

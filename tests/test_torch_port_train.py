@@ -401,11 +401,21 @@ BRIDGE_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
 SERVE_MODULES = [f"multimodal_rssm_torch.{m}" for m in (
     "ops.keyed_noise", "io.export", "io.serve", "cli.export_model",
     "cli.serve", "cli.quality_gate", "cli.calibrate_quality_windows")]
+# the measurement tools (the JAX package's scripts/ counterparts), which
+# import nothing of scripts/ either
+TOOL_MODULES = [f"multimodal_rssm_torch.cli.{m}" for m in (
+    "_profiling_common", "profile_step", "op_profile", "micro_bench",
+    "profile_host_feed", "sweep_perf", "bench_scaling", "online_peg_table")]
+SCRIPT_NAMES = ("_profiling_common", "op_profile", "micro_bench",
+                "profile_host_feed", "sweep_perf", "bench_scaling",
+                "online_peg_table", "profile_step", "train_online",
+                "eval_policy")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Nor, at import, scikit-learn, PIL, matplotlib or msgpack, which the
-    card's machine lacks (the eval CLIs import PIL and matplotlib only
+    """Nor the JAX package's scripts/ (the measurement tools keep their own
+    copies), nor, at import, scikit-learn, PIL, matplotlib or msgpack, which
+    the card's machine lacks (the eval CLIs import PIL and matplotlib only
     where they write images, and skip those without them; the dataset
     builder and the .msgpack reader need neither PIL nor msgpack)."""
     code = (
@@ -416,9 +426,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m in ('jax', 'sklearn', 'PIL', "
         "'matplotlib', 'msgpack') or m.startswith(('jax.', 'jaxlib', "
-        "'flax', 'optax', 'msgpack.', 'PIL.', 'multimodal_rssm_tpu'))]\n"
+        "'flax', 'optax', 'msgpack.', 'PIL.', 'multimodal_rssm_tpu'))"
+        f" or m in {SCRIPT_NAMES!r}]\n"
         f"missing = [m for m in "
-        f"{FEED_MODULES + EVAL_MODULES + VARIANT_MODULES + CODEC_MODULES + CONTROL_MODULES + BRIDGE_MODULES + SERVE_MODULES!r} "
+        f"{FEED_MODULES + EVAL_MODULES + VARIANT_MODULES + CODEC_MODULES + CONTROL_MODULES + BRIDGE_MODULES + SERVE_MODULES + TOOL_MODULES!r} "
         "if m not in sys.modules]\n"
         "print(len(sys.modules), bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
