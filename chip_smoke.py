@@ -41,8 +41,8 @@ each printed as one JSON line:
                every row fit no more) held against one rank at the JAX
                package's model-axis tolerance (the ranks' whole weights
                bit-equal, each rank's blocks its columns of the whole),
-               then 4 bf16 steps and a validation at batch 50 x chunk 50
-               through train.loop.run (steps/s, peak memory, K1 5 times a
+               then 3 bf16 steps and a validation at batch 50 x chunk 50
+               through train.loop.run (steps/s, peak memory, K1 4 times a
                rank; under --model-axis also one traced step: model-group
                collectives and the model_parallel spans' ms a step);
                (d) data=2 x model=2
@@ -58,7 +58,7 @@ each printed as one JSON line:
                (c), (d) alone);
 3b. feed    -- the same CLI on a dataset of a real set's size (360 x 120
                episodes, 43,200 rows, 0.97 GB; experience_size to match),
-               12 steps a run, with train.device_replay=true (the whole
+               8 steps a run, with train.device_replay=true (the whole
                replay on the card), =stream (train.replay_budget_gb=0.5: a
                working set of 119 of 216 segments, one replaced a step) and
                =false (host batches behind the prefetch thread), one run
@@ -126,12 +126,19 @@ each printed as one JSON line:
                pose_quat, servo_value) built by data/dataset_builder
                (binary channels; host s per episode); the train CLI on the
                built set, 16 steps (batch 50 x chunk 50, bf16, K1 on) with
-               train.histogram_interval=2 and 16 with train.profile_dir
-               (the trace of steps 10-15), under deterministic cuDNN:
+               train.histogram_interval=2 and main.wandb=true (a stub
+               wandb module) and 16 with train.profile_dir (the trace of
+               steps 10-15), composed from a copy of the config tree
+               whose root is bridges.yaml ($MRSSM_CONFIG_DIR,
+               --config-name bridges), under deterministic cuDNN:
                every tensor of the two models bit-equal, the histogram
-               lines, the trace, K1 once per step, validation and
-               histogram pass, a step's s with and without a histogram
-               pass (and the pass's logging half), the profiled steps' s;
+               lines, every record mirrored to the stub (one init with
+               the run's name, project, config, tags and dir; one
+               finish), both runs' metrics.jsonl lines in the JAX loop's
+               order with frame = step x 50 x 50, the trace, K1 once per
+               step, validation and histogram pass, a step's s with and
+               without a histogram pass (and the pass's logging half),
+               the profiled steps' s;
                collect_sim_data --env synthetic (2 episodes, loaded by the
                train CLI's loader); export_torch of 3c's models_6.pt to a
                reference .pth, then train.model_path on it for 1 step (the
@@ -153,7 +160,7 @@ each printed as one JSON line:
                over HTTP (a 3-frame streaming carry equal to the direct
                calls; 400 for a missing input and an unknown artifact, 404
                for an unknown path), ms per call at batch 1 direct and over
-               HTTP (median of 20 after 5), and no kernel launched;
+               HTTP (median of 10 after 3), and no kernel launched;
 3d. budget  -- in a fresh process, as the CLI starts, for the default
                configuration and for the 256 px GroupNorm one: a
                device-resident replay as large as hbm_budget_bytes allows
@@ -238,8 +245,9 @@ each printed as one JSON line:
                each), sweep_perf (remat and poe, 3 steps each, no row
                FAILED) and bench_scaling (1x1, 3 steps); K1 once per step
                of each tool that steps; in a process of its own
-               (`python3 chip_smoke.py --tools`, which also runs the
-               build and this phase alone);
+               (`python3 chip_smoke.py --tools`, which builds the
+               libraries that are missing or stale and runs this phase
+               alone);
 
 6. quality -- the learning gate (cli/quality_gate.py): the default
                configuration, seed 0, 300 iterations at batch 8 x chunk 20
@@ -253,6 +261,7 @@ and prints no result.  A failing phase raises.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -373,10 +382,11 @@ def hbm_rate(name: str) -> float:
     return HBM_RATE["H100"]
 
 
-def phase_build():
+def phase_build(force: bool = True):
+    """Compile every kernel library (``force``: even those up to date)."""
     from multimodal_rssm_torch.ops import cuda_kernels as ck
 
-    libs, seconds, log = ck.build(force=True)
+    libs, seconds, log = ck.build(force=force)
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "build",
@@ -601,7 +611,7 @@ def _host_ms(fn, reps: int) -> float:
 
 
 FEED_EPISODES = 360     # x 120 steps: 43,200 rows, 0.97 GB
-FEED_STEPS = 12        # short runs: the whole script must stay well inside its time limit
+FEED_STEPS = 8         # short runs: the whole script must stay well inside its time limit
 FEED_STREAM_GB = 0.5
 # train.device_replay, feed: one run each (earlier versions ran each twice,
 # in mirrored order; no feed was faster than the spread between two runs of
@@ -1405,18 +1415,193 @@ def _bridge_msgpack(record: dict) -> None:
         "tolerance": f"|diff| <= {PARITY_RTOL} |want| + {EVAL_ATOL}"}
 
 
+class StubWandb:
+    """A ``wandb`` module for ``sys.modules`` (the card's machine has no
+    wandb and no network): records ``init`` / ``log`` / ``Histogram`` /
+    ``finish`` and the seconds spent in them."""
+
+    class Histogram:
+        def __init__(self, np_histogram=None):
+            self.np_histogram = np_histogram
+
+    def __init__(self):
+        import types
+
+        self.calls = {"init": [], "log": [], "finish": 0}
+        self.seconds = 0.0
+        self.module = types.ModuleType("wandb")
+        self.module.init = self._timed(
+            lambda **kw: self.calls["init"].append(kw))
+        self.module.log = self._timed(
+            lambda metrics, step=None: self.calls["log"].append(
+                (dict(metrics), step)))
+        self.module.Histogram = self._timed(StubWandb.Histogram)
+        self.module.finish = self._timed(self._finish)
+
+    def _finish(self):
+        self.calls["finish"] += 1
+
+    def _timed(self, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        return call
+
+
+def _line_kind(r: dict) -> tuple:
+    """(kind, step) of a metrics.jsonl line: train / validation / perf,
+    frame, or params / grads for a histogram line."""
+    if "frame" in r:
+        return "frame", r["step"]
+    hist = [k for k in r if k.endswith("/hist")]
+    if hist:
+        return hist[0].split("_", 1)[0], r["step"]
+    return next(k.split("/")[1] for k in r if "/" in k), r["step"]
+
+
+def jax_line_order(steps: int, val_every: int, hist_every: int) -> list:
+    """The (kind, step) sequence the JAX package's loop writes for a run
+    from step 1 (its train/loop.py:245-283 and :296-298): each step's
+    metrics after the next step (with a frame line, but the last's), the
+    validation line, the params and grads histograms, then the last train
+    line and the perf line."""
+    out = []
+    for itr in range(1, steps + 1):
+        if itr > 1:
+            out += [("train", itr - 1), ("frame", itr - 1)]
+        if itr % val_every == 0:
+            out.append(("validation", itr))
+        if hist_every and itr % hist_every == 0:
+            out += [("params", itr), ("grads", itr)]
+    return out + [("train", steps), ("perf", steps)]
+
+
+def check_line_order(phase: str, run_dir: str, steps: int, val_every: int,
+                     hist_every: int, batch: int, chunk: int) -> list:
+    """Raise unless the run's metrics.jsonl holds the JAX loop's lines in
+    its order, each frame step x batch x chunk; returns the lines."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    got = [_line_kind(r) for r in lines]
+    want = jax_line_order(steps, val_every, hist_every)
+    if got != want:
+        raise AssertionError(f"{phase}: metrics.jsonl lines {got} are not "
+                             f"the JAX loop's {want}")
+    bad = [r for r in lines
+           if "frame" in r and r["frame"] != r["step"] * batch * chunk]
+    if bad:
+        raise AssertionError(f"{phase}: frame lines {bad}")
+    return lines
+
+
+def check_wandb_mirror(phase: str, stub: StubWandb, run_dir: str,
+                       cwd: str, lines: list) -> dict:
+    """Raise unless ``stub`` saw one ``init`` with the JAX package's
+    kwargs for this run (its path under ``{cwd}/results``, the
+    environment's name, the saved config, the tags, the run dir), every
+    scalar line at its step without step / time, every histogram line's
+    modules as ``Histogram``s of their counts and edges, no frame line,
+    and one ``finish``."""
+    import numpy as np
+    import yaml
+
+    with open(os.path.join(run_dir, "hydra_config.yaml")) as f:
+        saved = yaml.safe_load(f)
+    want_init = [{"name": os.path.relpath(run_dir,
+                                          os.path.join(cwd, "results")),
+                  "project": saved["env"]["env_config"]["env_name"],
+                  "config": saved, "tags": saved["main"]["tags"],
+                  "dir": run_dir}]
+    if stub.calls["init"] != want_init or stub.calls["finish"] != 1:
+        raise AssertionError(f"{phase}: wandb init {stub.calls['init']} "
+                             f"(want {want_init}), finish "
+                             f"{stub.calls['finish']}")
+    want_log = []
+    for r in lines:
+        if "frame" in r:
+            continue
+        hists = {k: v for k, v in r.items() if k.endswith("/hist")}
+        want_log.append(({k: (v["bin_counts"], v["bin_edges"])
+                          for k, v in hists.items() if "bin_counts" in v}
+                         if hists else
+                         {k: v for k, v in r.items()
+                          if k not in ("step", "time")}, r["step"]))
+    got_log = []
+    for metrics, step in stub.calls["log"]:
+        got = {}
+        for k, v in metrics.items():
+            if isinstance(v, StubWandb.Histogram):
+                counts, edges = v.np_histogram
+                if (counts.dtype, edges.dtype) != (np.int64, np.float32):
+                    raise AssertionError(f"{phase}: {k} histogram dtypes "
+                                         f"{counts.dtype}, {edges.dtype}")
+                v = (counts.tolist(), edges.tolist())
+            got[k] = v
+        got_log.append((got, step))
+    if got_log != want_log:
+        n = next((i for i, (g, w) in enumerate(zip(got_log, want_log))
+                  if g != w), min(len(got_log), len(want_log)))
+        raise AssertionError(f"{phase}: {len(got_log)} wandb log calls for "
+                             f"{len(want_log)} records; call {n}: "
+                             f"{got_log[n:n + 1]}, the JSONL's "
+                             f"{want_log[n:n + 1]}")
+    return {"init": 1, "log_calls": len(got_log),
+            "histogram_calls": sum(any(k.endswith("/hist") for k in m)
+                                   for m, _ in got_log),
+            "finish": 1, "stub_seconds": stub.seconds}
+
+
+@contextlib.contextmanager
+def _entry_set(table, key: str, value):
+    """``table[key] = value`` within the block (``sys.modules``,
+    ``os.environ``), the entry as it was after it."""
+    old = table.get(key)
+    table[key] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            table.pop(key, None)
+        else:
+            table[key] = old
+
+
+def renamed_config_tree(root: str, name: str) -> str:
+    """A copy of the port's packaged config tree under ``root`` with its
+    root file renamed ``{name}.yaml``."""
+    import shutil
+
+    from multimodal_rssm_torch.core.config import default_config_dir
+
+    tree = os.path.join(root, "config_tree")
+    shutil.copytree(default_config_dir(), tree,
+                    ignore=shutil.ignore_patterns("*.json"))
+    os.rename(os.path.join(tree, "config.yaml"),
+              os.path.join(tree, f"{name}.yaml"))
+    return tree
+
+
 def phase_bridges(tmp: str, run_dir: str, device_name: str) -> dict:
     """A user's files in and out at full width.  1. raw recordings
     (``raw_recordings``) built by ``data/dataset_builder.build_dataset``
     (binary channels on; host seconds per episode), then the train CLI on
     that set (batch 50 x chunk 50, bf16, K1 on) for BRIDGE_STEPS steps with
-    ``train.histogram_interval`` and again with ``train.profile_dir``
-    instead, under deterministic cuDNN: finite metrics, every parameter and
-    running stat bit-equal between the two (both options only observe),
-    the histogram lines, the trace file, K1 once per train and validation
-    step and histogram pass, a step's seconds with and without a histogram
-    pass and the pass's logging half alone, the profiled steps' seconds
-    against the unprofiled ones; 2. ``collect_sim_data --env synthetic`` for 2
+    ``train.histogram_interval`` and ``main.wandb=true`` (a stub ``wandb``
+    module in ``sys.modules``), and again with ``train.profile_dir``
+    instead, composed from a copy of the config tree whose root is
+    ``bridges.yaml``, named by ``$MRSSM_CONFIG_DIR`` and ``--config-name``,
+    under deterministic cuDNN: finite metrics, every parameter and running
+    stat bit-equal between the two (both options only observe; the renamed
+    tree builds the same model), the histogram lines, every record
+    mirrored to the stub (``check_wandb_mirror``), each run's
+    metrics.jsonl lines in the JAX loop's order with their ``frame``
+    counts (``check_line_order``), the trace file, K1 once per train and
+    validation step and histogram pass, a step's seconds with and without
+    a histogram pass and the pass's logging half alone, the profiled
+    steps' seconds against the unprofiled ones; 2. ``collect_sim_data --env synthetic`` for 2
     episodes, loaded by the train CLI's loader; 3. ``export_torch`` of the
     checkpoint phase's ``models_6.pt`` to a reference ``.pth``, then
     ``train.model_path`` on it for 1 step, the loaded weights bit-equal to
@@ -1448,21 +1633,39 @@ def phase_bridges(tmp: str, run_dir: str, device_name: str) -> dict:
                        "seconds_per_episode": build_s / BRIDGE_EPISODES}
     common = [f"train.train_iteration={BRIDGE_STEPS}",
               f"train.validation_interval={BRIDGE_STEPS}"]
+    t0 = time.perf_counter()
+    tree = renamed_config_tree(tmp, "bridges")
+    tree_s = time.perf_counter() - t0
+    stub = StubWandb()
     runs = {}
     torch.backends.cudnn.deterministic = True
     try:
-        for name, extra in (
+        # the profiled run composes only from the renamed tree: the
+        # packaged tree has no bridges.yaml, the copy no config.yaml
+        for name, extra, entry in (
                 ("histograms", [f"train.histogram_interval={BRIDGE_HIST}",
-                                "main.experiment_name=bridges_hist"]),
+                                "main.wandb=true",
+                                "main.tags=[chip_smoke,bridges]",
+                                "main.experiment_name=bridges_hist"],
+                 (sys.modules, "wandb", stub.module)),
                 ("profiled", [f"train.profile_dir={tmp}/profile",
-                              "main.experiment_name=bridges_profiled"])):
-            rec, result, launches = train_run(
-                f"bridges/{name}", built, common + extra, BRIDGE_STEPS,
-                "device_resident")
-            runs[name] = (rec, result, launches)
+                              "main.experiment_name=bridges_profiled",
+                              "--config-name", "bridges"],
+                 (os.environ, "MRSSM_CONFIG_DIR", tree))):
+            with _entry_set(*entry):
+                runs[name] = train_run(f"bridges/{name}", built,
+                                       common + extra, BRIDGE_STEPS,
+                                       "device_resident")
     finally:
         torch.backends.cudnn.deterministic = False
     (hrec, hres, hl), (prec, pres, pl) = runs["histograms"], runs["profiled"]
+    hlines = check_line_order("bridges/histograms", hres["results_dir"],
+                              BRIDGE_STEPS, BRIDGE_STEPS, BRIDGE_HIST,
+                              SHAPE[1], SHAPE[0])
+    check_line_order("bridges/profiled", pres["results_dir"], BRIDGE_STEPS,
+                     BRIDGE_STEPS, 0, SHAPE[1], SHAPE[0])
+    mirror = check_wandb_mirror("bridges/histograms", stub,
+                                hres["results_dir"], built, hlines)
     n_hist = BRIDGE_STEPS // BRIDGE_HIST
     if (hl["normalize_image"], pl["normalize_image"]) != (
             BRIDGE_STEPS + 1 + n_hist, BRIDGE_STEPS + 1):
@@ -1518,7 +1721,16 @@ def phase_bridges(tmp: str, run_dir: str, device_name: str) -> dict:
         "steps_per_s": {"histograms": hrec["median_steps_per_s_after_warmup"],
                         "profiled": prec["median_steps_per_s_after_warmup"]},
         "loss": hrec["loss"], "max_memory_allocated_GiB":
-            hrec["max_memory_allocated_GiB"]}
+            hrec["max_memory_allocated_GiB"],
+        "lines_in_jax_order": True, "frame_lines": sum(
+            "frame" in r for r in hlines),
+        "wandb_mirror": mirror,
+        "config_tree": {"config_name": "bridges",
+                        "via": "MRSSM_CONFIG_DIR and --config-name",
+                        "model_bit_equal": True},
+        # what this slice adds to the phase's wall time: the tree's copy
+        # and the stub's calls
+        "slice_extra_seconds": tree_s + mirror["stub_seconds"]}
     del runs, hres, pres
     launches = {"bridges_train": hl["normalize_image"]}
 
@@ -1575,8 +1787,8 @@ def phase_bridges(tmp: str, run_dir: str, device_name: str) -> dict:
     return launches
 
 
-SERVE_CALLS = 20       # timed calls a path, after SERVE_WARMUP
-SERVE_WARMUP = 5
+SERVE_CALLS = 10       # timed calls a path, after SERVE_WARMUP
+SERVE_WARMUP = 3
 SERVE_RTOL = 1e-5      # artifact against the eager port, relative to max |eager|
 # the control phase's CEM, at 2 of its 10 iterations: torch.export traces
 # every iteration on the host (125-198 s for plan_step's export and 18-30 s
@@ -2859,7 +3071,9 @@ def phase_tools_process() -> dict:
 PARALLEL_STEPS = 12       # a CLI run of (a); the last traces steps 10-12
 PARALLEL_TIMED = slice(2, 9)   # steps 3-9: after the warm-up, before the trace
 PARALLEL_BF16_STEPS = 6
-MODEL_AXIS_BF16_STEPS = 4   # (c)'s bf16 run: ~8 s a step, two ranks on a card
+# (c)'s bf16 run: 8-25 s a step, two ranks on a card; step 2 is timed (the
+# first warms up, the last validates)
+MODEL_AXIS_BF16_STEPS = 3
 PARALLEL_WORLD_S = 900    # a spawned world's limit
 PARALLEL_COLLECTIVE_S = 300   # a collective waiting longer fails the world
 # two ranks against one on the same global batch, float32: the JAX
@@ -3260,10 +3474,14 @@ def _free_port() -> int:
 
 
 def _metric_lines(run_dir: str) -> list:
+    """The metric and histogram lines without ``time``: not the perf lines
+    (one a process) or the frame lines (none after a process's last train
+    line), so that a resumed run's lines equal an uninterrupted run's."""
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         return [{k: v for k, v in r.items() if k != "time"}
                 for r in map(json.loads, f)
-                if not any(k.endswith("/perf") for k in r)]
+                if "frame" not in r
+                and not any(k.endswith("/perf") for k in r)]
 
 
 def _same_state(a, b) -> bool:
@@ -3465,8 +3683,8 @@ def phase_model_axis(tmp: str, device_name: str, traced: bool = False
     for r, got in enumerate(ranks):
         b = got["bf16"]
         bf[f"rank{r}"] = {
-            "steps_per_s_median_after_2": 1.0 / statistics.median(
-                b["step_seconds"][2:-1]),
+            "steps_per_s_median_after_1": 1.0 / statistics.median(
+                b["step_seconds"][1:-1]),
             "step_seconds": b["step_seconds"], "feed": b["feed"],
             "sharded_weights": b["sharded"],
             "max_memory_allocated_GiB": b["max_memory_allocated_GiB"],
@@ -4085,7 +4303,9 @@ if __name__ == "__main__":
         from multimodal_rssm_torch.core.device import configure_float32
 
         configure_float32()
-        phase_build()
+        # builds what is missing or stale: under the whole script, whose
+        # phase build compiled every library moments before, nothing
+        phase_build(force=False)
         with tempfile.TemporaryDirectory() as tmp:
             k1 = phase_tools(tmp, torch.cuda.get_device_name(0))
         print_card()

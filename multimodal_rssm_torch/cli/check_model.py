@@ -36,7 +36,10 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from multimodal_rssm_torch.cli import command
 
+
+@command
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Write the artifacts; returns the analysis dir, the imagination
     window and its metrics, and the files written."""

@@ -27,6 +27,8 @@ import os
 
 import numpy as np
 
+from multimodal_rssm_torch.cli import command
+
 
 def collect_episode(length, seed, substeps=10, render_size=64, env=None):
     """One episode in the COBOTTA episode schema: at most ``length`` steps,
@@ -78,6 +80,7 @@ def close_env(env) -> None:
         close()
 
 
+@command
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--out", required=True)

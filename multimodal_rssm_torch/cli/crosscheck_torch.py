@@ -37,6 +37,8 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from multimodal_rssm_torch.cli import command
+
 
 def require_reference(path: str) -> None:
     """Put the reference checkout on ``sys.path``; exit with the JAX CLI's
@@ -100,6 +102,7 @@ def verdict(result: Mapping, latent_tol: float, frame_tol: float
                 f"{worst_frame:.2e} (tol {frame_tol})")
 
 
+@command
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--run-dir", required=True)

@@ -19,6 +19,8 @@ import argparse
 import os
 from typing import List, Optional, Sequence
 
+from multimodal_rssm_torch.cli import command
+
 
 def multi_run(targets_dir: str, itr: int, device: Optional[str] = None,
               cwd: str = ".") -> List[str]:
@@ -48,6 +50,7 @@ def multi_run(targets_dir: str, itr: int, device: Optional[str] = None,
     return saved
 
 
+@command
 def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--targets", default="eval_targets",

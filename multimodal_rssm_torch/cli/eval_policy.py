@@ -26,7 +26,10 @@ import os
 import sys
 from typing import Dict, Optional, Sequence
 
+from multimodal_rssm_torch.cli import command
 
+
+@command
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Parse ``argv``, evaluate, print and return the statistics."""
     parser = argparse.ArgumentParser(description=__doc__)

@@ -36,7 +36,10 @@ import os
 import sys
 from typing import Dict, Optional, Sequence
 
+from multimodal_rssm_torch.cli import command
 
+
+@command
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("overrides", nargs="*", help="dotted config overrides")

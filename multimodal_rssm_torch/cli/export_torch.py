@@ -20,7 +20,10 @@ import argparse
 import os
 import sys
 
+from multimodal_rssm_torch.cli import command
 
+
+@command
 def main(argv=None) -> str:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("overrides", nargs="*", help="dotted config overrides")

@@ -13,6 +13,7 @@ Host-side only: it touches no device.
 import argparse
 import os
 
+from multimodal_rssm_torch.cli import command
 from multimodal_rssm_torch.data.synthetic import write_synthetic_dataset
 
 SHAPES = {
@@ -22,6 +23,7 @@ SHAPES = {
 }
 
 
+@command
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--out", required=True)

@@ -1,13 +1,15 @@
 """Where one training step's time goes, on the GPU.
 
     python -m multimodal_rssm_torch.cli.profile_step [overrides ...] \\
-        [--steps N] [--trace PATH]
+        [--batch-size 50 --chunk-size 50 --small] [--override a.b=c ...] \\
+        [--steps N] [--warmup N] [--trace PATH]
 
 Builds the configured model (default: the shipped configuration with the
-normalise kernel on, batch 50 x chunk 50) on random weights and one random
-uint8/float batch (``cli/_profiling_common.build_step_setup``, which the
-other measurement tools share), warms up, then over ``--steps`` steps
-prints JSON lines:
+normalise kernel on, batch 50 x chunk 50; ``--small``: the JAX script's
+seven narrow widths; ``--override`` and the positional overrides after
+them) on random weights and one random uint8/float batch
+(``cli/_profiling_common.build_step_setup``, which the other measurement
+tools share), warms up, then over ``--steps`` steps prints JSON lines:
 
 - ``phases``: device milliseconds per step of the input pipeline, the
   encoder, the RSSM time loop, the decoders (each forward only, from CUDA
@@ -73,17 +75,40 @@ class _Spans:
         return out
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+# scripts/profile_step.py's --small: bench.py --small's widths without
+# embedding_size.other
+SMALL = ["rssm.belief_size=64", "rssm.state_size=16", "rssm.hidden_size=64",
+         "rssm.embedding_size.image=64", "rssm.embedding_size.sound=32",
+         "rssm.embedding_size.fusion=64", "train.use_amp=False"]
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("overrides", nargs="*")
+    parser.add_argument("--batch-size", type=int, default=50)
+    parser.add_argument("--chunk-size", type=int, default=50)
+    parser.add_argument("--small", action="store_true")
+    parser.add_argument("--override", action="append", default=[],
+                        help="extra config overrides (repeatable), e.g. "
+                             "--override rssm.latent_dist=categorical")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--warmup", type=int, default=3)
     parser.add_argument("--trace", default=None)
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
 
+
+def setup(args: argparse.Namespace, device: str = "cuda"):
+    """The step ``args`` asks for (``build_step_setup``), K1 on."""
+    return build_step_setup(
+        args.batch_size, args.chunk_size,
+        ["train.pallas_normalize=true", *(SMALL if args.small else []),
+         *args.override, *args.overrides], device)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = parse_args(argv)
     (cfg, model, optimizer, scheduler, spec, _, raw, generator, device,
-     _) = build_step_setup(None, None, ["train.pallas_normalize=true",
-                                        *args.overrides])
+     _) = setup(args)
     loss_fn = tr.make_loss_fn(model, cfg)
     use_kernel = tr.kernel_normalize_enabled(cfg, device)
 

@@ -15,7 +15,10 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
+from multimodal_rssm_torch.cli import command
 
+
+@command
 def main(argv: Optional[Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--artifacts", required=True,

@@ -2,12 +2,16 @@
 
     python -m multimodal_rssm_torch.cli.train [dotted.overrides ...] \\
         [--device cuda|cpu] [--cwd DIR] [--seeds 0,1,2] \\
+        [--config-dir DIR] [--config-name NAME] \\
         [--resume RUN_DIR|latest] [--dist-timeout SECONDS]
 
-Composes the config from the package's ``configs/`` (hydra-style dotted
+Composes the config from ``{config dir}/{config name}.yaml`` (the
+package's ``configs/``, or ``$MRSSM_CONFIG_DIR``, and ``config``, unless
+``--config-dir`` / ``--config-name`` say otherwise; hydra-style dotted
 overrides, e.g. ``train.batch_size=32 train.device_replay=stream``) and
 trains on the GPU; ``--device cpu`` runs on the CPU instead.  Without a
-GPU and without ``--device cpu`` it raises.
+GPU and without ``--device cpu`` it raises.  ``main.wandb=true`` mirrors
+the run's metrics to wandb (rank 0; the package must be installed).
 
 ``--seeds`` runs one training run per seed (``-seed_<s>`` appended to the
 experiment name when there are several).  ``--resume`` continues an
@@ -49,6 +53,7 @@ import sys
 import tempfile
 from typing import Dict, List, Optional, Sequence
 
+from multimodal_rssm_torch.cli import command
 from multimodal_rssm_torch.core.config import (
     apply_overrides, compose, load_run_config)
 
@@ -57,7 +62,10 @@ def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("overrides", nargs="*", help="dotted config overrides")
     parser.add_argument("--config-dir", default=None,
-                        help="config tree (default: the packaged configs/)")
+                        help="config tree (default: $MRSSM_CONFIG_DIR, "
+                             "else the packaged configs/)")
+    parser.add_argument("--config-name", default="config",
+                        help="the tree's root file, without .yaml")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--cwd", default=".",
                         help="base of relative data paths and of results/")
@@ -78,7 +86,7 @@ def _resume_dir(args, parser) -> Optional[str]:
 
     if not args.resume or args.resume != "latest":
         return args.resume
-    cfg = compose(args.config_dir, overrides=args.overrides)
+    cfg = compose(args.config_dir, args.config_name, args.overrides)
     if cfg.main.experiment_name is None:
         parser.error("--resume latest needs main.experiment_name")
     found = (find_latest_run(args.cwd, cfg.main.experiment_name)
@@ -89,7 +97,7 @@ def _resume_dir(args, parser) -> Optional[str]:
 def _config(args, parser, resume_dir: Optional[str]):
     if resume_dir:
         return apply_overrides(load_run_config(resume_dir), args.overrides)
-    return compose(args.config_dir, overrides=args.overrides)
+    return compose(args.config_dir, args.config_name, args.overrides)
 
 
 def _train(args, parser, device: str) -> Dict:
@@ -109,7 +117,7 @@ def _train(args, parser, device: str) -> Dict:
         say(f"run dir: {result['results_dir']}")
         return result
 
-    cfg = compose(args.config_dir, overrides=args.overrides)
+    cfg = compose(args.config_dir, args.config_name, args.overrides)
     if cfg.main.experiment_name is None:
         cfg.main.experiment_name = "RSSM"
     seeds = ([int(s) for s in args.seeds.split(",")] if args.seeds
@@ -153,6 +161,7 @@ def _rank_main(rank: int, nprocs: int, init_method: str, argv: List[str],
         dist.destroy_process_group()
 
 
+@command
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Parse ``argv`` and train; returns the last run's result
     (``train.loop.run``; from ranks this command started: rank 0's,

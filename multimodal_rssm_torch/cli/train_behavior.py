@@ -12,8 +12,9 @@ starts by the train loop's ``train.device_replay`` rule (the replay on the
 device, whole or streamed, or host batches behind a prefetch thread;
 relative data paths from ``--cwd``).  The actor, the value head and their
 metrics land in ``{run_dir}/behavior/`` (``models_{itr}.pt``,
-``metrics.jsonl``).  Runs on the GPU unless ``--device cpu``; without a
-GPU it raises.
+``metrics.jsonl``, mirrored to wandb under ``main.wandb``, with wandb's
+defaults for the run's name and project, as the JAX package's).  Runs on
+the GPU unless ``--device cpu``; without a GPU it raises.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import argparse
 import os
 import time
 from typing import Dict, List, Optional, Sequence
+
+from multimodal_rssm_torch.cli import command
 
 
 class StepClock:
@@ -54,6 +57,7 @@ class StepClock:
         return [b - a for a, b in zip(self.marks, self.marks[1:])]
 
 
+@command
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Parse ``argv`` and train; returns the behavior dir, the world model,
     the behavior state, the feed taken, the last logged metrics and each
@@ -123,7 +127,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     prefetcher = (Prefetcher(HostBatchFeed(D, B, L, dev), depth=2,
                              device=dev) if replay is None else None)
     try:
-        with MetricLogger(out_dir) as logger:
+        with MetricLogger(out_dir, use_wandb=bool(
+                cfg.main.get("wandb", False))) as logger:
             t0 = time.perf_counter()
             for itr in range(1, iters + 1):
                 if replay is not None:

@@ -11,7 +11,8 @@ re-implements the subset the reference relies on:
 
 Configs are nested dicts wrapped in :class:`ConfigDict` for attribute
 access (``cfg.rssm.belief_size``).  The default tree ships inside the
-package (``multimodal_rssm_torch/configs``).
+package (``multimodal_rssm_torch/configs``); ``$MRSSM_CONFIG_DIR`` names
+another.
 """
 
 from __future__ import annotations
@@ -93,7 +94,12 @@ def load_yaml(path: str) -> Dict[str, Any]:
 
 
 def default_config_dir() -> str:
-    """The config-group tree shipped inside the package."""
+    """``$MRSSM_CONFIG_DIR`` where it is set (an experiment tree outside
+    the install; the JAX package reads the same variable), else the
+    config-group tree shipped inside the package."""
+    env = os.environ.get("MRSSM_CONFIG_DIR")
+    if env:
+        return env
     return os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "configs")
 

@@ -1,10 +1,14 @@
-"""Run directories and metric logging (JSONL).
+"""Run directories and metric logging (JSONL, and wandb when asked).
 
 ``results/{experiment}/{date}/run_{k}`` with collision bumping and the
 composed config saved as ``hydra_config.yaml`` with ``main.git_hash`` set
 (reference utils/logger.py), and an append-only ``metrics.jsonl`` whose
 keys follow the reference's ``{name}/{suffix}`` convention, plus
-per-module histogram lines (``MetricLogger.log_histograms``).
+per-module histogram lines (``MetricLogger.log_histograms``) and ``frame``
+counters (``MetricLogger.log_frame_count``).  With ``use_wandb`` (the
+config's ``main.wandb``) every record is mirrored to wandb as the JAX
+package's logger mirrors it; ``wandb`` is imported only then, and a run
+whose import or ``wandb.init`` fails keeps its JSONL alone.
 
 In a data-parallel world, rank 0 alone creates the run dir (and bumps
 ``run_{k}``) and writes its files; the other ranks receive its path
@@ -118,6 +122,19 @@ def histogram_record(values: torch.Tensor) -> Dict[str, object]:
     return rec
 
 
+def wandb_kwargs(cfg, cwd: str, run_dir: str) -> Dict[str, object]:
+    """``wandb.init``'s arguments for a run, as the JAX package's
+    ``setup_experiment`` builds them: the run's path under
+    ``{cwd}/results`` as its name (a run dir elsewhere: its base name), the
+    environment's name as the project, the whole config, its tags, and the
+    run dir as wandb's own directory."""
+    rel = os.path.relpath(run_dir, os.path.join(cwd, "results"))
+    return {"name": rel if not rel.startswith("..")
+            else os.path.basename(run_dir),
+            "project": cfg.env.env_config.env_name,
+            "config": cfg.to_dict(), "tags": cfg.main.tags, "dir": run_dir}
+
+
 class NullLogger:
     """``MetricLogger``'s interface, writing nothing (ranks other than 0)."""
 
@@ -125,6 +142,9 @@ class NullLogger:
         pass
 
     def log_histograms(self, *args, **kwargs) -> None:
+        pass
+
+    def log_frame_count(self, *args, **kwargs) -> None:
         pass
 
     def close(self) -> None:
@@ -138,11 +158,26 @@ class NullLogger:
 
 
 class MetricLogger:
-    """Scalars as JSON lines under ``{name}/{suffix}`` keys."""
+    """Scalars as JSON lines under ``{name}/{suffix}`` keys in
+    ``{results_dir}/metrics.jsonl`` (the dir made if absent); with
+    ``use_wandb``, each record mirrored to wandb, ``wandb.init`` taking
+    ``wandb_kwargs``."""
 
-    def __init__(self, results_dir: str):
+    def __init__(self, results_dir: str, use_wandb: bool = False,
+                 wandb_kwargs: Optional[Mapping[str, object]] = None):
+        os.makedirs(results_dir, exist_ok=True)
         self.path = os.path.join(results_dir, "metrics.jsonl")
         self._f = open(self.path, "a", buffering=1)
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                wandb.init(**(wandb_kwargs or {}))
+                self._wandb = wandb
+            except Exception as e:   # no package, no network: JSONL alone
+                print(f"wandb unavailable ({e!r}); logging to {self.path} "
+                      "only")
 
     def log(self, metrics: Mapping[str, float], step: int,
             suffix: str = "train") -> None:
@@ -150,6 +185,9 @@ class MetricLogger:
         rec["step"] = int(step)
         rec["time"] = time.time()
         self._f.write(json.dumps(rec) + "\n")
+        if self._wandb is not None:
+            self._wandb.log({k: v for k, v in rec.items()
+                             if k not in ("step", "time")}, step=int(step))
 
     def log_histograms(self, groups: Mapping[str, Iterable[torch.Tensor]],
                        step: int, prefix: str = "params") -> None:
@@ -160,15 +198,33 @@ class MetricLogger:
         ``wandb.watch`` analogue).  A module with no tensors is skipped; one
         with no finite value is recorded, not raised."""
         rec: Dict[str, object] = {"step": int(step), "time": time.time()}
+        mirrored = {}
         for mod, leaves in groups.items():
             leaves = [x.detach().reshape(-1).float() for x in leaves]
             if leaves:
-                rec[f"{prefix}_{mod}/hist"] = histogram_record(
-                    torch.cat(leaves))
+                key = f"{prefix}_{mod}/hist"
+                rec[key] = hist = histogram_record(torch.cat(leaves))
+                if self._wandb is not None and "bin_counts" in hist:
+                    mirrored[key] = self._wandb.Histogram(np_histogram=(
+                        np.asarray(hist["bin_counts"], np.int64),
+                        np.asarray(hist["bin_edges"], np.float32)))
         self._f.write(json.dumps(rec) + "\n")
+        if mirrored:
+            self._wandb.log(mirrored, step=int(step))
+
+    def log_frame_count(self, step: int, batch_size: int,
+                        chunk_size: int) -> None:
+        """``{"frame": step * batch_size * chunk_size, "step", "time"}``,
+        the frames trained on so far (ref base/algo.py:265-266); the JAX
+        package writes it to the JSONL only."""
+        self._f.write(json.dumps({
+            "frame": int(step * batch_size * chunk_size),
+            "step": int(step), "time": time.time()}) + "\n")
 
     def close(self) -> None:
         self._f.close()
+        if self._wandb is not None:
+            self._wandb.finish()
 
     def __enter__(self):
         return self

@@ -237,10 +237,25 @@ def build_encoder(name: str, observation_shapes: Mapping[str, Sequence[int]],
     return enc
 
 
+def get_obs(observations: Mapping[str, torch.Tensor], name: str
+            ) -> torch.Tensor:
+    """``observations[name]``, with "observation" and "image" standing for
+    each other (ref ``MultimodalEncoder.get_obs``, :764-773); a
+    ``KeyError`` naming the keys there are."""
+    if name in observations:
+        return observations[name]
+    if name == "observation" and "image" in observations:
+        return observations["image"]
+    if name == "image" and "observation" in observations:
+        return observations["observation"]
+    raise KeyError(f"{name} is missing in {list(observations.keys())}")
+
+
 class MultimodalEncoder(nn.ModuleDict):
     """Dict-in/dict-out encoder, one child per modality, keyed by its name
     as in the reference's ``encoder[name]`` state dicts (ref :746-810).  It
-    encodes the modalities it is given."""
+    encodes ``names`` (default: each of its modalities), each looked up by
+    ``get_obs``; other keys of the input are not read."""
 
     def __init__(self, observation_names_enc: Sequence[str],
                  observation_shapes: Mapping[str, Sequence[int]],
@@ -254,9 +269,11 @@ class MultimodalEncoder(nn.ModuleDict):
                                 remat_mode)
             for name in observation_names_enc})
 
-    def forward(self, observations: Mapping[str, torch.Tensor]
+    def forward(self, observations: Mapping[str, torch.Tensor],
+                names: Optional[Sequence[str]] = None
                 ) -> Dict[str, torch.Tensor]:
-        return {name: self[name](x) for name, x in observations.items()}
+        return {name: self[name](get_obs(observations, name))
+                for name in (self.keys() if names is None else names)}
 
 
 class Mixer(nn.Module):
@@ -302,8 +319,8 @@ class EncoderNN(nn.Module):
 class MultimodalStochasticEncoder(nn.ModuleDict):
     """Per-modality experts q(s_t | o_t): each modality's encoder, then its
     ``ObsEncoderNoBelief`` head (activation ``dense``), as
-    ``{name: {loc, scale}}`` for the modalities it is given (ref
-    :882-973)."""
+    ``{name: {loc, scale}}`` for ``names`` (default: each of its
+    modalities), each looked up by ``get_obs`` (ref :882-973)."""
 
     def __init__(self, observation_names_enc: Sequence[str],
                  observation_shapes: Mapping[str, Sequence[int]],
@@ -321,8 +338,12 @@ class MultimodalStochasticEncoder(nn.ModuleDict):
                 modality_embedding_size(name, embedding_size), hidden_size,
                 state_size, activation_function["dense"], min_std_dev)
         super().__init__(modules)
+        self.observation_names_enc = tuple(observation_names_enc)
 
-    def forward(self, observations: Mapping[str, torch.Tensor]
+    def forward(self, observations: Mapping[str, torch.Tensor],
+                names: Optional[Sequence[str]] = None
                 ) -> Dict[str, Dict[str, torch.Tensor]]:
-        return {name: self[f"{name}_head"](self[name](x))
-                for name, x in observations.items()}
+        return {name: self[f"{name}_head"](self[name](get_obs(observations,
+                                                              name)))
+                for name in (self.observation_names_enc if names is None
+                             else names)}

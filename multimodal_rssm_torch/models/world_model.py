@@ -59,7 +59,7 @@ from torch import nn
 from multimodal_rssm_torch.models.decoders import (
     MultimodalObservationModel, build_observation_model)
 from multimodal_rssm_torch.models.encoders import (
-    MultimodalEncoder, MultimodalStochasticEncoder, build_encoder,
+    MultimodalEncoder, MultimodalStochasticEncoder, build_encoder, get_obs,
     modality_embedding_size)
 from multimodal_rssm_torch.models.heads import RewardModel
 from multimodal_rssm_torch.models.layers import fold_tb, unfold_tb
@@ -163,13 +163,15 @@ class WorldModel(nn.Module):
                names: Optional[Sequence[str]] = None) -> Dict:
         """Encoder over the folded (T*B) batch -> {name: [T, B, E]} (for
         ``q(st|ot)``: {name: {loc, scale}} experts), for the modalities
-        ``names`` (default: all)."""
-        obs = {n: observations[n] for n in self.resolve_names(names)}
+        ``names`` (default: all), each looked up by ``get_obs`` (other keys
+        of ``observations`` are not read)."""
+        names = self.resolve_names(names)
+        obs = {n: get_obs(observations, n) for n in names}
         T, B = next(iter(obs.values())).shape[:2]
         if not self.multimodal:
             return bottle(lambda o: {k: self.encoder(v) for k, v in o.items()},
                           obs, T, B)
-        return bottle(self.encoder, obs, T, B)
+        return bottle(lambda o: self.encoder(o, names), obs, T, B)
 
     def noise_shape(self, T: int, B: int) -> Tuple[int, ...]:
         """Shape of one rollout's noise: standard normal [T, B, S] for the

@@ -3,7 +3,10 @@
 Mirrors the reference's orchestration (algos/MRSSM/MRSSM/train.py:27-66):
 train and validation buffers, the model (or ``train.model_path``),
 ``train_iteration`` steps with ``validation_interval`` and
-``checkpoint_interval`` cadences, metrics to ``metrics.jsonl``.
+``checkpoint_interval`` cadences, metrics to ``metrics.jsonl`` (and to
+wandb under ``main.wandb``) in the JAX loop's order: the previous step's
+train line and its ``frame`` line (step x global batch x chunk; none after
+the run's last step), the validation line, the histogram lines.
 
 The feed follows ``train.device_replay`` (auto | true | stream | false):
 - ``device_resident``: the whole loaded dataset on the device
@@ -76,7 +79,7 @@ from multimodal_rssm_torch.data.device_buffer import (
     step_reserve_bytes)
 from multimodal_rssm_torch.io import checkpoint as ckpt
 from multimodal_rssm_torch.io.metrics import (
-    MetricLogger, NullLogger, make_run_dir)
+    MetricLogger, NullLogger, make_run_dir, wandb_kwargs)
 from multimodal_rssm_torch.models.world_model import WorldModel, init_parameters
 from multimodal_rssm_torch.parallel import mesh as mesh_lib
 from multimodal_rssm_torch.parallel import tensor as tensor_lib
@@ -385,7 +388,10 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
     completed = last_saved = start_step
     stop = False   # agreed under dp (the flags read a step late)
     shutdown = GracefulShutdown()
-    logger = MetricLogger(results_dir) if main else NullLogger()
+    logger = (MetricLogger(results_dir,
+                           use_wandb=bool(cfg.main.get("wandb", False)),
+                           wandb_kwargs=wandb_kwargs(cfg, cwd, results_dir))
+              if main else NullLogger())
     with logger, shutdown:
         prefetcher = (Prefetcher(HostBatchFeed(D, B, L, dev, train_rows),
                                  depth=2, device=dev)
@@ -406,22 +412,25 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
                 else:
                     buffer_state, batch = prefetcher.get()
                     metrics = train_step(batch, step_draws, generator)
+                hist_grads = None
                 if hist_every and itr % hist_every == 0:
                     # the step's batch and draws again, with a generator
-                    # of its own: no stream of the run advances
+                    # of its own: no stream of the run advances (before
+                    # the stream's refresh replaces the batch's rows)
                     if replay is not None:
                         batch = gather_batch(replay.arrays, idxs,
                                              D.observation_names,
                                              replay.row_shapes)
-                    log_histograms(logger, model, grad_fn(
+                    hist_grads = grad_fn(
                         batch, step_draws,
-                        torch.Generator(dev).manual_seed(seed + itr)), itr)
+                        torch.Generator(dev).manual_seed(seed + itr))
                 if feed == "stream" and itr % refresh_every == 0:
                     replay.refresh()
                 flags = stop_flags()
                 if pending is not None:
                     last = _host(pending[1])
                     logger.log(last, pending[0], "train")
+                    logger.log_frame_count(pending[0], B, L)
                     stop = stop or (pending[2] is not None
                                     and float(pending[2]) > 0)
                 pending = (itr, metrics, flags)
@@ -437,6 +446,8 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
                             draws.draw(), generator)
                     last_val = _host(vmetrics)
                     logger.log(last_val, itr, "validation")
+                if hist_grads is not None:
+                    log_histograms(logger, model, hist_grads, itr)
                 if ckpt_every and itr % ckpt_every == 0:
                     state = saved_state()
                     if saver is not None:

@@ -805,6 +805,49 @@ def test_histogram_pass_leaves_a_card_run_bit_equal(cuda, tmp_path):
         assert torch.equal(v, runs[1]["model"].state_dict()[k]), k
 
 
+@pytest.mark.gpu
+def test_full_width_run_mirrors_to_wandb_with_frame_lines(cuda, tmp_path,
+                                                          monkeypatch):
+    """3 steps of the train CLI on the card at full width (batch 8 x
+    chunk 10) with ``main.wandb=true`` and a stub ``wandb``: one
+    ``init`` and one ``finish``, every metric line mirrored at its step,
+    a frame line (step x 8 x 10) after each train line but the last, K1
+    once per train and validation step."""
+    import json
+    import os
+    import sys
+
+    from test_wandb_logging import _make_stub_wandb
+
+    from multimodal_rssm_torch.cli import train as cli_train
+    from multimodal_rssm_torch.data.synthetic import write_synthetic_dataset
+
+    shapes = {"image_horizon": [3, 64, 64], "sound": [128, 20]}
+    write_synthetic_dataset(str(tmp_path / "train"), 2, 30, shapes)
+    write_synthetic_dataset(str(tmp_path / "val"), 1, 30, shapes, seed=9)
+    stub = _make_stub_wandb()
+    monkeypatch.setitem(sys.modules, "wandb", stub)
+    ck.reset_launch_counts()
+    result = cli_train.main([
+        f"train.train_data_path=[{tmp_path}/train]",
+        f"train.validation_data_path=[{tmp_path}/val]",
+        "train.batch_size=8", "train.chunk_size=10",
+        "train.train_iteration=3", "train.validation_interval=3",
+        "train.experience_size=200", "train.pallas_normalize=true",
+        "main.wandb=true", "main.experiment_name=wandb_card", "--device",
+        "cuda", "--cwd", str(tmp_path)])
+    assert ck.launch_counts()["normalize_image"] == 3 + 1
+    with open(os.path.join(result["results_dir"], "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    assert [(r["step"], r["frame"]) for r in lines if "frame" in r] == [
+        (1, 80), (2, 160)]
+    assert len(stub.calls["init"]) == 1 and stub.calls["finish"] == 1
+    assert stub.calls["init"][0]["dir"] == result["results_dir"]
+    assert stub.calls["log"] == [
+        ({k: v for k, v in r.items() if k not in ("step", "time")},
+         r["step"]) for r in lines if "frame" not in r]
+
+
 def _small_world_model(cfg_extra=()):
     """A tiny world model (the bench.py --small widths) from a seed, and
     its config, with the reward head and a small planner."""

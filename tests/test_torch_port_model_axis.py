@@ -369,8 +369,8 @@ def test_cli_resume_equals_the_uninterrupted_model_axis_run(worlds,
     for name in ("mp_3", "mp_5"):
         runs = glob.glob(str(data_dir / "results" / name / "*" / "run_*"))
         assert len(runs) == 1, runs
-    # the same lines; the uninterrupted run writes step 4's histograms
-    # before step 3's metrics (each step's metrics are read a step late)
+    # the same lines (``_logged`` leaves out the frame lines: none follows
+    # the first process's last train line)
     logged = _logged(run_dir)
     assert sorted(map(_key, logged)) == sorted(map(
         _key, _logged(straight["results_dir"])))

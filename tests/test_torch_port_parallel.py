@@ -462,10 +462,14 @@ def test_k1_row_map_refuses_rows_outside_the_batch_and_ragged_rows():
 
 
 def _logged(run_dir):
+    """The metric and histogram lines without ``time``: not the perf lines
+    (a resumed run has one a process) or the ``frame`` lines (none follows
+    a process's last train line)."""
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         return [{k: v for k, v in r.items() if k != "time"}
                 for r in map(json.loads, f)
-                if not any(k.endswith("/perf") for k in r)]
+                if "frame" not in r
+                and not any(k.endswith("/perf") for k in r)]
 
 
 def _same(a, b):

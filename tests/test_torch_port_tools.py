@@ -323,6 +323,35 @@ def test_online_peg_table_on_cpu(tmp_path, capsys):
     assert len(table) == 11
 
 
+def test_profile_step_takes_the_jax_scripts_flags():
+    """``--small --batch-size 4 --chunk-size 6 --override ...`` go into the
+    config it builds as ``scripts/profile_step.py`` puts them (its seven
+    --small overrides, read from the script), after K1's switch; the
+    positional overrides and the port's own flags stay."""
+    tree = _script_tree("profile_step.py")
+    lists = [ast.literal_eval(n.value) for n in ast.walk(tree)
+             if isinstance(n, ast.AugAssign) and isinstance(n.value, ast.List)]
+    assert lists == [profile_step.SMALL]
+    args = profile_step.parse_args([
+        "--small", "--batch-size", "4", "--chunk-size", "6", "--override",
+        "rssm.fusion_method=poe", "--override",
+        "rssm.multimodal_params.fusion_method=PoE", "--steps", "2",
+        "train.seed=3"])
+    assert (args.steps, args.warmup, args.trace) == (2, 3, None)
+    s = profile_step.setup(args, "cpu")
+    cfg = s.cfg
+    assert (cfg.train.batch_size, cfg.train.chunk_size) == (4, 6)
+    assert cfg.rssm.fusion_method == "poe" and cfg.train.seed == 3
+    assert cfg.rssm.belief_size == 64 and cfg.train.use_amp is False
+    assert cfg.rssm.embedding_size.other == compose().rssm.embedding_size.other
+    assert cfg.train.pallas_normalize is True
+    assert s.model.transition_model.fusion_method == "PoE"
+    assert tuple(s.raw[0]["image_horizon"].shape) == (6, 4, 64, 64, 3)
+    defaults = profile_step.parse_args([])
+    assert (defaults.batch_size, defaults.chunk_size, defaults.small,
+            defaults.override) == (50, 50, False, [])
+
+
 def test_step_setup_and_profile_step_device(monkeypatch):
     """``build_step_setup`` on the CPU: the synthetic batch's layout, K1's
     flag resolved to the plain path there, one step's finite loss;

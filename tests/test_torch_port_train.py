@@ -350,7 +350,8 @@ def test_train_cli_runs_on_cpu_with_plain_normalise(tmp_path, monkeypatch):
     assert np.isfinite(list(result["validation_metrics"].values())).all()
     with open(os.path.join(result["results_dir"], "metrics.jsonl")) as f:
         lines = f.read().splitlines()
-    assert len(lines) == 3 + 1 + 1   # train steps, validation, perf
+    # train steps, a frame after each but the last, validation, perf
+    assert len(lines) == 3 + 2 + 1 + 1
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
