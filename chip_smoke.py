@@ -19,6 +19,14 @@ each printed as one JSON line:
                device-resident replay (train.device_replay=auto): finite
                losses and every kernel of the path launched (counts reset
                just before);
+3-. precision -- the mixed precision a run ships (train.use_amp=true):
+               for the default configuration, categorical latents and the
+               64 px GroupNorm codec at full width, one loss step at batch
+               2 x chunk 4 with K1 normalising the images; every layer's
+               output dtype and every forward output's dtype equal to the
+               JAX package's, name for name (the committed
+               tests/torch_port_fixtures/dtype_map.json), every gradient
+               float32, K1 once each; any difference fails the run;
 3a. parallel -- data parallelism (train.mesh): the train CLI at
                train.mesh.data=1 (a one-rank NCCL world in process) after
                the mesh-less CLI, 12 steps each (steps/s over
@@ -94,8 +102,9 @@ each printed as one JSON line:
                once per step, and prints its median steps/s over the steps
                after the first two, without the last (which also
                validates), and its peak memory;
-3f. control -- on 3c's run (models_6.pt) at full width, bf16 autocast for
-               the world model, the heads in f32: the train_behavior CLI
+3f. control -- on 3c's run (models_6.pt) at full width, the world model
+               in bf16 (train.use_amp), the heads in f32: the
+               train_behavior CLI
                (4 iterations, H 15, all 2,450 posterior states of a batch
                50 x chunk 50 as starts; finite losses, both heads moved,
                the world model bit-equal to its file, K1 once per
@@ -148,15 +157,16 @@ each printed as one JSON line:
                and one deterministic step from it (train.model_path)
                within PARITY_RTOL |want| + EVAL_ATOL of the JAX package's
                stored values, and the reader's MB/s;
-3h. serve   -- serving on 3c's run (models_6.pt, full width, bf16) with
-               3f's behavior/ checkpoint: the export_model CLI (all four
-               artifacts at batch 1, --plan with rssm.predict_reward=true
-               and 2 CEM iterations of 10: the export traces each;
-               seconds per artifact, .pt2 bytes), each artifact loaded
-               (seconds) and held against the eager port on the same raw
-               frame and key (filter_step and decode within 1e-5 of max
-               |eager|, in bf16 as shipped and exported again in float32;
-               the agent's and CEM's actions from the key's noise), served
+3h. serve   -- serving on 3c's run (models_6.pt, full width, trained in
+               bf16) with 3f's behavior/ checkpoint: the export_model CLI
+               (all four artifacts at batch 1, --plan with
+               rssm.predict_reward=true and 2 CEM iterations of 10: the
+               export traces each; seconds per artifact, .pt2 bytes;
+               the world model in float32, as the JAX package exports
+               it), each artifact loaded (seconds) and held against the
+               eager float32 port on the same raw frame and key
+               (filter_step and decode within 1e-5 of max |eager|; the
+               agent's and CEM's actions from the key's noise), served
                over HTTP (a 3-frame streaming carry equal to the direct
                calls; 400 for a missing input and an unknown artifact, 404
                for an unknown path), ms per call at batch 1 direct and over
@@ -277,6 +287,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SHAPE = (50, 50, 64, 64, 3)      # image_horizon batch at batch 50 x chunk 50
 BIT_DEPTH = 5                    # env/SingleHoleDrilling.yaml
 TRAIN_STEPS = 6
+# the JAX package's dtype maps (tests/test_torch_port_precision.py writes
+# them) and the batch phase precision records the port's at
+PRECISION_FIXTURE = os.path.join(REPO, "tests", "torch_port_fixtures",
+                                 "dtype_map.json")
+PRECISION_L, PRECISION_B = 4, 2
 PARITY_RTOL = 1e-3
 # Peak device-memory rates (bytes/s) and the f32 rate outside the tensor
 # cores (NVIDIA data sheets; dense, full power).
@@ -565,6 +580,85 @@ def phase_train():
                       f"{SHAPE[0]} does not fit the card ({e}); halving the "
                       "batch"})
                 batch //= 2
+
+
+def precision_map(overrides, device: str = "cuda", seed: int = 0):
+    """The port's dtype map of one train-mode loss step on the card under
+    ``train.use_amp=true`` (``models/dtype_map.py``), at full width with
+    ``overrides``, batch PRECISION_B x chunk PRECISION_L (a dtype does not
+    depend on the batch), the images normalised through K1 as the train
+    step's ``prepare_observations`` does with ``train.pallas_normalize``:
+    (the map, the gradients' dtypes, K1's launches, the loss)."""
+    import numpy as np
+    import torch
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.models import dtype_map as dm
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.train import trainer as tr
+
+    dev = torch.device(device)
+    L, B = PRECISION_L, PRECISION_B
+    cfg = compose(overrides=[*overrides, "train.use_amp=true",
+                             "train.pallas_normalize=true"])
+    model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    model.to(dev)
+    rng = np.random.default_rng(seed)
+    raw = {"image_horizon": torch.from_numpy(rng.integers(
+               0, 256, (L, B, *SHAPE[2:]), np.uint8)).to(dev),
+           "sound": torch.from_numpy(rng.normal(size=(L, B, 128, 20)).astype(
+               np.float32)).to(dev)}
+    spec = tr.AugSpec(modalities=(("image_horizon", tr.ModalityAugSpec(
+        SHAPE[2:4], False, False, False, True)),))
+    g = torch.Generator(dev).manual_seed(seed)
+    ck.reset_launch_counts()
+    obs = tr.prepare_observations(raw, spec, {}, BIT_DEPTH, g,
+                                  kernel_normalize=True)
+    batch = (obs, torch.from_numpy(rng.uniform(-1, 1, (L, B, 3)).astype(
+                 np.float32)).to(dev),
+             torch.from_numpy(rng.normal(size=(L, B)).astype(
+                 np.float32)).to(dev), torch.ones(L, B, 1, device=dev))
+    got, grads, loss = dm.loss_step_map(model, cfg, batch, g)
+    return got, grads, ck.launch_counts()["normalize_image"], loss
+
+
+def phase_precision() -> dict:
+    """Mixed precision on the card: for each configuration of the committed
+    JAX dtype map (PRECISION_FIXTURE: the default, categorical latents,
+    the 64 px GroupNorm codec), the port's layer dtype map under
+    ``train.use_amp=true`` at full width (``precision_map``) equal to the
+    JAX package's name for name, every gradient float32, K1 launched once,
+    a finite loss.  Any difference fails the run.  Returns K1's launches by
+    configuration."""
+    from multimodal_rssm_torch.models import dtype_map as dm
+
+    t0 = time.perf_counter()
+    with open(PRECISION_FIXTURE) as f:
+        fixture = json.load(f)
+    record = {"phase": "precision", "batch": [PRECISION_L, PRECISION_B],
+              "configs": {}}
+    launches, bad = {}, []
+    for name, want in fixture["configs"].items():
+        got, grads, k1, loss = precision_map(want["overrides"])
+        diff = dm.mismatches(got, want)
+        record["configs"][name] = {
+            "layers": len(got["layers"]), "outputs": len(got["outputs"]),
+            "layer_dtypes": sorted({d for v in got["layers"].values()
+                                    for d in v}),
+            "gradient_dtypes": grads, "k1_launches": k1, "loss": loss,
+            "mismatches": diff}
+        launches[f"precision/{name}"] = k1
+        if diff or grads != ["float32"] or k1 != 1 or not math.isfinite(loss):
+            bad.append(name)
+    record["seconds"] = time.perf_counter() - t0
+    emit(record)
+    if bad:
+        raise AssertionError(f"precision: the card's dtype map, gradients "
+                             f"or K1 launches differ for {bad}")
+    return launches
 
 
 def graph_time_ms(fn, calls: int, reps: int = 5) -> float:
@@ -1830,13 +1924,15 @@ def _http_error(url: str, arrays: Optional[dict] = None) -> int:
 
 def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
     """Serving on the checkpoint phase's run (models_6.pt, the default
-    configuration at full width, bf16, with the control phase's behavior/
-    checkpoint): the export CLI (all four artifacts at batch 1,
+    configuration at full width, trained in bf16, with the control phase's
+    behavior/ checkpoint): the export CLI (all four artifacts at batch 1,
     ``--plan`` with ``SERVE_OVERRIDES``; seconds per artifact, .pt2
-    bytes), each artifact loaded (seconds) and held against the eager port
-    on the same raw frame and key (filter_step and decode within SERVE_RTOL
-    of max |eager|, in bf16 as shipped and exported again in float32; the
-    agent's and the planner's actions from the key's noise), the artifacts
+    bytes; every artifact's world model in float32, as the JAX package's
+    export builds it, whatever ``train.use_amp`` says), each artifact
+    loaded (seconds) and held against the eager float32 port on the same
+    raw frame and key (filter_step and decode within SERVE_RTOL of max
+    |eager|; the agent's and the planner's actions from the key's noise),
+    the artifacts
     served over HTTP (a 3-frame streaming carry equal to the direct calls;
     400 for a missing input and an unknown artifact, 404 for an unknown
     path), ms per call at batch 1 direct and over HTTP (median of
@@ -1856,7 +1952,6 @@ def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
     from multimodal_rssm_torch.io import serve as sv
     from multimodal_rssm_torch.ops import cuda_kernels as ck
     from multimodal_rssm_torch.train import behavior as bh
-    from multimodal_rssm_torch.train import trainer as tr
     from multimodal_rssm_torch.train.planner import make_cem_planner
 
     t_phase = time.perf_counter()
@@ -1882,7 +1977,7 @@ def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
             "bytes": entry["bytes"], "export_seconds": meta["export_seconds"],
             "load_seconds": time.perf_counter() - t0,
             "compute_dtype": meta["compute_dtype"], "device": meta["device"]}
-        if meta["device"] != "cuda" or meta["compute_dtype"] != "bfloat16":
+        if meta["device"] != "cuda" or meta["compute_dtype"] != "float32":
             raise AssertionError(f"{name}: {meta['device']} "
                                  f"{meta['compute_dtype']}")
 
@@ -1895,7 +1990,6 @@ def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
     ckpt.load_behavior_checkpoint(
         ckpt.latest_checkpoint(os.path.join(run_dir, "behavior")), bstate)
     actor = bstate.actor.eval()
-    dtype = tr.compute_dtype(cfg)
 
     def inputs(seed, key=(0, 7)):
         r = np.random.default_rng(seed)
@@ -1922,20 +2016,15 @@ def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
                      if isinstance(arrays[n], dict) else t(arrays[n])
                      for n in names)
 
-    def eager(name, args, model=model, dtype=dtype):
+    def eager(name, args):
         with torch.no_grad():
             if name == "decode":
                 h, s = args
-                with tr.autocast(dev, dtype):
-                    out = model.decode(h[None], s[None])
-                return {k: {"loc": v["loc"].float()} for k, v in out.items()}
+                out = model.decode(h[None], s[None])
+                return {k: {"loc": v["loc"]} for k, v in out.items()}
             h, s, action, obs, nt, key = args
-            with tr.autocast(dev, dtype):
-                states = model.filter_step(
-                    h, s, action, ex.normalize_obs(obs, BIT_DEPTH), nt)
-            states = {k: ({n: x.float() for n, x in v.items()}
-                          if isinstance(v, dict) else v.float())
-                      for k, v in states.items()}
+            states = model.filter_step(
+                h, s, action, ex.normalize_obs(obs, BIT_DEPTH), nt)
             if name == "filter_step":
                 return states
             h2, s2 = states["beliefs"], states["posterior_means"]
@@ -1946,12 +2035,12 @@ def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
             return h2, s2, plan(h2, s2, noise=ex.cem_noise(model, cfg, key,
                                                            1))
 
-    def compare(fn, name, arrays, model=model, dtype=dtype):
+    def compare(fn, name, arrays):
         names = ex.DECODE_ARGS if name == "decode" else ex.STEP_ARGS
         args = as_args(arrays, names)
         with torch.no_grad():
             got = sv.flatten_tree(fn(*args))
-        want = sv.flatten_tree(eager(name, args, model, dtype))
+        want = sv.flatten_tree(eager(name, args))
         if set(got) != set(want):
             raise AssertionError(f"{name}: outputs {sorted(got)} != "
                                  f"{sorted(want)}")
@@ -1962,18 +2051,7 @@ def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
     parity = {}
     arrays = inputs(1, key=(3, 2 ** 31 + 5))
     for name, (fn, _) in arts.items():
-        parity[f"{name}/bfloat16"] = compare(fn, name, arrays)
-    # filter_step and decode again in float32: the run's weights, use_amp off
-    cfg32 = apply_overrides(copy.deepcopy(cfg), ["train.use_amp=false"])
-    for name, make in (("filter_step", ex.export_filter_step),
-                       ("decode", ex.export_decode)):
-        path = ex.save_exported(make(cfg32, model, 1),
-                                os.path.join(tmp, f"{name}_float32.pt2"))
-        fn, meta = ex.load_exported(path)
-        if meta["compute_dtype"] != "float32":
-            raise AssertionError(f"{name}: {meta['compute_dtype']}")
-        parity[f"{name}/float32"] = compare(fn, name, arrays,
-                                            dtype=torch.float32)
+        parity[f"{name}/float32"] = compare(fn, name, arrays)
     record["vs_eager_max_rel"] = parity
     record["rtol"] = SERVE_RTOL
     if any(v > SERVE_RTOL for v in parity.values()):
@@ -2118,7 +2196,7 @@ def budget_run(reserve_bytes: Optional[int], overrides=()) -> dict:
                                for n in names})
         D = buffer.build_buffer(cfg)
         buffer.load_dataset(tmp, D, "train")
-        model = WorldModel.from_config(cfg)
+        model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
         init_parameters(model, torch.Generator().manual_seed(0))
         model.to(dev)
         optimizer, scheduler = tr.build_optimizer(cfg, model)
@@ -4238,6 +4316,7 @@ def main() -> int:
     phase_build()
     kernel = phase_kernel(name)
     launches, default = phase_train()
+    precision_k1 = phase_precision()
     with tempfile.TemporaryDirectory() as tmp:
         parallel_k1 = phase_parallel(tmp, name)
     phase_feed(name)
@@ -4263,7 +4342,7 @@ def main() -> int:
         "estimate_state": eval_k1["estimate_state"],
         "check_model": eval_k1["check_model"], **control_k1["launches"],
         **bridges_k1, **variants_k1, **codecs_k1, **parallel_k1,
-        **tools_k1}
+        **tools_k1, **precision_k1}
     kernel["eval_episode_shape_ms"] = eval_k1["episode_shape_ms"]
     kernel["agent_frame_shape"] = control_k1["frame_shape"]
     kernel["codec_shapes"] = k1_shapes

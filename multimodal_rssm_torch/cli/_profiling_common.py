@@ -121,7 +121,7 @@ def build_model(cfg, device: torch.device, seed: int = 0):
         WorldModel, init_parameters)
     from multimodal_rssm_torch.train import trainer as tr
 
-    model = WorldModel.from_config(cfg)
+    model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
     init_parameters(model, torch.Generator().manual_seed(seed))
     model.to(device)
     optimizer, scheduler = tr.build_optimizer(cfg, model)

@@ -64,6 +64,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from multimodal_rssm_torch.eval.state_estimation import load_eval_model
     from multimodal_rssm_torch.io import checkpoint as ckpt
     from multimodal_rssm_torch.train import behavior as bh
+    from multimodal_rssm_torch.train import trainer as tr
 
     dev = resolve_device(args.device)
     configure_float32()
@@ -79,7 +80,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if wm_path is None:
         raise FileNotFoundError(
             f"need models_*.pt or .msgpack in {args.run_dir}")
-    model = load_eval_model(cfg, wm_path, dev)
+    model = load_eval_model(cfg, wm_path, dev, tr.compute_dtype(cfg))
 
     agent = actor = None
     if args.policy == "cem":

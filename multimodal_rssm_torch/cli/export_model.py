@@ -23,9 +23,11 @@ The port's copy of the JAX package's ``export_model`` CLI: self-contained
 The world model's weights come from the run's newest ``models_*.pt``,
 ``.pth`` (the reference's) or ``.msgpack`` (the JAX package's).  The
 artifacts run on the device they were exported on, ``--device`` (default
-``cuda``; without a GPU it raises), in the run's compute dtype (bf16
-autocast for a ``train.use_amp`` run's world model).  Prints one JSON line
-{name: {path, bytes}}.
+``cuda``; without a GPU it raises).  The world model computes in float32
+whatever ``train.use_amp`` says, as the JAX package's ``export_model``
+builds it (``WorldModel.from_config(cfg)``, no dtype); the meta says
+``"compute_dtype": "float32"``.  Prints one JSON line {name: {path,
+bytes}}.
 """
 
 from __future__ import annotations
@@ -73,7 +75,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         raise FileNotFoundError(
             f"no models_*.pt, .pth or .msgpack in {args.run_dir}")
     print(f"world model: {wm_path}", file=sys.stderr)
-    model = load_eval_model(cfg, wm_path, dev)
+    model = load_eval_model(cfg, wm_path, dev)    # float32, as the JAX CLI
 
     actor = None
     bh_path = ckpt.latest_checkpoint(os.path.join(args.run_dir, "behavior"))

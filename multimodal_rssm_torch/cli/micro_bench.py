@@ -1,5 +1,5 @@
 """Per-codec forward and forward + backward times at the training step's
-scale (T x B = 2450 frames), bf16 autocast.
+scale (T x B = 2450 frames), in bf16 (the codecs' compute dtype).
 
     python -m multimodal_rssm_torch.cli.micro_bench [--modules sound_enc_v2,...]
         [--frames 2450] [--device cuda|cpu]
@@ -74,7 +74,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     add_device_argument(parser)
     args = parser.parse_args(argv)
 
-    from multimodal_rssm_torch.train.trainer import autocast
+    from multimodal_rssm_torch.models.layers import set_compute_dtype
 
     device = setup_device(args.device)
     N = args.frames
@@ -95,13 +95,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         if only and name not in only:
             continue
         torch.manual_seed(1)
-        module = make().to(device).train()
+        module = set_compute_dtype(make().to(device).train(), torch.bfloat16)
         xs = inputs[kind]
         params = [p for p in module.parameters() if p.requires_grad]
 
         def fwd():
-            with autocast(device, torch.bfloat16):
-                y = module(*xs)
+            y = module(*xs)
             y = y["loc"] if isinstance(y, dict) else y
             return y.float().sum()
 

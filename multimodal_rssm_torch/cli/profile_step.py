@@ -14,7 +14,8 @@ tools share), warms up, then over ``--steps`` steps prints JSON lines:
 - ``phases``: device milliseconds per step of the input pipeline, the
   encoder, the RSSM time loop, the decoders (each forward only, from CUDA
   events recorded by module hooks), the whole loss forward, the backward
-  and the optimizer step, plus the host-clock step time;
+  and the optimizer step, plus the host-clock step time and the peak
+  memory allocated;
 - ``profile``: the device-busy share of the profiled window (CUDA kernel
   time over wall time) and the kernels with the most device time
   (``torch.profiler``).
@@ -148,6 +149,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         per_step.append(spans.ms())
     phases = {k: statistics.median(s[k] for s in per_step) for k in per_step[0]}
     print(json.dumps({"phases_ms": phases, "host_step_ms": statistics.median(host),
+                      "max_memory_allocated_GiB":
+                          torch.cuda.max_memory_allocated() / 2 ** 30,
                       "batch": int(cfg.train.batch_size),
                       "chunk": int(cfg.train.chunk_size),
                       "device": torch.cuda.get_device_name(0)}), flush=True)

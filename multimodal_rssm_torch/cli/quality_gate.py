@@ -3,7 +3,7 @@ eval chain, FAILING when any metric leaves its committed window.
 
     python -m multimodal_rssm_torch.cli.quality_gate [--device cuda|cpu] \\
         [--config default|categorical|chunk200] [--seed 0] [--iters 300] \\
-        [--workdir DIR] [--calibrate]
+        [--workdir DIR] [--calibrate] [key=value ...]
 
 The port's copy of the JAX package's ``scripts/quality_gate.py``, over the
 port's own CLIs, each in its own process:
@@ -13,7 +13,9 @@ port's own CLIs, each in its own process:
    length under ``--workdir``);
 2. ``cli.train``: ``--iters`` iterations (300) at batch 8 x chunk 20 with
    the default model plus the config's overrides, validation every 50,
-   one checkpoint at the end;
+   one checkpoint at the end; trailing ``key=value`` overrides go to this
+   run after the config's (e.g. ``train.use_amp=false``: the windows stay
+   the config's, so the run is read against the shipped precision's);
 3. ``cli.check_model --t-start 10 --horizon 10`` on that checkpoint:
    posterior estimation, reconstruction, open-loop imagination;
 4. every metric (``collect_metrics``) inside the committed windows of
@@ -108,6 +110,7 @@ def train_and_eval(args) -> str:
     overrides += CONFIGS[args.config][0]
     if args.device == "cpu":
         overrides += TINY
+    overrides += list(getattr(args, "overrides", ()))
     run(_module("train") + overrides + ["--cwd", run_root,
                                         "--device", args.device])
 
@@ -207,6 +210,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="gate config matrix entry: 'categorical' = "
                          "rssm.latent_dist=categorical (32x32), 'chunk200' "
                          "= batch 2 x chunk 200")
+    ap.add_argument("overrides", nargs="*",
+                    help="key=value config overrides of the train run")
     return ap.parse_args(argv)
 
 
@@ -226,7 +231,7 @@ def gate(args: argparse.Namespace) -> Dict:
     key = args.device + suffix
     summary = {"config": args.config, "seed": args.seed,
                "device": args.device, "key": key, "run_dir": run_dir,
-               "metrics": metrics}
+               "overrides": list(args.overrides), "metrics": metrics}
     if args.calibrate:
         print(f"\n--calibrate: proposed windows for '{key}':")
         print(json.dumps({key: proposed_windows(metrics)}, indent=2))

@@ -101,7 +101,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         raise FileNotFoundError(
             f"no models_*.pt or .msgpack under {args.run_dir}")
     print(f"world model: {model_path}")
-    model = load_eval_model(cfg, model_path, dev)
+    model = load_eval_model(cfg, model_path, dev, tr.compute_dtype(cfg))
 
     seed = int(cfg.main.seed or 0)
     D = build_buffer(cfg, seed=seed)

@@ -139,13 +139,16 @@ def states_file_name(model_path: str) -> str:
     return os.path.join(head, name + ".npy")
 
 
-def load_eval_model(cfg, model_path: str, device: torch.device):
+def load_eval_model(cfg, model_path: str, device: torch.device,
+                    dtype: torch.dtype = torch.float32):
     """The configured model with the checkpoint's weights, on ``device``,
-    in ``eval()`` mode."""
+    in ``eval()`` mode, computing in ``dtype`` (float32, as the JAX
+    package's evaluation and serving build it; the control entry points
+    pass ``trainer.compute_dtype(cfg)``, as the JAX package's do)."""
     from multimodal_rssm_torch.io.checkpoint import load_model_weights
     from multimodal_rssm_torch.models.world_model import WorldModel
 
-    model = WorldModel.from_config(cfg)
+    model = WorldModel.from_config(cfg, dtype)
     load_model_weights(model_path, model)
     return model.to(device).eval()
 

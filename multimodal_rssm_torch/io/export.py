@@ -8,9 +8,11 @@ weights baked in, and saved as one ``.pt2`` file.  Where it is loaded
 (``io/serve.py``), ``torch.export.load(path).module()`` calls it with no
 model code, no config tree and no checkpoint plumbing.  Shapes are static,
 fixed at export time (``batch_size``); the program runs on the device it
-was exported on (``cuda`` or ``cpu``), in the run's compute dtype: the
-world model under bf16 autocast for a ``train.use_amp`` run, as the eager
-agent computes it, the policy heads in float32.  Every output is float32.
+was exported on (``cuda`` or ``cpu``), in the world model's compute dtype
+(``WorldModel.compute_dtype``, written into the meta), the policy heads in
+float32.  ``cli/export_model.py`` exports a float32 world model whatever
+``train.use_amp`` says, as the JAX package's ``cli/export_model.py``
+builds its serving model.  Every output is float32.
 
 Input contract (the JAX package's): image modalities enter as raw uint8
 [B, H, W, C] frames at the configured observation size and are bit-depth
@@ -63,7 +65,6 @@ from multimodal_rssm_torch.io.serve import (  # noqa: F401  (re-exported)
 from multimodal_rssm_torch.models.policy import MODE_SAMPLES
 from multimodal_rssm_torch.ops import keyed_noise
 from multimodal_rssm_torch.ops.image import normalize_image_deterministic
-from multimodal_rssm_torch.train import trainer as tr
 
 STEP_ARGS = ("h", "s", "action", "obs", "nonterminal", "key")
 DECODE_ARGS = ("h", "s")
@@ -126,19 +127,17 @@ def cem_noise(model, cfg, key: torch.Tensor, batch_size: int):
 
 
 class _Step(nn.Module):
-    """The world model's deterministic filter on a raw frame, in the run's
-    compute dtype (``filter``: the per-step state dict, float32)."""
+    """The world model's deterministic filter on a raw frame, in the
+    model's compute dtype (``filter``: the per-step state dict, float32)."""
 
     def __init__(self, cfg, model):
         super().__init__()
         self.model = model
         self.bit_depth = int(cfg.env.bit_depth)
-        self.dtype = tr.compute_dtype(cfg)
 
     def filter(self, h, s, action, obs, nonterminal):
         obs = normalize_obs(obs, self.bit_depth)
-        with tr.autocast(h.device, self.dtype):
-            states = self.model.filter_step(h, s, action, obs, nonterminal)
+        states = self.model.filter_step(h, s, action, obs, nonterminal)
         return _float32(states)
 
 
@@ -149,8 +148,7 @@ class FilterStep(_Step):
 
 class Decode(_Step):
     def forward(self, h, s):
-        with tr.autocast(h.device, self.dtype):
-            out = self.model.decode(h[None], s[None])
+        out = self.model.decode(h[None], s[None])
         return {k: {"loc": v["loc"].float()} for k, v in out.items()}
 
 
@@ -206,7 +204,7 @@ def _signature(tree) -> Dict[str, list]:
             for k, v in flatten_tree(tree).items()}
 
 
-def _export(kind: str, module: nn.Module, cfg, args: tuple,
+def _export(kind: str, module: nn.Module, args: tuple,
             arg_names: Tuple[str, ...]) -> Exported:
     """Trace ``module`` on ``args`` (eval mode, no gradient) into an
     ``Exported`` with its description."""
@@ -222,7 +220,8 @@ def _export(kind: str, module: nn.Module, cfg, args: tuple,
         program.call_spec.out_spec)
     meta = {
         "kind": kind, "device": device.type,
-        "compute_dtype": str(tr.compute_dtype(cfg)).replace("torch.", ""),
+        "compute_dtype": str(module.model.compute_dtype).replace("torch.",
+                                                                 ""),
         "batch_size": int(args[0].shape[0]), "arg_names": list(arg_names),
         "inputs": _signature(dict(zip(arg_names, args))),
         "outputs": _signature(outputs),
@@ -235,7 +234,7 @@ def export_filter_step(cfg, model, batch_size: int = 1) -> Exported:
     """One streaming posterior update (``WorldModel.filter_step``) with the
     model's weights baked in."""
     device = next(model.parameters()).device
-    return _export("filter_step", FilterStep(cfg, model), cfg,
+    return _export("filter_step", FilterStep(cfg, model),
                    step_inputs(cfg, model, batch_size, device), STEP_ARGS)
 
 
@@ -244,14 +243,14 @@ def export_decode(cfg, model, batch_size: int = 1) -> Exported:
     {modality: {"loc": [1, B, ...]}}."""
     device = next(model.parameters()).device
     h, s = step_inputs(cfg, model, batch_size, device)[:2]
-    return _export("decode", Decode(cfg, model), cfg, (h, s), DECODE_ARGS)
+    return _export("decode", Decode(cfg, model), (h, s), DECODE_ARGS)
 
 
 def export_agent_step(cfg, model, actor, batch_size: int = 1) -> Exported:
     """The controller step: raw frame -> posterior update -> the actor's
     mode-seeking action; world-model and actor weights baked in."""
     device = next(model.parameters()).device
-    return _export("agent_step", AgentStep(cfg, model, actor), cfg,
+    return _export("agent_step", AgentStep(cfg, model, actor),
                    step_inputs(cfg, model, batch_size, device), STEP_ARGS)
 
 
@@ -260,7 +259,7 @@ def export_plan_step(cfg, model, batch_size: int = 1) -> Exported:
     CEM-planned action (``train/planner.py``, every iteration inside the
     program); world-model weights only, ``cfg.planner`` baked in."""
     device = next(model.parameters()).device
-    return _export("plan_step", PlanStep(cfg, model), cfg,
+    return _export("plan_step", PlanStep(cfg, model),
                    step_inputs(cfg, model, batch_size, device), STEP_ARGS)
 
 

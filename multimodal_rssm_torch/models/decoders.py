@@ -36,7 +36,8 @@ from torch import nn
 
 from multimodal_rssm_torch.models.encoders import GLU
 from multimodal_rssm_torch.models.layers import (
-    BatchNorm, InstanceNorm, act_fn, fold_tb, make_norm, unfold_tb)
+    BatchNorm, Conv1d, Conv2d, ConvTranspose2d, InstanceNorm, Linear, act_fn,
+    fold_tb, make_norm, unfold_tb)
 from multimodal_rssm_torch.models.remat import Rematerialised
 from multimodal_rssm_torch.ops import gaussian
 
@@ -68,9 +69,9 @@ class DenseDecoder(Decoder):
                  observation_size: int, embedding_size: int,
                  activation_function: str = "elu"):
         super().__init__()
-        self.fc1 = nn.Linear(belief_size + state_size, embedding_size)
-        self.fc2 = nn.Linear(embedding_size, embedding_size)
-        self.fc3 = nn.Linear(embedding_size, observation_size)
+        self.fc1 = Linear(belief_size + state_size, embedding_size)
+        self.fc2 = Linear(embedding_size, embedding_size)
+        self.fc3 = Linear(embedding_size, observation_size)
         self.act = act_fn(activation_function)
 
     def forward(self, h: torch.Tensor, s: torch.Tensor
@@ -116,14 +117,14 @@ class ImageDecoder(Decoder):
         super().__init__()
         self.embedding_size = embedding_size
         setattr(self, self.fc_name,
-                nn.Linear(belief_size + state_size, embedding_size))
+                Linear(belief_size + state_size, embedding_size))
         layers = []
         c = embedding_size
         for i, (features, kernel, stride) in enumerate(self.layer_defs):
             last = i == len(self.layer_defs) - 1
             out = image_dim if last else features
             norm = None if last else make_norm(normalization, out)
-            layers.append(nn.ConvTranspose2d(c, out, kernel, stride,
+            layers.append(ConvTranspose2d(c, out, kernel, stride,
                                              bias=last or norm is None))
             if not last:
                 if norm is not None:
@@ -186,13 +187,13 @@ class SoundDecoder(Decoder):
 
     def __init__(self, belief_size: int, state_size: int):
         super().__init__()
-        self.fc1 = nn.Sequential(nn.Linear(state_size + belief_size, 250),
-                                 nn.Tanh(), nn.Linear(250, 250))
+        self.fc1 = nn.Sequential(Linear(state_size + belief_size, 250),
+                                 nn.Tanh(), Linear(250, 250))
         layers = []
         for cin, cout, k, s, p in self.layer_defs:
-            layers += [nn.ConvTranspose2d(cin, cout, k, s, p, bias=False),
+            layers += [ConvTranspose2d(cin, cout, k, s, p, bias=False),
                        BatchNorm(cout), GLU()]
-        layers.append(nn.ConvTranspose2d(16, 1, (3, 9), 1, (1, 4), bias=False))
+        layers.append(ConvTranspose2d(16, 1, (3, 9), 1, (1, 4), bias=False))
         self.conv = nn.Sequential(*layers)
 
     def forward(self, h: torch.Tensor, s: torch.Tensor
@@ -214,16 +215,16 @@ class SoundDecoderV2(Decoder):
         super().__init__()
         cb = channels_base
         self.seed_shape = (cb * 2, 32, 4)
-        self.up_conversion = nn.Conv1d(state_size + belief_size,
+        self.up_conversion = Conv1d(state_size + belief_size,
                                        cb * 2 * 32 * 4, 1, bias=False)
         defs = ((cb * 2, cb * 4, (3, 4), (1, 1), (1, 1)),
                 (cb * 2, cb * 2, (4, 4), (2, 2), (1, 1)),
                 (cb, cb, (4, 4), (2, 2), (1, 1)))
         for i, (cin, cout, k, s, p) in enumerate(defs):
             setattr(self, f"up_sample_{i}", nn.Sequential(
-                nn.ConvTranspose2d(cin, cout, k, s, p, bias=False),
+                ConvTranspose2d(cin, cout, k, s, p, bias=False),
                 InstanceNorm(cout), GLU()))
-        self.out = nn.Conv2d(cb // 2, 1, 7, 1, 3, bias=False)
+        self.out = Conv2d(cb // 2, 1, 7, 1, 3, bias=False)
 
     def forward(self, h: torch.Tensor, s: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:

@@ -36,7 +36,7 @@ from torch import nn
 
 from multimodal_rssm_torch.models.heads import ObsEncoderNoBelief
 from multimodal_rssm_torch.models.layers import (
-    BatchNorm, InstanceNorm, act_fn, glu, make_norm)
+    BatchNorm, Conv1d, Conv2d, InstanceNorm, Linear, act_fn, glu, make_norm)
 from multimodal_rssm_torch.models.remat import Rematerialised
 
 
@@ -54,9 +54,9 @@ class SymbolicEncoder(nn.Module):
     def __init__(self, observation_size: int, embedding_size: int,
                  activation_function: str = "relu"):
         super().__init__()
-        self.fc1 = nn.Linear(observation_size, embedding_size)
-        self.fc2 = nn.Linear(embedding_size, embedding_size)
-        self.fc3 = nn.Linear(embedding_size, embedding_size)
+        self.fc1 = Linear(observation_size, embedding_size)
+        self.fc2 = Linear(embedding_size, embedding_size)
+        self.fc3 = Linear(embedding_size, embedding_size)
         self.act = act_fn(activation_function)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -80,7 +80,7 @@ class ImageEncoder(Rematerialised):
         c = in_channels
         for features, kernel, stride in self.layer_defs:
             norm = make_norm(normalization, features)
-            layers.append(nn.Conv2d(c, features, kernel, stride,
+            layers.append(Conv2d(c, features, kernel, stride,
                                     bias=norm is None))
             if norm is not None:
                 layers.append(norm)
@@ -89,7 +89,7 @@ class ImageEncoder(Rematerialised):
         self.conv = nn.Sequential(*layers)
         self.embedding_size = embedding_size
         if embedding_size != 1024:
-            self.fc = nn.Linear(1024, embedding_size)
+            self.fc = Linear(1024, embedding_size)
             self.act = act_fn(activation_function)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -147,12 +147,12 @@ class SoundEncoder(Rematerialised):
         super().__init__()
         layers = []
         for cin, cout, k, s, p in self.layer_defs:
-            layers += [nn.Conv2d(cin, cout, k, s, p, bias=False),
+            layers += [Conv2d(cin, cout, k, s, p, bias=False),
                        BatchNorm(cout), GLU()]
         self.conv = nn.Sequential(*layers)
         self.embedding_size = embedding_size
         if embedding_size != 250:
-            self.fc = nn.Linear(250, embedding_size)
+            self.fc = Linear(250, embedding_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x[:, None])
@@ -169,18 +169,18 @@ class SoundEncoderV2(Rematerialised):
         cb = channels_base
         self.embedding_size = embedding_size
         self.down_sample_1 = nn.Sequential(
-            nn.Conv2d(1, cb, (3, 9), 1, (1, 4), bias=False), GLU())
+            Conv2d(1, cb, (3, 9), 1, (1, 4), bias=False), GLU())
         defs = ((cb // 2, cb * 2, (4, 8), (2, 2), (1, 3)),
                 (cb, cb * 4, (4, 8), (2, 2), (1, 3)),
                 (cb * 2, cb * 4, (3, 4), (1, 1), (1, 1)))
         for i, (cin, cout, k, s, p) in enumerate(defs, start=2):
             setattr(self, f"down_sample_{i}", nn.Sequential(
-                nn.Conv2d(cin, cout, k, s, p, bias=False),
+                Conv2d(cin, cout, k, s, p, bias=False),
                 InstanceNorm(cout), GLU()))
         # torch groups (C, H) of the [N, 2cb, 32, 4] map into the conv1d
         # channel: view(N, 2cb * 32, 4), channel c*32 + h
         self.down_conversion = nn.Sequential(
-            nn.Conv1d(cb * 2 * 32, embedding_size // 2, 1, bias=False),
+            Conv1d(cb * 2 * 32, embedding_size // 2, 1, bias=False),
             InstanceNorm(embedding_size // 2, track_running_stats=False),
             GLU())
 
@@ -283,7 +283,7 @@ class Mixer(nn.Module):
     def __init__(self, input_size: int, output_size: int,
                  activation_function: str = "relu"):
         super().__init__()
-        self.fc = nn.Linear(input_size, output_size)
+        self.fc = Linear(input_size, output_size)
         self.act = act_fn(activation_function)
 
     def forward(self, hiddens: Mapping[str, torch.Tensor]) -> torch.Tensor:

@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_rssm_torch.models.layers import act_fn, fold_tb, unfold_tb
+from multimodal_rssm_torch.models.layers import (
+    Linear, act_fn, fold_tb, unfold_tb)
 from multimodal_rssm_torch.parallel.tensor import column_linear
 
 
@@ -46,8 +47,8 @@ class StochasticStateModel(nn.Module):
                  activation_function: str = "elu", min_std_dev: float = 0.1,
                  out_size: Optional[int] = None):
         super().__init__()
-        self.fc1 = nn.Linear(belief_size, hidden_size)
-        self.fc2 = nn.Linear(hidden_size, out_size or 2 * state_size)
+        self.fc1 = Linear(belief_size, hidden_size)
+        self.fc2 = Linear(hidden_size, out_size or 2 * state_size)
         self.act = act_fn(activation_function)
         self.min_std_dev = min_std_dev
 
@@ -66,10 +67,10 @@ class ObsEncoder(nn.Module):
                  min_std_dev: float = 0.1, out_size: Optional[int] = None):
         super().__init__()
         self.belief_size = belief_size
-        self.fc1 = nn.Linear(belief_size + embedding_size, hidden_size)
+        self.fc1 = Linear(belief_size + embedding_size, hidden_size)
         # two Dense layers in the JAX package: init draws each block apart
         self.fc1.input_blocks = (belief_size, embedding_size)
-        self.fc2 = nn.Linear(hidden_size, out_size or 2 * state_size)
+        self.fc2 = Linear(hidden_size, out_size or 2 * state_size)
         self.act = act_fn(activation_function)
         self.min_std_dev = min_std_dev
 
@@ -98,8 +99,8 @@ class ObsEncoderNoBelief(nn.Module):
     def __init__(self, embedding_size: int, hidden_size: int, state_size: int,
                  activation_function: str = "elu", min_std_dev: float = 0.1):
         super().__init__()
-        self.fc1 = nn.Linear(embedding_size, hidden_size)
-        self.fc2 = nn.Linear(hidden_size, 2 * state_size)
+        self.fc1 = Linear(embedding_size, hidden_size)
+        self.fc2 = Linear(hidden_size, 2 * state_size)
         self.act = act_fn(activation_function)
         self.min_std_dev = min_std_dev
 
@@ -114,9 +115,9 @@ class RewardModel(nn.Module):
     def __init__(self, belief_size: int, state_size: int, hidden_size: int,
                  activation_function: str = "elu"):
         super().__init__()
-        self.fc1 = nn.Linear(belief_size + state_size, hidden_size)
-        self.fc2 = nn.Linear(hidden_size, hidden_size)
-        self.fc3 = nn.Linear(hidden_size, 1)
+        self.fc1 = Linear(belief_size + state_size, hidden_size)
+        self.fc2 = Linear(hidden_size, hidden_size)
+        self.fc3 = Linear(hidden_size, 1)
         self.act = act_fn(activation_function)
 
     def forward(self, h: torch.Tensor, s: torch.Tensor

@@ -15,9 +15,25 @@ The norms differ from their ``torch.nn`` namesakes on purpose:
 - ``GroupNorm`` (4 groups) is ``nn.GroupNorm``: its variance is the mean
   squared deviation, flax's E[x^2] - mean^2.
 
+The compute dtype is explicit, as the JAX package's ``dtype=`` field:
+every layer that owns parameters (``Linear``, ``Conv1d``, ``Conv2d``,
+``ConvTranspose2d``, ``GRUCell`` and the norms) computes in its
+``compute_dtype`` (float32 unless ``set_compute_dtype`` says otherwise)
+and returns it, its parameters staying float32.  A layer casts its input,
+weight and bias to that dtype on every call, as flax's ``astype`` does, so
+a weight used at every step of the RSSM loop has its gradient summed in
+float32, step by step, as under ``lax.scan``.  No autocast is involved:
+the dtype of every layer is the same on the CPU and on CUDA.
+
 BatchNorm and InstanceNorm compute ``var = max(E[x^2] - mean^2, 0)`` in
-float32 and apply ``y = x * a + b`` in the input's dtype, as the JAX
-package does.  ``make_norm`` builds the one ``rssm.normalization`` names.
+float32 and apply ``y = x * a + b`` in the compute dtype, as the JAX
+package does; GroupNorm normalises in float32 and returns the compute
+dtype, as flax's ``nn.GroupNorm(dtype=...)``.  ``make_norm`` builds the
+one ``rssm.normalization`` names.  In bf16 every op rounds its output,
+as eager PyTorch does; XLA rounds an elementwise chain such as a norm's
+``x * a + b`` or a GLU once, at the end of its fusion (a deliberate
+difference: rounding once here costs the card a float32 pass per op,
+``tests/test_torch_port_precision.py`` states its effect).
 Inside ``frozen_running_stats(module)`` no norm of ``module`` updates its
 running stats (the recompute of a rematerialised codec runs the forward a
 second time).
@@ -78,10 +94,75 @@ def unfold_tb(y: torch.Tensor, T: int, B: int) -> torch.Tensor:
     return y.reshape(B, T, *y.shape[1:]).transpose(0, 1)
 
 
-def _normalize(x, mean, var, weight, bias, eps, shape):
+class ComputeDtype:
+    """A layer that computes in ``compute_dtype`` (the JAX package's
+    ``dtype`` field); ``set_compute_dtype`` sets it model-wide."""
+
+    compute_dtype = torch.float32
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Every ``ComputeDtype`` layer of ``module`` computes in ``dtype``
+    from now on (its parameters stay float32); returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, ComputeDtype):
+            m.compute_dtype = dtype
+    return module
+
+
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype
+          ) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """``F.linear`` in ``dtype``, its float32 ``weight`` and ``bias`` cast
+    on every call."""
+    return F.linear(x.to(dtype), weight.to(dtype), _cast(bias, dtype))
+
+
+class Linear(ComputeDtype, nn.Linear):
+    """``nn.Linear`` in ``compute_dtype`` (the JAX package's ``Dense``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias, self.compute_dtype)
+
+
+class Conv1d(ComputeDtype, nn.Conv1d):
+    """``nn.Conv1d`` in ``compute_dtype``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return self._conv_forward(x.to(d), self.weight.to(d),
+                                  _cast(self.bias, d))
+
+
+class Conv2d(ComputeDtype, nn.Conv2d):
+    """``nn.Conv2d`` in ``compute_dtype`` (the JAX package's ``Conv``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return self._conv_forward(x.to(d), self.weight.to(d),
+                                  _cast(self.bias, d))
+
+
+class ConvTranspose2d(ComputeDtype, nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in ``compute_dtype`` (the JAX package's
+    ``ConvTranspose``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return F.conv_transpose2d(x.to(d), self.weight.to(d),
+                                  _cast(self.bias, d), self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+def _normalize(x, mean, var, weight, bias, eps, shape, dtype):
     a = weight.float().reshape(shape) * torch.rsqrt(var + eps)
     b = bias.float().reshape(shape) - mean * a
-    return x * a.to(x.dtype) + b.to(x.dtype)
+    return x.to(dtype) * a.to(dtype) + b.to(dtype)
 
 
 def _moments(x: torch.Tensor, dims: Tuple[int, ...]):
@@ -108,7 +189,7 @@ def _global_moments(x: torch.Tensor, dims: Tuple[int, ...], group):
     return mean, var
 
 
-class _Norm(nn.Module):
+class _Norm(ComputeDtype, nn.Module):
     """Affine norm over channel axis 1 with torch's parameter names.
     ``frozen``: train mode updates no running stats."""
 
@@ -154,7 +235,8 @@ class BatchNorm(_Norm):
         else:
             mean = self.running_mean.reshape(shape)
             var = self.running_var.reshape(shape)
-        return _normalize(x, mean, var, self.weight, self.bias, self.eps, shape)
+        return _normalize(x, mean, var, self.weight, self.bias, self.eps,
+                          shape, self.compute_dtype)
 
 
 class InstanceNorm(_Norm):
@@ -172,7 +254,8 @@ class InstanceNorm(_Norm):
             mean, var = _moments(x, tuple(range(2, x.ndim)))
             if self.track_running_stats:
                 self._update(*self._batch_mean(mean, var))
-        return _normalize(x, mean, var, self.weight, self.bias, self.eps, shape)
+        return _normalize(x, mean, var, self.weight, self.bias, self.eps,
+                          shape, self.compute_dtype)
 
     @torch.no_grad()
     def _batch_mean(self, mean: torch.Tensor, var: torch.Tensor):
@@ -218,18 +301,22 @@ def synced_batch_stats(module: nn.Module, group):
             m.group = None
 
 
-class GroupNorm(nn.GroupNorm):
+class GroupNorm(ComputeDtype, nn.GroupNorm):
     """``nn.GroupNorm`` with flax's ``nn.GroupNorm(num_groups=4,
     epsilon=1e-5)`` configuration, taking ``num_features`` as the port's
     other norms do.  Flax computes the variance as E[x^2] - E[x]^2, torch
     as the mean squared deviation: they agree to float32 rounding of
-    E[x^2] (the tests state the tolerance).  Under bf16 autocast it
-    normalises in float32, as flax does."""
+    E[x^2] (the tests state the tolerance).  It normalises in float32 and
+    returns ``compute_dtype``, as flax's ``nn.GroupNorm(dtype=...)``."""
 
     def __init__(self, num_features: int, num_groups: int = 4,
                  eps: float = 1e-5):
         super().__init__(num_groups, num_features, eps=eps)
         self.num_features = num_features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps).to(self.compute_dtype)
 
 
 NORMALIZATIONS = ("BatchNorm", "InstanceNorm", "GroupNorm", None, "None")
@@ -251,11 +338,11 @@ def make_norm(normalization: Optional[str], num_features: int
             "GroupNorm": GroupNorm}[normalization](num_features)
 
 
-class GRUCell(nn.Module):
+class GRUCell(ComputeDtype, nn.Module):
     """GRU cell with ``torch.nn.GRUCell``'s parameters and gate order
     (r, z, n):  n = tanh(x Wn + bn_i + r * (h Un + bn_h)),
-    h' = (1 - z) * n + z * h.  The hidden state enters in the gates' dtype,
-    as in the JAX package's compute-dtype cell."""
+    h' = (1 - z) * n + z * h, all in ``compute_dtype``, as the JAX
+    package's cell."""
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
@@ -269,11 +356,13 @@ class GRUCell(nn.Module):
             nn.init.uniform_(p, -bound, bound)
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        gi = F.linear(x, self.weight_ih, self.bias_ih)
-        gh = F.linear(h, self.weight_hh, self.bias_hh)
+        d = self.compute_dtype
+        h = h.to(d)
+        gi = linear(x, self.weight_ih, self.bias_ih, d)
+        gh = linear(h, self.weight_hh, self.bias_hh, d)
         i_r, i_z, i_n = gi.chunk(3, dim=-1)
         h_r, h_z, h_n = gh.chunk(3, dim=-1)
         r = torch.sigmoid(i_r + h_r)
         z = torch.sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * h_n)
-        return (1.0 - z) * n + z * h.to(n.dtype)
+        return (1.0 - z) * n + z * h

@@ -16,9 +16,10 @@ utils/models/policy.py):
 Submodule names follow the JAX package's parameter paths (``fc1`` ...,
 ``pie.fc1`` ...), the bridge's keys (``io/jax_weights.py``).
 
-The heads compute in float32 whatever the caller's autocast: the JAX
-package builds them without a dtype while the world model runs in the
-compute dtype, so every forward here runs with autocast off.
+The heads compute in float32, as the JAX package builds them without a
+dtype while the world model runs in the compute dtype: every forward here
+takes float32 inputs and runs with autocast off, so a caller's autocast
+does not reach them (the port itself enables none).
 
 Randomness: a sampling call takes its standard-normal noise ``eps`` as a
 tensor, or draws it from ``generator``, where the JAX package draws it

@@ -62,7 +62,8 @@ from multimodal_rssm_torch.models.encoders import (
     MultimodalEncoder, MultimodalStochasticEncoder, build_encoder, get_obs,
     modality_embedding_size)
 from multimodal_rssm_torch.models.heads import RewardModel
-from multimodal_rssm_torch.models.layers import fold_tb, unfold_tb
+from multimodal_rssm_torch.models.layers import (
+    fold_tb, set_compute_dtype, unfold_tb)
 from multimodal_rssm_torch.models.remat import (
     check_remat, decoder_mode, encoder_mode)
 from multimodal_rssm_torch.ops import categorical
@@ -341,20 +342,29 @@ class WorldModel(nn.Module):
                                            use_log_prob)
         return states, per_elem, self.reward_model(h, s)
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype its layers compute in (``layers.set_compute_dtype``;
+        the parameters are float32 whatever it is)."""
+        return self.transition_model.rnn.compute_dtype
+
     @staticmethod
-    def from_config(cfg) -> "WorldModel":
+    def from_config(cfg, dtype: torch.dtype = torch.float32) -> "WorldModel":
         """Build the configured model, dispatched as the JAX package's
         ``from_config``: unimodal or multimodal, PoE / NN / MoPoE fusion,
         q(st|ht,ot) or q(st|ot) experts, Gaussian or categorical latents,
         every codec and norm by modality, ``rssm.remat`` (false when the
         key is absent; a value outside ``remat.REMAT_VALUES`` raises
-        ``ValueError``)."""
+        ``ValueError``).  Its layers compute in ``dtype``, as the JAX
+        package's ``from_config(cfg, dtype)``: the training entry points
+        pass ``trainer.compute_dtype(cfg)`` (bf16 under
+        ``train.use_amp``), evaluation and serving keep float32."""
         rssm = cfg.rssm
         check_lowering_keys(rssm)
         multimodal = bool(rssm.multimodal)
         mp = rssm.multimodal_params
         latent_dist, latent_v, latent_k, unimix = resolve_latent(rssm)
-        return WorldModel(
+        return set_compute_dtype(WorldModel(
             observation_names_enc=tuple(rssm.observation_names_enc),
             observation_names_rec=tuple(rssm.observation_names_rec),
             observation_shapes={k: tuple(v) for k, v in
@@ -377,7 +387,7 @@ class WorldModel(nn.Module):
             latent_dist=latent_dist, latent_variables=latent_v,
             latent_classes=latent_k, unimix=unimix,
             remat=rssm.get("remat", False),
-        )
+        ), dtype)
 
 
 # the JAX package's ConvTranspose lowerings (its models/layers.py)

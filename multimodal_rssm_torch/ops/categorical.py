@@ -8,7 +8,7 @@ mixed with a uniform distribution ("unimix", DreamerV3).
   adding experts' logits is their product up to the renormalisation that
   ``poe_logits`` applies;
 - a flattened state (what the GRU and the decoders read) is [..., V*K];
-- the math is float32 whatever the autocast policy.
+- the math is float32 whatever the model's compute dtype.
 
 Fusion mirrors ``ops/fusion.py``: the product of experts is a sum of
 logits, and MoPoE partitions the V variables (not the latent dimensions)

@@ -1,7 +1,7 @@
 """Diagonal-Gaussian primitives as plain functions on tensors.
 
 Kept as small functions (not ``torch.distributions``) so the loss math is
-explicit float32 arithmetic whatever the autocast policy.
+explicit float32 arithmetic whatever the compute dtype.
 """
 
 from __future__ import annotations

@@ -53,6 +53,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from multimodal_rssm_torch.models.layers import (
+    Conv1d, Conv2d, ConvTranspose2d, Linear, linear)
 from multimodal_rssm_torch.parallel.mesh import ModelGroup, broadcast_
 
 MIN_SHARD_WIDTH = 128   # the JAX package's default (one lane tile)
@@ -168,56 +170,63 @@ def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor], dim: int
 
 class _Column:
     """A layer whose weight holds this rank's block of output features
-    (``model_group``'s ``rank`` of ``size``); its output is whole."""
+    (``model_group``'s ``rank`` of ``size``); its output is whole, in the
+    layer's ``compute_dtype``."""
 
     model_group: ModelGroup
     feature_dim = 1   # of the output
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._block(copy_to_model_group(x, self.model_group))
+        d = self.compute_dtype
+        y = self._block(copy_to_model_group(x.to(d), self.model_group),
+                        self.weight.to(d))
         y = gather_columns(y, self.feature_dim, self.model_group)
-        return _add_bias(y, self.bias, self.feature_dim % y.ndim)
+        return _add_bias(y, None if self.bias is None else self.bias.to(d),
+                         self.feature_dim % y.ndim)
 
 
-class ColumnLinear(_Column, nn.Linear):
+class ColumnLinear(_Column, Linear):
     feature_dim = -1
 
-    def _block(self, x):
-        return F.linear(x, self.weight)
+    def _block(self, x, w):
+        return F.linear(x, w)
 
 
-class ColumnConv1d(_Column, nn.Conv1d):
-    def _block(self, x):
-        return self._conv_forward(x, self.weight, None)
+class ColumnConv1d(_Column, Conv1d):
+    def _block(self, x, w):
+        return self._conv_forward(x, w, None)
 
 
-class ColumnConv2d(_Column, nn.Conv2d):
-    def _block(self, x):
-        return self._conv_forward(x, self.weight, None)
+class ColumnConv2d(_Column, Conv2d):
+    def _block(self, x, w):
+        return self._conv_forward(x, w, None)
 
 
-class ColumnConvTranspose2d(_Column, nn.ConvTranspose2d):
-    def _block(self, x):
-        return F.conv_transpose2d(x, self.weight, None, self.stride,
-                                  self.padding, self.output_padding,
-                                  self.groups, self.dilation)
+class ColumnConvTranspose2d(_Column, ConvTranspose2d):
+    def _block(self, x, w):
+        return F.conv_transpose2d(x, w, None, self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
 
-_COLUMN = {nn.Linear: ColumnLinear, nn.Conv1d: ColumnConv1d,
-           nn.Conv2d: ColumnConv2d, nn.ConvTranspose2d: ColumnConvTranspose2d}
+_COLUMN = {Linear: ColumnLinear, Conv1d: ColumnConv1d, Conv2d: ColumnConv2d,
+           ConvTranspose2d: ColumnConvTranspose2d}
 
 
 def column_linear(x: torch.Tensor, weight: torch.Tensor,
                   bias: Optional[torch.Tensor], layer: nn.Module
                   ) -> torch.Tensor:
-    """``F.linear(x, weight, bias)`` for ``weight`` a block of input columns
-    of ``layer``'s weight: whole output features when ``layer`` is
-    column-parallel (its rows are this rank's), as they are otherwise."""
+    """``F.linear(x, weight, bias)`` in ``layer``'s compute dtype, for
+    ``weight`` a block of input columns of ``layer``'s weight: whole output
+    features when ``layer`` is column-parallel (its rows are this rank's),
+    as they are otherwise."""
+    d = layer.compute_dtype
     mg = getattr(layer, "model_group", None)
     if mg is None:
-        return F.linear(x, weight, bias)
-    y = gather_columns(F.linear(copy_to_model_group(x, mg), weight), -1, mg)
-    return y if bias is None else y + bias
+        return linear(x, weight, bias, d)
+    y = gather_columns(F.linear(copy_to_model_group(x.to(d), mg),
+                                weight.to(d)), -1, mg)
+    return y if bias is None else y + bias.to(d)
 
 
 # -- placement ---------------------------------------------------------------

@@ -45,7 +45,7 @@ from torch import nn
 
 from multimodal_rssm_torch.models.heads import (
     ObsEncoder, StochasticStateModel, loc_scale)
-from multimodal_rssm_torch.models.layers import GRUCell, act_fn
+from multimodal_rssm_torch.models.layers import GRUCell, Linear, act_fn
 from multimodal_rssm_torch.ops import categorical, fusion
 from multimodal_rssm_torch.parallel.tensor import column_linear
 
@@ -92,7 +92,7 @@ class TransitionModel(nn.Module):
         self.act = act_fn(activation_function)
         out_size = (latent_variables * latent_classes if self.categorical
                     else None)
-        self.fc_embed_state_action = nn.Linear(state_size + action_size,
+        self.fc_embed_state_action = Linear(state_size + action_size,
                                                belief_size)
         # two Dense layers in the JAX package: init draws each block apart
         self.fc_embed_state_action.input_blocks = (state_size, action_size)

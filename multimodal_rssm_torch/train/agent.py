@@ -7,8 +7,8 @@ evaluation's input pipeline (``eval/state_estimation.fixed_draws``: crop
 offset 0, no noise or PCA shift) with the bit-depth normalise always
 through K1's wrapper (``ops/cuda_kernels.normalize_image``: one launch per
 frame and image modality on the card, its plain version on the CPU), then
-one deterministic filter step (the world model in ``eval()`` mode under
-the configured autocast, no gradient), and the agent carries the belief
+one deterministic filter step (the world model in ``eval()`` mode in its
+compute dtype, no gradient), and the agent carries the belief
 and the posterior MEANS.  The actor samples, or takes its mode-seeking
 action (``det``); exploration adds Gaussian noise of scale
 ``train.action_noise`` and clips to [-1, 1].
@@ -44,7 +44,6 @@ class LatentAgent:
         self.belief_size = int(cfg.rssm.belief_size)
         self.state_size = effective_state_size(cfg)
         self.action_size = int(cfg.env.action_size)
-        self.dtype = tr.compute_dtype(cfg)
         self.device = next(model.parameters()).device
         self.reset()
 
@@ -88,12 +87,11 @@ class LatentAgent:
         was_training = model.training
         model.eval()
         try:
-            with tr.autocast(self.device, self.dtype):
-                states = model.filter_step(self.h, self.s, self.prev_action,
-                                           frame)
+            states = model.filter_step(self.h, self.s, self.prev_action,
+                                       frame)
         finally:
             model.train(was_training)
-        h, s = states["beliefs"].float(), states["posterior_means"].float()
+        h, s = states["beliefs"], states["posterior_means"]
         action = self.act(h, s, generator, det, action_eps)
         if explore and self.action_noise > 0.0:
             if explore_eps is None:

@@ -21,8 +21,8 @@ Hafner et al. 2020):
 Each loss is differentiated with ``torch.autograd.grad`` over its own
 head's parameters, so the world model's parameters get no ``.grad`` and
 the actor loss reaches the value head not at all.  The world model runs in
-``eval()`` mode (its norms read their running stats and update none) under
-the configured autocast, and is put back in the mode it was found in; the
+``eval()`` mode (its norms read their running stats and update none) in
+its compute dtype, and is put back in the mode it was found in; the
 heads compute in float32.  A step leaves every world-model parameter and
 running stat as it was.
 
@@ -186,8 +186,7 @@ def imagine_policy(model: WorldModel, actor: ActorModel, h0: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    det_action: bool = False,
                    action_eps: Optional[torch.Tensor] = None,
-                   state_eps: Optional[torch.Tensor] = None,
-                   dtype: torch.dtype = torch.float32
+                   state_eps: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
     """Roll the actor through the latent dynamics for ``horizon`` steps
     from the starts (h0, s0) [N, .]: [H, N, .] beliefs, states and
@@ -195,17 +194,16 @@ def imagine_policy(model: WorldModel, actor: ActorModel, h0: torch.Tensor,
     dynamics.  Each step's action noise and state noise come from
     ``action_eps`` [H, ...] and ``state_eps`` [H, N, ...] when given, else
     from ``generator`` (action first); ``det_action`` takes the
-    mode-seeking action and the prior's mean.  The world model runs under
-    autocast at ``dtype``."""
+    mode-seeking action and the prior's mean.  The world model runs in its
+    compute dtype."""
     h, s = h0, s0
     hs, ss, acts = [], [], []
     for t in range(horizon):
         a = actor(h, s, generator, det_action,
                   None if action_eps is None else action_eps[t])
-        with tr.autocast(h.device, dtype):
-            out = model.rollout_prior(
-                h, s, a[None], None, None if det_action else generator,
-                None if det_action or state_eps is None else state_eps[t][None])
+        out = model.rollout_prior(
+            h, s, a[None], None, None if det_action else generator,
+            None if det_action or state_eps is None else state_eps[t][None])
         h, s = out["beliefs"][0], out["prior_states"][0]
         hs.append(h)
         ss.append(s)
@@ -246,7 +244,6 @@ class BehaviorStep:
         self.imag_batch = None if b.imag_batch is None else int(b.imag_batch)
         self.max_norm = float(b.grad_clip_norm)
         self.bit_depth = int(cfg.env.bit_depth)
-        self.dtype = tr.compute_dtype(cfg)
         self.twohot = str(b.value_head) == "twohot_symlog"
         self.bins = rt.bin_centers(int(b.twohot_bins), device=device)
         self.return_norm = bool(b.return_norm)
@@ -267,7 +264,7 @@ class BehaviorStep:
         the prepared batch, in eval mode, without gradient."""
         observations, actions, _, nonterminals = batch
         model = self.model
-        with torch.no_grad(), tr.autocast(actions.device, self.dtype):
+        with torch.no_grad():
             states = model.estimate_state(
                 {k: v[1:] for k, v in observations.items()}, actions[:-1],
                 nonterminals[:-1], generator,
@@ -297,11 +294,9 @@ class BehaviorStep:
             traj = imagine_policy(
                 model, actor, h0, s0, self.horizon, generator,
                 action_eps=None if noise is None else noise.actions,
-                state_eps=None if noise is None else noise.states,
-                dtype=self.dtype)
+                state_eps=None if noise is None else noise.states)
             hs, ss = traj["beliefs"], traj["states"]
-            with tr.autocast(hs.device, self.dtype):
-                rewards = model.reward(hs, ss)["loc"].float()      # [H, N]
+            rewards = model.reward(hs, ss)["loc"]                 # [H, N]
         finally:
             model.train(was_training)
         vals = value(hs, ss)["loc"]

@@ -287,7 +287,7 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
     D_val = build_buffer(cfg, seed=seed + 1)
     load_dataset(cwd, D_val, cfg.train.validation_data_path)
 
-    model = WorldModel.from_config(cfg)
+    model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
     init_parameters(model, torch.Generator().manual_seed(seed))
     model.to(dev)
     optimizer, scheduler = tr.build_optimizer(cfg, model)

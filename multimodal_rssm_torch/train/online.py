@@ -129,7 +129,7 @@ def run_online(cfg, env, results_dir: str, logger, device: torch.device,
             f"seed data too short: {D.idx} steps buffered, chunk_size={L}; "
             "raise online.seed_episodes or the env episode length")
 
-    model = WorldModel.from_config(cfg)
+    model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
     init_parameters(model, torch.Generator().manual_seed(seed))
     model.to(device)
     optimizer, scheduler = tr.build_optimizer(cfg, model)

@@ -23,7 +23,6 @@ from typing import List, Optional
 import torch
 
 from multimodal_rssm_torch.models.world_model import WorldModel
-from multimodal_rssm_torch.train import trainer as tr
 from multimodal_rssm_torch.train.agent import LatentAgent
 
 # PlaNet's published hyperparameters; injected as cfg.planner
@@ -78,17 +77,15 @@ def make_cem_planner(model: WorldModel, cfg, full_sequence: bool = False):
     if K > J:
         raise ValueError(f"planner.top_candidates ({K}) > candidates ({J})")
     A = int(cfg.env.action_size)
-    dtype = tr.compute_dtype(cfg)
 
     def score(h0, s0, actions, generator, state_eps):
         """Each candidate's predicted return: the sum over the open-loop
         prior rollout of the reward head's mean."""
-        with tr.autocast(h0.device, dtype):
-            roll = model.rollout_prior(h0, s0, actions, None,
-                                       generator if stochastic else None,
-                                       state_eps if stochastic else None)
-            r = model.reward(roll["beliefs"], roll["prior_states"])
-        return r["loc"].float().sum(0)                          # [B * J]
+        roll = model.rollout_prior(h0, s0, actions, None,
+                                   generator if stochastic else None,
+                                   state_eps if stochastic else None)
+        r = model.reward(roll["beliefs"], roll["prior_states"])
+        return r["loc"].sum(0)                                  # [B * J]
 
     @torch.no_grad()
     def plan(h: torch.Tensor, s: torch.Tensor,

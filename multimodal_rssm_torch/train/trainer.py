@@ -6,8 +6,10 @@ Port of the JAX package's ``train/trainer.py``:
   rule ``g * max_norm / ||g||`` when ``||g|| >= max_norm``
   (``clip_grad_norm_`` would divide by ``||g|| + 1e-6``), with the
   reference's linear warm-up when ``learning_rate_schedule`` is set;
-- mixed precision = bf16 ``torch.autocast`` around the model's forward,
-  float32 parameters, optimizer state and loss;
+- mixed precision = the model's compute dtype (``WorldModel.from_config(
+  cfg, compute_dtype(cfg))``, each layer casting as the JAX package's
+  ``dtype=`` modules do), float32 parameters, gradients, optimizer state
+  and loss;
 - the device half of the input pipeline (crop / noise / PCA / clip, then
   the bit-depth normalise, through the hand-written kernel when
   ``train.pallas_normalize`` is on or the caller asks for it);
@@ -71,13 +73,6 @@ GRAD_GROUPS = {"encoder": "encoder", "transition_model": "core",
 def compute_dtype(cfg) -> torch.dtype:
     """bf16 compute when ``train.use_amp`` (ref train.yaml:29)."""
     return torch.bfloat16 if cfg.train.use_amp else torch.float32
-
-
-def autocast(device: torch.device, dtype: torch.dtype):
-    """bf16 autocast on ``device``, or nothing for float32."""
-    if dtype == torch.float32:
-        return contextlib.nullcontext()
-    return torch.autocast(device.type, dtype=dtype)
 
 
 # -- optimizer ---------------------------------------------------------------
@@ -280,9 +275,9 @@ def prepare_observations(observations: Mapping[str, torch.Tensor],
 
 def make_loss_fn(model: WorldModel, cfg) -> Callable:
     """The ELBO over a prepared batch: ``loss_fn(batch, generator, train)``
-    -> (total, metrics).  The model's forward runs under the configured
-    autocast; ``train`` selects batch statistics (and updates the running
-    stats) or the running statistics.  Every branch of the JAX package's
+    -> (total, metrics).  The model's forward runs in its compute dtype
+    (the loss terms in float32); ``train`` selects batch statistics (and
+    updates the running stats) or the running statistics.  Every branch of the JAX package's
     loss: the KL by fusion and latent (MoPoE: the mean over subset
     products; PoE / NN and unimodal: balanced by ``kl_balancing_alpha``),
     the global KL, latent overshooting and the log-prob reconstruction and
@@ -309,16 +304,14 @@ def make_loss_fn(model: WorldModel, cfg) -> Callable:
         rssm.multimodal_params.fusion_method == "MoPoE")
     categorical = model.latent_dist == "categorical"
     overshoot = overshooting_kl_beta != 0 and overshooting_distance > 0
-    dtype = compute_dtype(cfg)
 
     def loss_fn(batch, generator: Optional[torch.Generator], train: bool):
         observations, actions, rewards, nonterminals = batch
         obs_target = {k: v[1:] for k, v in observations.items()}
         model.train(train)
-        with autocast(actions.device, dtype):
-            states, per_elem, rew = model.train_forward(
-                obs_target, actions[:-1], nonterminals[:-1], generator,
-                use_log_prob)
+        states, per_elem, rew = model.train_forward(
+            obs_target, actions[:-1], nonterminals[:-1], generator,
+            use_log_prob)
 
         observations_loss = elbo.observation_losses(per_elem,
                                                     negate=use_log_prob)
@@ -353,15 +346,14 @@ def make_loss_fn(model: WorldModel, cfg) -> Callable:
                 elbo.global_kl(states["posterior_means"],
                                states["posterior_std_devs"]))
         if overshoot:
-            with autocast(actions.device, dtype):
-                kl_os, reward_os = overshooting_losses(
-                    model.transition_model.prior_rollout,
-                    model.reward_model if overshooting_reward_scale != 0
-                    else None, states, actions, rewards, nonterminals,
-                    chunk_size, overshooting_distance, free_nats,
-                    overshooting_reward_scale, generator,
-                    "MoPoE" if mopoe else "PoE", model.latent_dist,
-                    model.noise_rows)
+            kl_os, reward_os = overshooting_losses(
+                model.transition_model.prior_rollout,
+                model.reward_model if overshooting_reward_scale != 0
+                else None, states, actions, rewards, nonterminals,
+                chunk_size, overshooting_distance, free_nats,
+                overshooting_reward_scale, generator,
+                "MoPoE" if mopoe else "PoE", model.latent_dist,
+                model.noise_rows)
             kl_loss_sum = kl_loss_sum + overshooting_kl_beta * kl_os
             if predict_reward:
                 reward_l = reward_l + reward_os

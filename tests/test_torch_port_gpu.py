@@ -642,11 +642,58 @@ def test_normalize_kernel_matches_plain_at_the_agent_frame_shape(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("config", ["default", "categorical", "groupnorm64"])
+def test_dtype_map_on_card_matches_the_jax_fixture(cuda, config):
+    """Under ``train.use_amp=true`` at full width on the card, one loss step
+    (batch 2 x chunk 4, K1 normalising the images): every layer's output
+    dtype and every forward output's dtype equal the JAX package's, name
+    for name (the committed ``torch_port_fixtures/dtype_map.json``, which
+    ``tests/test_torch_port_precision.py`` holds to the JAX package), so a
+    drift shows by name; every gradient float32; K1 launched once."""
+    import json
+    import os
+
+    import numpy as np
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.models import dtype_map as dm
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.train import trainer as tr
+
+    with open(os.path.join(os.path.dirname(__file__), "torch_port_fixtures",
+                           "dtype_map.json")) as f:
+        want = json.load(f)["configs"][config]
+    cfg = compose(overrides=[*want["overrides"], "train.use_amp=true"])
+    model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model.to(cuda)
+    rng = np.random.default_rng(0)
+    L, B = 4, 2
+    raw = {"image_horizon": torch.from_numpy(rng.integers(
+               0, 256, (L, B, 64, 64, 3), np.uint8)).to(cuda),
+           "sound": torch.from_numpy(rng.normal(size=(L, B, 128, 20)).astype(
+               np.float32)).to(cuda)}
+    spec = tr.AugSpec(modalities=(("image_horizon", tr.ModalityAugSpec(
+        (64, 64), False, False, False, True)),))
+    g = torch.Generator(cuda).manual_seed(0)
+    launches = ck.normalize_image.launches
+    obs = tr.prepare_observations(raw, spec, {}, 5, g, kernel_normalize=True)
+    batch = (obs, torch.from_numpy(rng.uniform(-1, 1, (L, B, 3)).astype(
+                 np.float32)).to(cuda),
+             torch.zeros(L, B, device=cuda), torch.ones(L, B, 1, device=cuda))
+    got, grads, loss = dm.loss_step_map(model, cfg, batch, g)
+    assert ck.normalize_image.launches == launches + 1
+    assert dm.mismatches(got, want) == []
+    assert grads == ["float32"] and np.isfinite(loss)
+
+
+@pytest.mark.gpu
 def test_full_width_behavior_step_leaves_the_world_model_bit_equal(cuda):
-    """One behavior step of the default configuration at full width (bf16
-    autocast, K1 on), batch 2 x chunk 6: every world-model parameter and
-    running stat bit-equal, no ``.grad`` on any, its mode restored, both
-    heads moved, finite metrics, K1 launched once."""
+    """One behavior step of the default configuration at full width (the
+    world model in bf16, K1 on), batch 2 x chunk 6: every world-model
+    parameter and running stat bit-equal, no ``.grad`` on any, its mode
+    restored, both heads moved, finite metrics, K1 launched once."""
     import numpy as np
 
     from multimodal_rssm_torch.core.config import compose
@@ -657,7 +704,7 @@ def test_full_width_behavior_step_leaves_the_world_model_bit_equal(cuda):
 
     cfg = bh.behavior_cfg(compose(overrides=[
         "train.chunk_size=6", "train.batch_size=2", "rssm.predict_reward=true"]))
-    model = WorldModel.from_config(cfg)
+    model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
     init_parameters(model, torch.Generator().manual_seed(0))
     model.to(cuda).train()
     before = {k: v.clone() for k, v in model.state_dict().items()}
@@ -870,10 +917,11 @@ def _small_world_model(cfg_extra=()):
 @pytest.mark.gpu
 @pytest.mark.parametrize("amp", [False, True])
 def test_exported_artifacts_on_card_answer_over_http(cuda, tmp_path, amp):
-    """The four artifacts exported on the card (float32, and bf16 autocast
-    as a use_amp run ships them) load there, equal the eager port given
-    the key's noise (float32 within 1e-5 of max |eager|), answer over
-    HTTP bit-equal to the direct call, and launch no kernel."""
+    """The four artifacts exported on the card (float32, and from a world
+    model that computes in bf16, which exports in bf16 and says so) load
+    there, equal the eager port given the key's noise (within 1e-5 of max
+    |eager|), answer over HTTP bit-equal to the direct call, and launch no
+    kernel."""
     import io
     import threading
     import urllib.request
@@ -882,13 +930,14 @@ def test_exported_artifacts_on_card_answer_over_http(cuda, tmp_path, amp):
 
     from multimodal_rssm_torch.io import export as ex
     from multimodal_rssm_torch.io import serve as sv
+    from multimodal_rssm_torch.models.layers import set_compute_dtype
     from multimodal_rssm_torch.train import behavior as bh
     from multimodal_rssm_torch.train import trainer as tr
     from multimodal_rssm_torch.train.planner import make_cem_planner
 
     cfg, model = _small_world_model([f"train.use_amp={amp}"])
     bh.behavior_cfg(cfg)
-    model = model.to(cuda).eval()
+    model = set_compute_dtype(model, tr.compute_dtype(cfg)).to(cuda).eval()
     actor = bh.init_behavior_state(cfg, cuda).actor
     ck.reset_launch_counts()
     paths = ex.export_run(cfg, model, str(tmp_path), 1, actor=actor,
@@ -905,18 +954,14 @@ def test_exported_artifacts_on_card_answer_over_http(cuda, tmp_path, amp):
     store = sv.ArtifactStore(str(tmp_path), "cuda")
     assert store.info()["plan_step"]["compute_dtype"] == (
         "bfloat16" if amp else "float32")
-    dtype = tr.compute_dtype(cfg)
     args = store.args("agent_step", arrays)
     h, s, action, obs, nt, key = args
-    with torch.no_grad(), tr.autocast(cuda, dtype):
+    with torch.no_grad():
         states = model.filter_step(h, s, action, ex.normalize_obs(obs, 5),
                                    nt)
-    h2, s2 = states["beliefs"].float(), states["posterior_means"].float()
+    h2, s2 = states["beliefs"], states["posterior_means"]
     with torch.no_grad():
-        want = {"filter_step": sv.flatten_tree(
-                    {k: ({n: x.float() for n, x in v.items()}
-                         if isinstance(v, dict) else v.float())
-                     for k, v in states.items()}),
+        want = {"filter_step": sv.flatten_tree(states),
                 "agent_step": actor(h2, s2, None, True,
                                     ex.agent_noise(key, 1, 3)),
                 "plan_step": make_cem_planner(model, cfg)(

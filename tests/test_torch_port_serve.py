@@ -338,6 +338,56 @@ def test_controller_steps_match_jax_on_its_noise(world, setup, jax_artifacts,
     np.testing.assert_allclose(_np(got), want, **HEAD)
 
 
+@pytest.fixture(scope="module")
+def amp_artifacts(world, tmp_path_factory):
+    """``cli/export_model.py`` on a ``train.use_amp=true`` run whose
+    checkpoint holds the ``world`` weights: {name: (callable, meta)}."""
+    from multimodal_rssm_torch.cli import export_model
+    from multimodal_rssm_torch.core.config import save_config
+    from multimodal_rssm_torch.io.checkpoint import save_checkpoint
+    from multimodal_rssm_torch.train import trainer as tr
+
+    run = str(tmp_path_factory.mktemp("amp_run"))
+    _, cfg = _configs(PLANNER + ["train.use_amp=true"])
+    save_config(cfg, os.path.join(run, "hydra_config.yaml"))
+    save_checkpoint(run, 1, world["port"],
+                    tr.build_optimizer(cfg, world["port"])[0])
+    out = os.path.join(run, "exported")
+    written = export_model.main(["--run-dir", run, "--out", out,
+                                 "--batch-size", str(B), "--device", "cpu"])
+    assert set(written) == {"filter_step", "decode"}
+    return {k: ex.load_exported(v["path"]) for k, v in written.items()}
+
+
+@pytest.mark.parametrize("name", ["filter_step", "decode"])
+def test_amp_run_artifacts_are_float32_and_match_jax(setup, jax_artifacts,
+                                                     amp_artifacts, name):
+    """A ``train.use_amp=true`` run's artifacts compute in float32, as the
+    JAX package's ``export_model`` builds its serving model: the meta says
+    so, they give what the float32 artifact of the same weights gives,
+    bit for bit, and they equal the JAX package's artifacts on the same
+    weights and raw frame (``test_filter_and_decode_match_jax_artifacts``'s
+    frame) at its float32 tolerance (atol 1e-5)."""
+    fn, meta = amp_artifacts[name]
+    assert meta["compute_dtype"] == "float32"
+    arrays = _step_arrays(setup["cfg"], seed=3)
+    names = ex.DECODE_ARGS if name == "decode" else ex.STEP_ARGS
+    f32, _ = ex.load_exported(setup["paths"][name])
+    with torch.no_grad():
+        got = _flat(fn(*_torch_args(arrays, names)))
+        same = _flat(f32(*_torch_args(arrays, names)))
+    assert set(got) == set(same)
+    for k, v in same.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    want = {k: v for k, v in _flat(jax.tree_util.tree_map(
+        np.asarray, _jax_call(jax_artifacts, name, arrays))).items()
+        if not k.endswith(".scale")}
+    assert set(want) <= set(got), sorted(set(want) - set(got))
+    for k, w in want.items():
+        assert str(got[k].dtype) == "float32", k
+        np.testing.assert_allclose(got[k], w, err_msg=k, **JAX_ARTIFACT)
+
+
 # -- the server ------------------------------------------------------------------
 
 
