@@ -26,7 +26,12 @@ each printed as one JSON line:
                output dtype and every forward output's dtype equal to the
                JAX package's, name for name (the committed
                tests/torch_port_fixtures/dtype_map.json), every gradient
-               float32, K1 once each; any difference fails the run;
+               float32, K1 once each; any difference fails the run; then
+               the sound encoder's conv-weight gradient norms, bf16 over
+               float32, of one deterministic loss step of the default at
+               full width (batch 4 x chunk 6, the same weights and batch),
+               each inside SCALE_BAND (python3 chip_smoke.py --precision:
+               the build and this phase alone);
 3a. parallel -- data parallelism (train.mesh): the train CLI at
                train.mesh.data=1 (a one-rank NCCL world in process) after
                the mesh-less CLI, 12 steps each (steps/s over
@@ -59,11 +64,15 @@ each printed as one JSON line:
                8 x chunk 10:
                3 steps, then a 5-step run, each rank's gradient digests
                at steps 1-3 (after the data group's average, before the
-               clip; the first step and layer where the two runs part,
-               F6), --resume to 5 bit-equal to the 5-step run, the
-               checkpoint whole and read mesh-less by the check_model CLI
-               (`python3 chip_smoke.py --model-axis` runs the build and
-               (c), (d) alone);
+               clip; the first step where the two runs part and every
+               layer that parts there, F6), --resume to 5 bit-equal to
+               the 5-step run, the checkpoint whole and read mesh-less by
+               the check_model CLI (`python3 chip_smoke.py --model-axis`
+               runs the build and (c), (d) alone; `--model-axis-pairs
+               [arm ...]` runs (d)'s worlds in pairs, one arm of them
+               beside a process that holds most of the card's memory;
+               `--recompute-step` recomputes the default bf16 step's
+               gradients in one process and compares their digests);
 3b. feed    -- the same CLI on a dataset of a real set's size (360 x 120
                episodes, 43,200 rows, 0.97 GB; experience_size to match),
                8 steps a run, with train.device_replay=true (the whole
@@ -257,7 +266,8 @@ each printed as one JSON line:
                of each tool that steps; in a process of its own
                (`python3 chip_smoke.py --tools`, which builds the
                libraries that are missing or stale and runs this phase
-               alone);
+               alone; `--profiler-edges` times the profiler's window
+               edges against the kernels launched at them);
 
 6. quality -- the learning gate (cli/quality_gate.py): the default
                configuration, seed 0, 300 iterations at batch 8 x chunk 20
@@ -292,6 +302,13 @@ TRAIN_STEPS = 6
 PRECISION_FIXTURE = os.path.join(REPO, "tests", "torch_port_fixtures",
                                  "dtype_map.json")
 PRECISION_L, PRECISION_B = 4, 2
+# phase precision's sound-encoder reading: the chunk and batch of the CPU
+# bf16 step (tests/test_torch_port_precision.py), and the band every conv
+# weight's bf16 / float32 gradient norm must lie in.  On the CPU (SMALL
+# widths, default seeds 0-17) the ratio of either package strays from 1 by
+# at most 0.06; full width was not read there, hence the margin.
+SCALE_L, SCALE_B = 6, 4
+SCALE_BAND = (0.90, 1.10)
 PARITY_RTOL = 1e-3
 # Peak device-memory rates (bytes/s) and the f32 rate outside the tensor
 # cores (NVIDIA data sheets; dense, full power).
@@ -625,14 +642,68 @@ def precision_map(overrides, device: str = "cuda", seed: int = 0):
     return got, grads, ck.launch_counts()["normalize_image"], loss
 
 
+def sound_encoder_scale(device: str = "cuda", seed: int = 0) -> dict:
+    """({sound encoder conv weight: |bf16 gradient| / |float32 gradient|}
+    (L2 norms) of one deterministic loss step of the default configuration
+    at full width, batch SCALE_B x chunk SCALE_L, in each precision from
+    the same weights and batch (the port against itself), K1's launches
+    normalising the images)."""
+    import numpy as np
+    import torch
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.train import trainer as tr
+
+    dev = torch.device(device)
+    L, B = SCALE_L, SCALE_B
+    rng = np.random.default_rng(seed)
+    raw = {"image_horizon": torch.from_numpy(rng.integers(
+               0, 256, (L, B, *SHAPE[2:]), np.uint8)).to(dev),
+           "sound": torch.from_numpy(rng.normal(size=(L, B, 128, 20)).astype(
+               np.float32)).to(dev)}
+    spec = tr.AugSpec(modalities=(("image_horizon", tr.ModalityAugSpec(
+        SHAPE[2:4], False, False, False, True)),))
+    ck.reset_launch_counts()
+    obs = tr.prepare_observations(raw, spec, {}, BIT_DEPTH,
+                                  torch.Generator(dev).manual_seed(seed),
+                                  kernel_normalize=True)
+    k1 = ck.launch_counts()["normalize_image"]
+    batch = (obs, torch.from_numpy(rng.uniform(-1, 1, (L, B, 3)).astype(
+                 np.float32)).to(dev),
+             torch.from_numpy(rng.normal(size=(L, B)).astype(
+                 np.float32)).to(dev), torch.ones(L, B, 1, device=dev))
+    norms, weights = {}, None
+    for amp in (False, True):
+        cfg = compose(overrides=[f"train.use_amp={str(amp).lower()}"])
+        model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
+        if weights is None:
+            init_parameters(model, torch.Generator().manual_seed(seed))
+            weights = model.state_dict()
+        else:
+            model.load_state_dict(weights)
+        model.to(dev)
+        loss, _ = tr.make_loss_fn(model, cfg)(batch, None, True)
+        loss.backward()
+        norms[amp] = {n: float(p.grad.double().norm())
+                      for n, p in model.named_parameters()
+                      if n.startswith("encoder.sound.")
+                      and n.endswith(".0.weight")}
+        del model, loss
+    return {n: norms[True][n] / norms[False][n] for n in norms[False]}, k1
+
+
 def phase_precision() -> dict:
     """Mixed precision on the card: for each configuration of the committed
     JAX dtype map (PRECISION_FIXTURE: the default, categorical latents,
     the 64 px GroupNorm codec), the port's layer dtype map under
     ``train.use_amp=true`` at full width (``precision_map``) equal to the
     JAX package's name for name, every gradient float32, K1 launched once,
-    a finite loss.  Any difference fails the run.  Returns K1's launches by
-    configuration."""
+    a finite loss; then ``sound_encoder_scale`` inside SCALE_BAND, K1
+    launched once.  Any difference fails the run.  Returns K1's launches
+    by configuration and reading."""
     from multimodal_rssm_torch.models import dtype_map as dm
 
     t0 = time.perf_counter()
@@ -654,10 +725,22 @@ def phase_precision() -> dict:
         if diff or grads != ["float32"] or k1 != 1 or not math.isfinite(loss):
             bad.append(name)
     record["seconds"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    scale, k1 = sound_encoder_scale()
+    record["sound_encoder_scale"] = {
+        "ratios": scale, "band": list(SCALE_BAND), "batch": [SCALE_L, SCALE_B],
+        "k1_launches": k1, "seconds": time.perf_counter() - t1}
+    launches["precision/sound_encoder_scale"] = k1
+    outside = {n: r for n, r in scale.items()
+               if not SCALE_BAND[0] <= r <= SCALE_BAND[1]}
     emit(record)
     if bad:
         raise AssertionError(f"precision: the card's dtype map, gradients "
                              f"or K1 launches differ for {bad}")
+    if outside or not scale or k1 != 1:
+        raise AssertionError(f"precision: the sound encoder's bf16 / float32 "
+                             f"gradient norms {outside or scale} outside "
+                             f"{SCALE_BAND}, or K1 launched {k1} times")
     return launches
 
 
@@ -3326,8 +3409,11 @@ MODEL_AXIS_CLI_BATCH, MODEL_AXIS_CLI_CHUNK = 8, 10
 MODEL_AXIS_CLI_STEPS = (3, 5)   # (d): the run resumed, and the whole run
 # --model-axis-pairs: the arms (model_axis_cli_rank's ``strict``) and how
 # many (3-step, 5-step) pairs of (d)'s worlds each runs at once on the card
-MODEL_AXIS_PAIR_ARMS = (None, "flag", "fill")
+MODEL_AXIS_PAIR_ARMS = (None, "flag", "fill", "memory")
 MODEL_AXIS_PAIRS = 2
+# arm "memory": what the held card leaves free for a world's four ranks
+# (each peaks at 1.3-2.0 GiB allocated in (d), plus its CUDA context)
+MEMORY_ARM_LEAVE_GIB = 16.0
 
 
 def model_axis_rank(rank: int, nprocs: int, init_method: str, backend: str,
@@ -3527,12 +3613,13 @@ def _digest_gradients() -> list:
 
 
 def _first_parting(a: list, b: list):
-    """The first (step, parameter) whose gradient digests differ between two
-    runs' ``_digest_gradients`` lists (steps from 1), or None."""
+    """The first step (from 1) at which two runs' ``_digest_gradients``
+    lists differ, with every parameter whose digest differs there (in
+    parameter order), as [step, [names]]; or None."""
     for step, (x, y) in enumerate(zip(a, b), start=1):
-        for name in x:
-            if x[name] != y.get(name):
-                return [step, name]
+        names = [name for name in x if x[name] != y.get(name)]
+        if names:
+            return [step, names]
     return None
 
 
@@ -3994,16 +4081,21 @@ def k1_under_a_mesh(device_name: str) -> dict:
     return out
 
 
-def phase_model_axis_pairs(tmp: str) -> dict:
+def phase_model_axis_pairs(tmp: str, arms=MODEL_AXIS_PAIR_ARMS) -> dict:
     """Whether (d)'s 3-step and 5-step worlds log the same steps 1-3 when
     they share the card at once ((d) runs them one at a time): for each
-    arm of ``MODEL_AXIS_PAIR_ARMS`` (deterministic cuDNN; and
+    arm of ``arms`` (deterministic cuDNN; and
     ``torch.use_deterministic_algorithms``; and that with its fill of
     uninitialised memory), ``MODEL_AXIS_PAIRS`` pairs side by side, four
-    worlds of four ranks.  Per pair: the steps whose logged metrics
-    differ and the loss's largest relative difference, and how far each
-    run's steps differ from the first pair's 5-step run of the first arm.
-    ``python3 chip_smoke.py --model-axis-pairs``."""
+    worlds of four ranks.  Arm "memory" (deterministic cuDNN) runs each
+    pair's 3-step world while another process holds all but
+    ``MEMORY_ARM_LEAVE_GIB`` of the card's free memory, then its 5-step
+    world alone, pair after pair.  Per pair: the steps whose logged
+    metrics differ, the loss's largest relative difference, and each
+    rank's first parting of its gradient digests (``_first_parting``);
+    and how far each run's steps differ from the first pair's 5-step run
+    of the first arm.  ``python3 chip_smoke.py --model-axis-pairs [arm
+    ...]`` ("cudnn" names the first arm)."""
     import threading
 
     import torch
@@ -4015,9 +4107,10 @@ def phase_model_axis_pairs(tmp: str) -> dict:
               "arms": {}}
     reference = None
     t_phase = time.perf_counter()
-    for arm in MODEL_AXIS_PAIR_ARMS:
+    for arm in arms:
         label = arm or "cudnn"
-        runs, errors = {}, []
+        strict = arm if arm in ("flag", "fill") else None
+        runs, digests, errors = {}, {}, []
 
         def world(key, steps):
             name = f"pairs_{label}_{key}"
@@ -4026,35 +4119,52 @@ def phase_model_axis_pairs(tmp: str) -> dict:
             try:
                 launch.spawn(model_axis_cli_rank, 4, (
                     4, _free_port(), cards,
-                    _model_axis_cli_argv(tmp, steps, name), out_dir, arm),
+                    _model_axis_cli_argv(tmp, steps, name), out_dir, strict),
                     timeout=PARALLEL_WORLD_S)
-                runs[key] = _metric_lines(torch.load(
-                    os.path.join(out_dir, "cli0.pt"),
-                    weights_only=False)["result"]["results_dir"])
+                ranks = [torch.load(os.path.join(out_dir, f"cli{r}.pt"),
+                                    weights_only=False) for r in range(4)]
+                runs[key] = _metric_lines(ranks[0]["result"]["results_dir"])
+                digests[key] = [r["grad_digests"] for r in ranks]
             except Exception as e:   # recorded: the probe measures
                 errors.append(f"{key}: {e!r}"[-3000:])
 
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=world, args=(f"{i}_{n}", n))
-                   for i in range(MODEL_AXIS_PAIRS)
-                   for n in MODEL_AXIS_CLI_STEPS]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        keys = [(f"{i}_{n}", n) for i in range(MODEL_AXIS_PAIRS)
+                for n in MODEL_AXIS_CLI_STEPS]
+        held = []
+        if arm == "memory":
+            for key, n in keys:
+                if n == MODEL_AXIS_CLI_STEPS[0]:
+                    with _memory_held(MEMORY_ARM_LEAVE_GIB) as h:
+                        held.append(h)
+                        world(key, n)
+                else:
+                    world(key, n)
+        else:
+            threads = [threading.Thread(target=world, args=kn)
+                       for kn in keys]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
         rec = {"wall_seconds": time.perf_counter() - t0, "errors": errors,
                "pairs": []}
+        if held:
+            rec["memory_held"] = held
         first = MODEL_AXIS_CLI_STEPS[0]
         early = {key: [r for r in lines if r["step"] <= first]
                  for key, lines in runs.items()}
         if reference is None and f"0_{MODEL_AXIS_CLI_STEPS[1]}" in early:
             reference = early[f"0_{MODEL_AXIS_CLI_STEPS[1]}"]
         for i in range(MODEL_AXIS_PAIRS):
-            a, b = (early.get(f"{i}_{n}") for n in MODEL_AXIS_CLI_STEPS)
-            if a is None or b is None:
+            a, b = (f"{i}_{n}" for n in MODEL_AXIS_CLI_STEPS)
+            if a not in early or b not in early:
                 continue
-            rec["pairs"].append({"differ_at": _differ_at(a, b),
-                                 "loss_max_rel": _loss_rel(a, b)})
+            rec["pairs"].append({
+                "differ_at": _differ_at(early[a], early[b]),
+                "loss_max_rel": _loss_rel(early[a], early[b]),
+                "first_parting": [_first_parting(x, y) for x, y in
+                                  zip(digests[a], digests[b])]})
         rec["against_reference"] = {
             key: _differ_at(lines, reference) for key, lines in early.items()
             if reference is not None}
@@ -4064,6 +4174,166 @@ def phase_model_axis_pairs(tmp: str) -> dict:
         record["arms"][label] = rec
     record["wall_seconds"] = time.perf_counter() - t_phase
     return record
+
+
+@contextlib.contextmanager
+def _memory_held(leave_gib: float):
+    """Within the block another process (``chip_smoke.py --hold-memory``)
+    holds all but ``leave_gib`` GiB of the card's free memory; yields
+    {the GiB it holds, the GiB free beside it}."""
+    import torch
+
+    hog = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--hold-memory",
+         str(leave_gib)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        text=True)
+    try:
+        line = hog.stdout.readline()
+        if not line:
+            raise RuntimeError(f"--hold-memory exited {hog.wait()}")
+        free, _ = torch.cuda.mem_get_info()
+        yield {**json.loads(line), "free_GiB": free / 2 ** 30}
+    finally:
+        hog.stdin.close()
+        try:
+            hog.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            hog.kill()
+            hog.wait()
+
+
+def hold_memory(leave_gib: float) -> None:
+    """Hold all but ``leave_gib`` GiB of the card's free memory until stdin
+    closes (``_memory_held``'s other process)."""
+    import torch
+
+    free, _ = torch.cuda.mem_get_info()
+    held = torch.empty(max(free - int(leave_gib * 2 ** 30), 0),
+                       dtype=torch.uint8, device="cuda")
+    print(json.dumps({"held_GiB": held.numel() / 2 ** 30}), flush=True)
+    sys.stdin.read()
+
+
+def profiler_edges(seconds: float = 90.0, launches: int = 20) -> dict:
+    """op_profile's window edges on the card: for ``seconds``, profiler
+    windows (CPU and CUDA activity, one warm-up step, as op_profile) around
+    ``launches`` small kernels, launched at once after the window opens and
+    closed at once after the synchronise (gap 0), or
+    ``op_profile.EDGE_GAP_S`` from both edges, the two arms alternating;
+    per arm the windows that lost a kernel, the kernels lost, and the least
+    time from a kernel's launch (host clock) to its start (device clock) in
+    the trace, which is negative where the two clocks part, with its first
+    and last windows.  ``python3 chip_smoke.py --profiler-edges``."""
+    import torch
+
+    from multimodal_rssm_torch.cli import op_profile
+
+    x = torch.zeros(1 << 10, device="cuda")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    gaps = (0.0, op_profile.EDGE_GAP_S)
+    rows = {g: [] for g in gaps}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        while time.perf_counter() - t0 < seconds:
+            gap = gaps[sum(map(len, rows.values())) % 2]
+            with torch.profiler.profile(
+                    activities=acts, schedule=torch.profiler.schedule(
+                        wait=0, warmup=1, active=1, repeat=1)) as prof:
+                x.add_(1)
+                torch.cuda.synchronize()
+                prof.step()
+                time.sleep(gap)
+                for _ in range(launches):
+                    x.add_(1)
+                torch.cuda.synchronize()
+                time.sleep(gap)
+                prof.step()
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            starts = {e["args"].get("correlation"): e["ts"] for e in events
+                      if e.get("cat") == "kernel"}
+            lead = [starts[e["args"].get("correlation")] - e["ts"]
+                    for e in events if e.get("cat") == "cuda_runtime"
+                    and "LaunchKernel" in e.get("name", "")
+                    and e["args"].get("correlation") in starts]
+            rows[gap].append({"age_s": time.perf_counter() - t0,
+                              "kernels": len(starts),
+                              "lead_us": min(lead) if lead else None})
+    out = {"launches": launches, "seconds": seconds, "arms": {}}
+    for gap, r in rows.items():
+        leads = [w["lead_us"] for w in r if w["lead_us"] is not None]
+        out["arms"][f"gap_{gap}"] = {
+            "windows": len(r),
+            "windows_short": sum(w["kernels"] < launches for w in r),
+            "kernels_lost": sum(max(launches - w["kernels"], 0) for w in r),
+            "windows_long": sum(w["kernels"] > launches for w in r),
+            "min_lead_us": min(leads) if leads else None,
+            "first": r[:3], "last": r[-3:]}
+    return out
+
+
+def recompute_step(batches=(4, 8, 50), reps: int = 8) -> dict:
+    """F6 in one process: the default configuration's bf16 loss step at
+    full width, chunk MODEL_AXIS_CLI_CHUNK and each batch of ``batches``,
+    its backward run ``reps`` times from the same weights and batch under
+    (d)'s determinism settings; {batch: the parameters whose gradient
+    digest differed from the first run's, with the runs}.
+    ``python3 chip_smoke.py --recompute-step``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.train import trainer as tr
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda")
+    cfg = compose(overrides=["train.use_amp=true"])
+    L, out = MODEL_AXIS_CLI_CHUNK, {}
+    for B in batches:
+        rng = np.random.default_rng(0)
+        raw = {"image_horizon": torch.from_numpy(rng.integers(
+                   0, 256, (L, B, *SHAPE[2:]), np.uint8)).to(dev),
+               "sound": torch.from_numpy(rng.normal(
+                   size=(L, B, 128, 20)).astype(np.float32)).to(dev)}
+        spec = tr.AugSpec(modalities=(("image_horizon", tr.ModalityAugSpec(
+            SHAPE[2:4], False, False, False, True)),))
+        obs = tr.prepare_observations(raw, spec, {}, BIT_DEPTH,
+                                      torch.Generator(dev).manual_seed(0),
+                                      kernel_normalize=True)
+        batch = (obs, torch.from_numpy(rng.uniform(-1, 1, (L, B, 3)).astype(
+                     np.float32)).to(dev),
+                 torch.from_numpy(rng.normal(size=(L, B)).astype(
+                     np.float32)).to(dev), torch.ones(L, B, 1, device=dev))
+        model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
+        init_parameters(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        weights = {k: v.clone() for k, v in model.state_dict().items()}
+        first, parted = None, {}
+        for i in range(reps):
+            model.load_state_dict(weights)
+            model.zero_grad(set_to_none=True)
+            loss, _ = tr.make_loss_fn(model, cfg)(batch, None, True)
+            loss.backward()
+            digests = {n: hashlib.sha1(p.grad.detach().cpu().numpy(
+                           ).tobytes()).hexdigest()[:16]
+                       for n, p in model.named_parameters()
+                       if p.grad is not None}
+            first = first or digests
+            for n in digests:
+                if digests[n] != first[n]:
+                    parted.setdefault(n, []).append(i)
+        out[str(B)] = {"parameters": len(first), "parted": parted}
+        del model
+    return {"phase": "recompute_step", "chunk": L, "reps": reps,
+            "batches": out}
 
 
 def _differ_at(a: list, b: list) -> list:
@@ -4359,6 +4629,9 @@ if __name__ == "__main__":
         arg = sys.argv[2] if len(sys.argv) > 2 else ""
         emit(budget_run(int(arg) if arg else None, sys.argv[3:]))
         sys.exit(0)
+    if sys.argv[1:2] == ["--hold-memory"]:   # _memory_held's other process
+        hold_memory(float(sys.argv[2]))
+        sys.exit(0)
     if sys.argv[1:2] == ["--model-axis-pairs"]:   # (d)'s worlds side by side
         sys.path.insert(0, REPO)
         import torch
@@ -4369,9 +4642,46 @@ if __name__ == "__main__":
 
         configure_float32()
         phase_build()
+        arms = tuple(None if a == "cudnn" else a for a in sys.argv[2:])
         with tempfile.TemporaryDirectory() as tmp:
             write_dataset(tmp, 4)
-            emit(phase_model_axis_pairs(tmp))
+            emit(phase_model_axis_pairs(tmp, arms or MODEL_AXIS_PAIR_ARMS))
+        print_card()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--recompute-step"]:   # F6 in one process
+        sys.path.insert(0, REPO)
+        import torch
+
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is visible")
+        from multimodal_rssm_torch.core.device import configure_float32
+
+        configure_float32()
+        phase_build(force=False)
+        emit(recompute_step())
+        print_card()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--profiler-edges"]:   # op_profile's window edges
+        sys.path.insert(0, REPO)
+        import torch
+
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is visible")
+        emit(profiler_edges())
+        print_card()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--precision"]:   # phase precision alone
+        sys.path.insert(0, REPO)
+        import torch
+
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is visible")
+        from multimodal_rssm_torch.core.device import configure_float32
+
+        configure_float32()
+        phase_build(force=False)
+        emit({"precision_k1": phase_precision()})
+        print_card()
         sys.exit(0)
     if sys.argv[1:2] == ["--tools"]:   # phase tools alone
         sys.path.insert(0, REPO)

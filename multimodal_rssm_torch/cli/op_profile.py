@@ -8,15 +8,16 @@ kernels.
 
 The port's counterpart of the JAX package's ``scripts/op_profile.py`` (same
 flags and defaults): the step of ``cli/_profiling_common.build_step_setup``
-(the normalise through K1 on the card), 3 warm-up steps and one the
-profiler drops, then ``--steps`` steps traced (the card's kernels; on the
-CPU, the operators).  In place of the TPU trace's ``hlo_category`` it sums the
+(the normalise through K1 on the card), 3 warm-up steps and one the profiler
+drops, then ``--steps`` steps traced (the card's kernels; on the CPU, the
+operators), ``EDGE_GAP_S`` of quiet between the window's edges and its first
+and last kernels.  In place of the TPU trace's ``hlo_category`` it sums the
 device kernels' self time by ``op_category``: ``gemm`` (cuBLAS / CUTLASS /
 ``sm90_xmma`` GEMMs), ``conv`` (cuDNN forward, dgrad and wgrad), ``layout``
 (cuDNN's NCHW <-> NHWC transposes), ``elementwise``, ``reduction``,
 ``memcpy/memset``, ``collective``, ``hand-written`` (the kernels named in
-``ops/cuda_kernels.KERNELS``) and ``other``.  It also prints the device's
-idle share of the traced window (kernel time over wall time, as
+``ops/cuda_kernels.KERNELS``) and ``other``.  It also prints the device's idle
+share of the traced window (kernel time over wall time, as
 ``cli/profile_step``).  With ``--device cpu`` the same tables hold the
 operators' self CPU time: they check the harness, not the card.
 
@@ -37,6 +38,12 @@ import torch
 from multimodal_rssm_torch.cli._profiling_common import (
     add_device_argument, build_step_setup, synchronize)
 
+# the profiler keeps a kernel only if its device timestamps fall inside the
+# window that the host clock opened and closed, and on an H100 the two
+# clocks part by up to ~3 ms in some windows: kernels launched at once after
+# the window opens were lost from 10 of 347 windows, none with this gap at
+# both edges (``chip_smoke.py --profiler-edges``)
+EDGE_GAP_S = 0.1
 CATEGORIES = ("gemm", "conv", "layout", "elementwise", "reduction",
               "memcpy/memset", "collective", "hand-written", "other")
 _RULES = (   # (category, substrings of the lower-cased name), in order
@@ -124,6 +131,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         s.train_step(s.raw, s.draws, s.generator)
         synchronize(s.device)
         prof.step()
+        time.sleep(EDGE_GAP_S)
         t0 = time.perf_counter()
         for i in range(args.steps):
             metrics = s.train_step(s.raw, s.draws, s.generator)
@@ -131,6 +139,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                 float(metrics["loss"])
                 synchronize(s.device)
                 wall_us = (time.perf_counter() - t0) * 1e6
+                time.sleep(EDGE_GAP_S)
             prof.step()
     os.makedirs(args.trace_dir, exist_ok=True)
     path = os.path.join(args.trace_dir, "op_profile.json")

@@ -29,11 +29,19 @@ BatchNorm and InstanceNorm compute ``var = max(E[x^2] - mean^2, 0)`` in
 float32 and apply ``y = x * a + b`` in the compute dtype, as the JAX
 package does; GroupNorm normalises in float32 and returns the compute
 dtype, as flax's ``nn.GroupNorm(dtype=...)``.  ``make_norm`` builds the
-one ``rssm.normalization`` names.  In bf16 every op rounds its output,
-as eager PyTorch does; XLA rounds an elementwise chain such as a norm's
-``x * a + b`` or a GLU once, at the end of its fusion (a deliberate
-difference: rounding once here costs the card a float32 pass per op,
-``tests/test_torch_port_precision.py`` states its effect).
+one ``rssm.normalization`` names.  In bf16 every op rounds its output, as
+eager PyTorch does and as XLA compiles the JAX package's program: XLA
+rounds after every op of an elementwise chain, and skips only the
+rounding of an op whose result the program converts straight to
+float32.  The norms and the GLU follow the JAX program's rounding points
+in the backward too, so that on the same bf16 inputs they are bit-equal
+to the JAX package's (``tests/test_torch_port_precision.py``):
+``_moments`` takes the mean and E[x^2] from two float32 views of ``x``
+(each path's cotangent rounded on its own), ``_Affine`` rounds the direct
+cotangent and sums the coefficients' cotangents over unrounded products,
+and ``sigmoid`` rounds after each op of ``1 / (1 + exp(-x))`` and of its
+derivative.  Elsewhere (the GRU's gates, the order in which a conv or a
+matmul accumulates) the port's bf16 rounds as PyTorch's ops do.
 Inside ``frozen_running_stats(module)`` no norm of ``module`` updates its
 running stats (the recompute of a rematerialised codec runs the forward a
 second time).
@@ -77,10 +85,36 @@ def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
         raise ValueError(f"unknown activation {name!r}") from e
 
 
+class _Sigmoid(torch.autograd.Function):
+    """The JAX package's ``jax.nn.sigmoid`` in a dtype below float32: its
+    program ``1 / (1 + exp(-x))`` rounds after each op, and so does its
+    derivative ``g * (s * (1 - s))`` (``torch.sigmoid`` rounds once)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.exp(-x).add_(1.0).reciprocal_()
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``'s rounding in bf16 / f16 (``_Sigmoid``);
+    ``torch.sigmoid`` in float32 and above."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return _Sigmoid.apply(x)
+    return torch.sigmoid(x)
+
+
 def glu(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-    """Gated linear unit over ``dim`` (torch ``nn.GLU``)."""
+    """Gated linear unit over ``dim`` (torch ``nn.GLU``), with the JAX
+    package's ``sigmoid``."""
     a, b = x.chunk(2, dim=dim)
-    return a * torch.sigmoid(b)
+    return a * sigmoid(b)
 
 
 def fold_tb(x: torch.Tensor) -> torch.Tensor:
@@ -159,17 +193,50 @@ class ConvTranspose2d(ComputeDtype, nn.ConvTranspose2d):
                                   self.groups, self.dilation)
 
 
-def _normalize(x, mean, var, weight, bias, eps, shape, dtype):
+class _Affine(torch.autograd.Function):
+    """``y = x * a + b`` in ``dtype``, ``a`` and ``b`` float32 coefficients
+    cast to ``dtype`` (1 on the axes they broadcast over), with the
+    backward XLA compiles for the JAX package's norms: the direct
+    cotangent ``dy * a`` rounded to ``dtype``; the cotangents of ``a`` and
+    ``b`` summed in float32 and rounded once to ``dtype``, the products
+    ``dy * x`` unrounded (XLA does not round an op whose result it
+    converts straight to float32; a bf16 x bf16 product is exact in
+    float32).  ``xf``: ``x`` in float32 if the caller holds it (kept for
+    the backward in place of ``x`` when ``x`` is in ``dtype``)."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, dtype, xf):
+        x_c, a_c = x.to(dtype), a.to(dtype)
+        ctx.save_for_backward(x_c if xf is None or x.dtype != dtype else xf,
+                              a_c)
+        ctx.dims = tuple(d for d in range(x.ndim) if a.shape[d] == 1)
+        return x_c * a_c + b.to(dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, a_c = ctx.saved_tensors
+        dims, dtype = ctx.dims, a_c.dtype
+        da = (dy * xs.float()).sum(dims, keepdim=True).to(dtype).float()
+        db = dy.sum(dims, keepdim=True).float()
+        return dy * a_c, da, db, None, None
+
+
+def _normalize(x, mean, var, weight, bias, eps, shape, dtype, xf=None):
     a = weight.float().reshape(shape) * torch.rsqrt(var + eps)
     b = bias.float().reshape(shape) - mean * a
-    return x.to(dtype) * a.to(dtype) + b.to(dtype)
+    return _Affine.apply(x, a, b, dtype, xf)
 
 
 def _moments(x: torch.Tensor, dims: Tuple[int, ...]):
+    """(mean, biased variance, ``x`` in float32): the mean from one float32
+    view of ``x`` and E[x^2] from another, as the JAX package's
+    ``jnp.mean(x, dtype=f32)`` and ``jnp.square(x.astype(f32))``, so that
+    each path's cotangent is rounded to ``x``'s dtype on its own."""
+    mean = x.mean(dims, keepdim=True, dtype=torch.float32)
     xf = x.float()
-    mean = xf.mean(dims, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dims, keepdim=True) - mean * mean, min=0.0)
-    return mean, var
+    var = torch.clamp(xf.square().mean(dims, keepdim=True) - mean * mean,
+                      min=0.0)
+    return mean, var, xf
 
 
 def _global_moments(x: torch.Tensor, dims: Tuple[int, ...], group):
@@ -179,14 +246,14 @@ def _global_moments(x: torch.Tensor, dims: Tuple[int, ...], group):
     of rows (``parallel/mesh.BatchShard``)."""
     xf = x.float()
     c = x.shape[1]
-    sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims)]),
-                          group)
+    sums = all_reduce_sum(torch.cat([x.sum(dims, dtype=torch.float32),
+                                     xf.square().sum(dims)]), group)
     count = (x.numel() // c) * torch.distributed.get_world_size(group)
     shape = (1, c) + (1,) * (x.ndim - 2)
     mean = (sums[:c] / count).reshape(shape)
     var = torch.clamp((sums[c:] / count).reshape(shape) - mean * mean,
                       min=0.0)
-    return mean, var
+    return mean, var, xf
 
 
 class _Norm(ComputeDtype, nn.Module):
@@ -229,14 +296,15 @@ class BatchNorm(_Norm):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if self.training:
             dims = (0,) + tuple(range(2, x.ndim))
-            mean, var = (_moments(x, dims) if self.group is None
-                         else _global_moments(x, dims, self.group))
+            mean, var, xf = (_moments(x, dims) if self.group is None
+                             else _global_moments(x, dims, self.group))
             self._update(mean.reshape(-1), var.reshape(-1))
         else:
             mean = self.running_mean.reshape(shape)
             var = self.running_var.reshape(shape)
+            xf = None
         return _normalize(x, mean, var, self.weight, self.bias, self.eps,
-                          shape, self.compute_dtype)
+                          shape, self.compute_dtype, xf)
 
 
 class InstanceNorm(_Norm):
@@ -250,12 +318,13 @@ class InstanceNorm(_Norm):
         if self.track_running_stats and not self.training:
             mean = self.running_mean.reshape(shape)
             var = self.running_var.reshape(shape)
+            xf = None
         else:
-            mean, var = _moments(x, tuple(range(2, x.ndim)))
+            mean, var, xf = _moments(x, tuple(range(2, x.ndim)))
             if self.track_running_stats:
                 self._update(*self._batch_mean(mean, var))
         return _normalize(x, mean, var, self.weight, self.bias, self.eps,
-                          shape, self.compute_dtype)
+                          shape, self.compute_dtype, xf)
 
     @torch.no_grad()
     def _batch_mean(self, mean: torch.Tensor, var: torch.Tensor):
