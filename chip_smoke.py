@@ -44,9 +44,10 @@ each printed as one JSON line:
                two cards where there are two, else sharing this card over
                gloo) launched through parallel.launch.spawn: each rank's
                float32 step on its rows held against a one-rank step on the
-               same global batch (the JAX package's DP tolerance, the ranks
-               bit-equal), then 6 bf16 steps and a validation through
-               train.loop.run (steps/s, each rank's peak memory, K1 7
+               same global batch of 10 rows (the JAX package's DP
+               tolerance, the ranks bit-equal), then 4 bf16 steps and a
+               validation through
+               train.loop.run (steps/s, each rank's peak memory, K1 5
                times a rank, one run dir); the model axis
                (train.mesh.model, phase_model_axis): (c) data=1 x model=2,
                two ranks the same way, the float32 step on the whole
@@ -54,28 +55,32 @@ each printed as one JSON line:
                every row fit no more) held against one rank at the JAX
                package's model-axis tolerance (the ranks' whole weights
                bit-equal, each rank's blocks its columns of the whole),
-               then 3 bf16 steps and a validation at batch 50 x chunk 50
+               then 3 bf16 steps and a validation at batch 50 x chunk 10
                through train.loop.run (steps/s, peak memory, K1 4 times a
                rank; under --model-axis also one traced step: model-group
                collectives and the model_parallel spans' ms a step);
                (d) data=2 x model=2
                through the train CLI, four ranks joined as torchrun joins
                them (over gloo on one card: more ranks than cards), batch
-               8 x chunk 10:
-               3 steps, then a 5-step run, each rank's gradient digests
-               at steps 1-3 (after the data group's average, before the
-               clip; the first step where the two runs part and every
-               layer that parts there, F6), --resume to 5 bit-equal to
-               the 5-step run, the checkpoint whole and read mesh-less by
-               the check_model CLI (`python3 chip_smoke.py --model-axis`
-               runs the build and (c), (d) alone; `--model-axis-pairs
-               [arm ...]` runs (d)'s worlds in pairs, one arm of them
-               beside a process that holds most of the card's memory;
-               `--recompute-step` recomputes the default bf16 step's
-               gradients in one process and compares their digests);
+               8 x chunk 10, each run a world of four fresh processes:
+               3 steps, then a 5-step run, each rank's
+               staged digests at steps 1-3 (parallel/digests.py: every
+               gradient after the backward, the data group's average and
+               the broadcast, and the GRU's input-to-hidden product's
+               operands at every RSSM step; where the two runs part:
+               rank, stage, step and operand, F6), --resume to 5
+               bit-equal to the 5-step run, the checkpoint whole and read
+               mesh-less by the check_model CLI (`python3 chip_smoke.py
+               --model-axis` runs the build and (c), (d) alone;
+               `--model-axis-pairs [arm ...]` runs (d)'s worlds in pairs,
+               one arm of them beside a process that holds most of the
+               card's memory; `--recompute-step [arm ...]` repeats (d)'s
+               step 1 in one data=2 x model=2 world, with the staged
+               digests, quiet or beside busy host cores, or compares fresh
+               worlds of (d)'s CLI one step each);
 3b. feed    -- the same CLI on a dataset of a real set's size (360 x 120
                episodes, 43,200 rows, 0.97 GB; experience_size to match),
-               8 steps a run, with train.device_replay=true (the whole
+               5 steps a run, with train.device_replay=true (the whole
                replay on the card), =stream (train.replay_budget_gb=0.5: a
                working set of 119 of 216 segments, one replaced a step) and
                =false (host batches behind the prefetch thread), one run
@@ -131,22 +136,23 @@ each printed as one JSON line:
                rssm.predict_reward=true, then 1 episode of 50 steps, ms per
                planned action); the train_online CLI in both collection
                modes (2 seed episodes, 2 episodes of 2 updates, env length
-               60, train.experience_size=2000 in place of 500,000, a cut of
+               30, train.experience_size=2000 in place of 500,000, a cut of
                the ring's 11 GB address-space reservation that changes no
-               work, as sampling stays within the 240 rows written; the
+               work, as sampling stays within the 120 rows written; the
                shipped train.pallas_normalize=false: the checkpoints at the
                top and under behavior/, K1 once per world-model step,
                behavior step and collected frame, wall seconds); and
                K1 at [1, 1, 64, 64, 3], bit-equal, its graph device time
                against its bytes bound;
 3g. bridges -- a user's files in and out, at full width, in 3c's temp dir:
-               5 raw recordings of 120 frames of 480 x 640 (sound,
+               5 raw recordings of 60 frames of 480 x 640 (sound,
                pose_quat, servo_value) built by data/dataset_builder
                (binary channels; host s per episode); the train CLI on the
                built set, 16 steps (batch 50 x chunk 50, bf16, K1 on) with
-               train.histogram_interval=2 and main.wandb=true (a stub
+               train.histogram_interval=4 and main.wandb=true (a stub
                wandb module) and 16 with train.profile_dir (the trace of
-               steps 10-15), composed from a copy of the config tree
+               steps 10-15, K1 in it as often as its wrapper counted it
+               in the window), composed from a copy of the config tree
                whose root is bridges.yaml ($MRSSM_CONFIG_DIR,
                --config-name bridges), under deterministic cuDNN:
                every tensor of the two models bit-equal, the histogram
@@ -256,13 +262,16 @@ each printed as one JSON line:
 
 5b. tools  -- the measurement CLIs in process at full width (batch 50 x
                chunk 50, bf16, K1 on through train.pallas_normalize=auto),
-               the launch counts reset before each: op_profile (3 traced
+               the launch counts reset before each: op_profile (2 traced
                steps after 3 warm-up: the kernels' self time by category,
-               K1 under hand-written once a traced step, the device's idle
-               share), micro_bench (the six codec cases' fwd and fwd+bwd
-               ms), profile_host_feed (each host-feed component, 3 calls
-               each), sweep_perf (remat and poe, 3 steps each, no row
-               FAILED) and bench_scaling (1x1, 3 steps); K1 once per step
+               K1 under hand-written once a traced step and as often as
+               its wrapper counted it in the window, the device's idle
+               share), profile_step (2 timed and 2 traced steps after 1
+               warm-up: K1 in its trace as often as its wrapper counted it
+               in the window), micro_bench (the six codec cases' fwd and
+               fwd+bwd ms), profile_host_feed (each host-feed component, 2
+               calls each), sweep_perf (remat and poe, 2 steps each, no row
+               FAILED) and bench_scaling (1x1, 2 steps); K1 once per step
                of each tool that steps; in a process of its own
                (`python3 chip_smoke.py --tools`, which builds the
                libraries that are missing or stale and runs this phase
@@ -274,13 +283,16 @@ each printed as one JSON line:
                through the port's CLIs, every metric inside the committed
                cuda window, the JAX package's tpu window read beside it.
 
-Then the {"kernels": [...]} line, the card's name and power limit, and as
-the last line {"ok": true, "device": {...}}.  Without a GPU it exits non-zero
-and prints no result.  A failing phase raises.
+Every phase's line carries its wall_seconds.  Then a "total" line (the
+script's seconds and each phase's), the {"kernels": [...]} line, the card's
+name and power limit, and as the last line {"ok": true, "device": {...}}.
+Without a GPU it exits non-zero and prints no result.  A failing phase
+raises.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -418,12 +430,14 @@ def phase_build(force: bool = True):
     """Compile every kernel library (``force``: even those up to date)."""
     from multimodal_rssm_torch.ops import cuda_kernels as ck
 
+    t0 = time.perf_counter()
     libs, seconds, log = ck.build(force=force)
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "build",
           "libraries": {k: os.path.relpath(v, REPO) for k, v in libs.items()},
-          "seconds": seconds, "ptxas": ptxas})
+          "seconds": seconds, "ptxas": ptxas,
+          "wall_seconds": time.perf_counter() - t0})
 
 
 def phase_kernel(device_name: str):
@@ -433,6 +447,7 @@ def phase_kernel(device_name: str):
     from multimodal_rssm_torch.ops import cuda_kernels as ck
     from multimodal_rssm_torch.ops.image import normalize_image_deterministic
 
+    t_phase = time.perf_counter()
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(0)
     x8 = torch.randint(0, 256, SHAPE, generator=g, device=dev,
@@ -499,7 +514,8 @@ def phase_kernel(device_name: str):
           "exact": True, "noise": stats, "seed_changed_fraction": changed,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "call_event_ms": call_ms, "bound_ms": result["bound_ms"],
-          "achieved_GBps": n * 8 / (kernel_ms * 1e-3) / 1e9})
+          "achieved_GBps": n * 8 / (kernel_ms * 1e-3) / 1e9,
+          "wall_seconds": time.perf_counter() - t_phase})
     return result
 
 
@@ -733,6 +749,7 @@ def phase_precision() -> dict:
     launches["precision/sound_encoder_scale"] = k1
     outside = {n: r for n, r in scale.items()
                if not SCALE_BAND[0] <= r <= SCALE_BAND[1]}
+    record["wall_seconds"] = time.perf_counter() - t0
     emit(record)
     if bad:
         raise AssertionError(f"precision: the card's dtype map, gradients "
@@ -788,7 +805,7 @@ def _host_ms(fn, reps: int) -> float:
 
 
 FEED_EPISODES = 360     # x 120 steps: 43,200 rows, 0.97 GB
-FEED_STEPS = 8         # short runs: the whole script must stay well inside its time limit
+FEED_STEPS = 5   # short runs: the whole script must stay inside its limit
 FEED_STREAM_GB = 0.5
 # train.device_replay, feed: one run each (earlier versions ran each twice,
 # in mirrored order; no feed was faster than the spread between two runs of
@@ -810,6 +827,7 @@ def phase_feed(device_name: str):
     from multimodal_rssm_torch.data.native import (gather_chunks,
                                                    gather_chunks_plain)
 
+    t_phase = time.perf_counter()
     rows = FEED_EPISODES * 120
     B, L = SHAPE[1], SHAPE[0]
     with tempfile.TemporaryDirectory() as tmp:
@@ -881,7 +899,9 @@ def phase_feed(device_name: str):
             replay.arrays, didx, D.observation_names, replay.row_shapes), 20)
         replay_gb = db.DeviceReplay.nbytes(D) / 1e9
         del replay, stream, D, feed
-    emit({"phase": "feed_gather", "batch": B, "chunk": L, "rows": rows,
+    emit({"phase": "feed_gather",
+          "wall_seconds": time.perf_counter() - t_phase, "batch": B,
+          "chunk": L, "rows": rows,
           "dataset_GB": replay_gb, "write_dataset_s": write_s,
           "stream_working_set": working_set,
           "steps_per_s_by_feed": runs,
@@ -907,6 +927,7 @@ def phase_checkpoint(tmp: str) -> str:
     from multimodal_rssm_torch.models.world_model import WorldModel
     from multimodal_rssm_torch.train import trainer as tr
 
+    t_phase = time.perf_counter()
     write_dataset(tmp, 4)
     first, result, _ = train_run(
         "checkpoint", tmp, ["train.train_iteration=4",
@@ -951,7 +972,9 @@ def phase_checkpoint(tmp: str) -> str:
             blocked.append((t1 - t0) * 1e3)
             total.append((t2 - t0) * 1e3)
     size = os.path.getsize(os.path.join(save_dir, "models_2.pt"))
-    emit({"phase": "checkpoint_save", "restored_bit_equal": True,
+    emit({"phase": "checkpoint_save",
+          "wall_seconds": time.perf_counter() - t_phase,
+          "restored_bit_equal": True,
           "file_MB": size / 1e6, "sync_save_ms": sync_ms,
           "async_save_blocking_ms": statistics.median(blocked),
           "async_save_until_written_ms": statistics.median(total),
@@ -1202,7 +1225,7 @@ def phase_eval(tmp: str, run_dir: str, device_name: str) -> dict:
             "episode_shape_ms": k1_ms}
 
 
-ONLINE_ENV_LENGTH = 60
+ONLINE_ENV_LENGTH = 30
 ONLINE_EXPERIENCE = 2000   # rows, in place of the default 500,000: the
 # ring is np.empty, so its unwritten pages are never resident, and sampling
 # stays within the 240 rows written; the cut changes none of the work and
@@ -1482,10 +1505,10 @@ def phase_control(tmp: str, run_dir: str, device_name: str) -> dict:
 
 
 BRIDGE_EPISODES = 5          # raw recordings: 4 train + 1 validation
-BRIDGE_T = 120               # frames a recording
+BRIDGE_T = 60                # frames a recording
 BRIDGE_FRAME = (480, 640)    # a VGA camera, resized to 256 / 128 / 64
 BRIDGE_STEPS = 16            # the profiler's window is steps 10-15
-BRIDGE_HIST = 2              # train.histogram_interval
+BRIDGE_HIST = 4              # train.histogram_interval
 FIXTURE = os.path.join(REPO, "tests", "torch_port_fixtures",
                        "jax_unimodal_pose")
 
@@ -1862,6 +1885,13 @@ def phase_bridges(tmp: str, run_dir: str, device_name: str) -> dict:
     trace = pres["profile_trace"]
     if not trace or not os.path.getsize(trace):
         raise AssertionError(f"bridges: no profile trace ({trace})")
+    k1_window = pres["profile"]["launches"].get("normalize_image", 0)
+    k1_trace = pres["profile"]["hand_written_in_trace"].get(
+        "normalize_image", 0)
+    if not k1_window or k1_trace != k1_window:
+        raise AssertionError(f"bridges: K1 {k1_trace} times in the profile "
+                             f"trace, its wrapper counted {k1_window}; "
+                             f"{_lost_kernels(trace)}")
     # the logging half of a histogram pass alone, on the trained weights
     model = hres["model"]
     grads = {n: p.detach() for n, p in model.named_parameters()}
@@ -1883,6 +1913,7 @@ def phase_bridges(tmp: str, run_dir: str, device_name: str) -> dict:
         "histogram_lines": len(hist_steps),
         "trace_file": os.path.basename(trace),
         "trace_MB": os.path.getsize(trace) / 1e6,
+        "trace_window": pres["profile"],
         "step_seconds": {"histograms": hs, "profiled": ps},
         "median_s": {
             "step_without_pass": statistics.median(hs[i - 1]
@@ -2355,6 +2386,7 @@ def phase_budget(runs=((None, ()),)):
     gc.collect()
     torch.cuda.empty_cache()   # this process's cached blocks back to the card
     for reserve, overrides in runs:
+        t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--budget-run",
              "" if reserve is None else str(reserve), *overrides],
@@ -2362,7 +2394,7 @@ def phase_budget(runs=((None, ()),)):
         if proc.returncode != 0:
             raise AssertionError(f"budget run failed ({proc.returncode}):\n"
                                  f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
-        record = {"phase": "budget",
+        record = {"phase": "budget", "wall_seconds": time.perf_counter() - t0,
                   **json.loads(proc.stdout.strip().splitlines()[-1])}
         emit(record)
         if record["oom"] or not all(math.isfinite(x)
@@ -2537,9 +2569,11 @@ def card_against_cpu_by_module(overrides, L: int = 6, B: int = 2,
 
 def phase_parity():
     L, B = 4, 2
+    t0 = time.perf_counter()
     cpu, gpu, max_rel, bad = card_against_cpu([], L, B)
     emit({"phase": "parity", "batch": B, "chunk": L, "rtol": PARITY_RTOL,
-          "max_rel_err": max_rel, "cpu": cpu, "cuda": gpu})
+          "max_rel_err": max_rel, "cpu": cpu, "cuda": gpu,
+          "wall_seconds": time.perf_counter() - t0})
     if bad:
         raise AssertionError(f"card and CPU disagree: {bad}")
 
@@ -3109,11 +3143,11 @@ def phase_fused_codec(device_name: str, train_launches):
 
 # the tools phase: the measurement CLIs (cli/op_profile, micro_bench,
 # profile_host_feed, sweep_perf, bench_scaling) in process at full width
-TOOLS_STEPS = 3          # op_profile's traced steps (after 3 warm-up and
+TOOLS_STEPS = 2          # op_profile's traced steps (after 3 warm-up and
                          # one the profiler drops)
-TOOLS_REPS = 3           # profile_host_feed's timed calls a component
+TOOLS_REPS = 2           # profile_host_feed's timed calls a component
 TOOLS_SWEEP = ("remat", "poe")
-TOOLS_SWEEP_STEPS = 3    # sweep_perf's and bench_scaling's timed steps
+TOOLS_SWEEP_STEPS = 2    # sweep_perf's and bench_scaling's timed steps
 
 
 def phase_tools(tmp: str, device_name: str) -> dict:
@@ -3121,14 +3155,17 @@ def phase_tools(tmp: str, device_name: str) -> dict:
     ``main(argv)`` at the default configuration's full width (batch 50 x
     chunk 50, bf16), the launch counts reset just before each: op_profile
     (``TOOLS_STEPS`` traced steps; K1 must show under ``hand-written``,
-    once a traced step), micro_bench (all six codec cases, finite times),
-    profile_host_feed (every component, ``TOOLS_REPS`` calls each; K1 once
-    a step), sweep_perf (``TOOLS_SWEEP``, ``TOOLS_SWEEP_STEPS`` steps each;
-    no row ``FAILED``) and bench_scaling (1x1, as many steps); K1 once per
-    step of each.  One JSON line per tool.  Returns K1's launches by path."""
+    once a traced step, as often as its wrapper counted it in the window),
+    profile_step (``TOOLS_STEPS`` timed and as many traced steps; K1 in its
+    trace as often as its wrapper counted it in the window), micro_bench
+    (all six codec cases, finite times), profile_host_feed (every
+    component, ``TOOLS_REPS`` calls each; K1 once a step), sweep_perf
+    (``TOOLS_SWEEP``, ``TOOLS_SWEEP_STEPS`` steps each; no row ``FAILED``)
+    and bench_scaling (1x1, as many steps); K1 once per step of each.  One
+    JSON line per tool.  Returns K1's launches by path."""
     from multimodal_rssm_torch.cli import (
         bench_scaling, micro_bench, op_profile, profile_host_feed,
-        sweep_perf)
+        profile_step, sweep_perf)
     from multimodal_rssm_torch.ops import cuda_kernels as ck
 
     t_phase = time.perf_counter()
@@ -3162,9 +3199,26 @@ def phase_tools(tmp: str, device_name: str) -> dict:
                other=[k for k in prof["kernels"]
                       if k["category"] == "other"][:12])
     emit(rec)
-    if sum(v["count"] for v in k1.values()) != TOOLS_STEPS:
-        bad.append(f"op_profile: K1 under hand-written {k1}, not once in "
-                   f"each of {TOOLS_STEPS} steps")
+    k1_window = prof["launches"].get("normalize_image", 0)
+    if sum(v["count"] for v in k1.values()) != TOOLS_STEPS or (
+            k1_window != TOOLS_STEPS):
+        bad.append(f"op_profile: K1 under hand-written {k1}, its wrapper "
+                   f"{k1_window} times, not once in each of {TOOLS_STEPS} "
+                   "steps")
+
+    trace = os.path.join(tmp, "profile_step.json")
+    steps, rec = run("profile_step", profile_step.main,
+                     ["--steps", str(TOOLS_STEPS), "--warmup", "1",
+                      "--trace", trace], 1 + 2 * TOOLS_STEPS)
+    k1_window = steps["profile"]["launches"].get("normalize_image", 0)
+    k1_trace = steps["profile"]["hand_written_in_trace"].get(
+        "normalize_image", 0)
+    rec.update(steps)
+    emit(rec)
+    if k1_trace != k1_window or k1_window != TOOLS_STEPS:
+        bad.append(f"profile_step: K1 {k1_trace} times in its trace, its "
+                   f"wrapper {k1_window} times in the window, not once in "
+                   f"each of {TOOLS_STEPS} steps; {_lost_kernels(trace)}")
 
     codecs, rec = run("micro_bench", micro_bench.main, [], None)
     rec["cases"] = codecs
@@ -3204,6 +3258,26 @@ def phase_tools(tmp: str, device_name: str) -> dict:
     return by_path
 
 
+def _lost_kernels(path: str) -> dict:
+    """Of a Chrome trace with host activity: the kernel launches (runtime
+    records) whose kernel has no record, with their times from the first
+    launch (ms) and the span of all launches."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["args"].get("correlation") for e in events
+               if e.get("cat") == "kernel"}
+    launches = [e for e in events if "LaunchKernel" in e.get("name", "")
+                and e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    if not launches:
+        return {"launches": 0}
+    t0 = min(e["ts"] for e in launches)
+    lost = [e for e in launches if e["args"].get("correlation") not in kernels]
+    return {"launches": len(launches), "kernel_records": len(kernels),
+            "lost": len(lost),
+            "lost_at_ms": [round((e["ts"] - t0) / 1e3, 3) for e in lost[:20]],
+            "span_ms": (max(e["ts"] for e in launches) - t0) / 1e3}
+
+
 def phase_tools_process() -> dict:
     """``phase_tools`` in a fresh process (``chip_smoke.py --tools``), as a
     user runs each tool: in this process earlier phases have traced with
@@ -3231,10 +3305,14 @@ def phase_tools_process() -> dict:
 # ranks, parallel/)
 PARALLEL_STEPS = 12       # a CLI run of (a); the last traces steps 10-12
 PARALLEL_TIMED = slice(2, 9)   # steps 3-9: after the warm-up, before the trace
-PARALLEL_BF16_STEPS = 6
-# (c)'s bf16 run: 8-25 s a step, two ranks on a card; step 2 is timed (the
-# first warms up, the last validates)
+PARALLEL_BF16_STEPS = 4
+PARALLEL_F32_BATCH = 10   # (b)'s float32 step: 5 rows a rank (cut from 50)
+# (c)'s bf16 run: step 2 is timed (the first warms up, the last
+# validates), at batch 50 x chunk 10 (cut from 50: 8-25 s a step at chunk
+# 50, two ranks on a card, every RSSM step's collectives waiting on the
+# other rank's work)
 MODEL_AXIS_BF16_STEPS = 3
+MODEL_AXIS_BF16_CHUNK = 10
 PARALLEL_WORLD_S = 900    # a spawned world's limit
 PARALLEL_COLLECTIVE_S = 300   # a collective waiting longer fails the world
 # two ranks against one on the same global batch, float32: the JAX
@@ -3545,25 +3623,23 @@ def _traced_model_axis_step(spec: dict, model, bf16_cfg, dev, out_dir: str,
 
 
 def model_axis_cli_rank(rank: int, nprocs: int, port: int, cards: int,
-                        argv: list, out_dir: str,
+                        name: str, argv: list, out_dir: str,
                         strict: Optional[str] = None) -> None:
     """One rank of (d)'s world: the train CLI joined as ``torchrun`` joins
     it (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``;
     every rank sees the one card), with deterministic cuDNN, so that a
     resumed run can equal the whole one bit for bit (``strict``: "flag"
     adds ``torch.use_deterministic_algorithms``, "fill" that and its fill
-    of uninitialised memory); writes the rank's backend, K1 launches, peak
-    memory and result to ``cli{rank}.pt``."""
+    of uninitialised memory), the first ``F6_STEPS`` steps' staged digests
+    recorded (``parallel/digests.py``); writes the rank's backend, K1
+    launches, peak memory, digests, seconds and result to
+    ``cli{rank}_{name}.pt``."""
     import torch
 
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(nprocs),
-                      LOCAL_RANK=str(rank % cards),
-                      LOCAL_WORLD_SIZE=str(nprocs),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                      CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    sys.path.insert(0, REPO)
+    _join_as_torchrun(rank, nprocs, port, cards)
     from multimodal_rssm_torch.cli.train import main as train_main
     from multimodal_rssm_torch.ops import cuda_kernels as ck
+    from multimodal_rssm_torch.parallel.digests import StagedDigests
     from multimodal_rssm_torch.parallel.mesh import default_backend
 
     torch.backends.cudnn.deterministic = True
@@ -3572,62 +3648,41 @@ def model_axis_cli_rank(rank: int, nprocs: int, port: int, cards: int,
         torch.utils.deterministic.fill_uninitialized_memory = (
             strict == "fill")
     ck.reset_launch_counts()
-    digests = _digest_gradients()
-    result = train_main(argv)
+    t0 = time.perf_counter()
+    with StagedDigests(F6_STEPS) as digests:
+        result = train_main(argv)
     torch.save({"backend": default_backend(torch.device("cuda")),
                 "launches": ck.launch_counts(),
                 "max_memory_allocated_GiB":
                     torch.cuda.max_memory_allocated() / 2 ** 30,
-                "grad_digests": digests,
+                "digests": digests.records,
+                "seconds": time.perf_counter() - t0,
                 "result": {k: v for k, v in result.items() if k != "model"}},
-               os.path.join(out_dir, f"cli{rank}.pt"))
+               os.path.join(out_dir, f"cli{rank}_{name}.pt"))
 
 
-F6_STEPS = 3   # (d): the steps whose gradients each rank digests
+def _join_as_torchrun(rank: int, nprocs: int, port: int, cards: int
+                      ) -> None:
+    """The environment ``torchrun`` gives rank ``rank`` of ``nprocs`` on a
+    host of ``cards`` cards (every rank sees them all), and (d)'s cuBLAS
+    workspace setting; the repo on the path."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(nprocs),
+                      LOCAL_RANK=str(rank % cards),
+                      LOCAL_WORLD_SIZE=str(nprocs),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    sys.path.insert(0, REPO)
 
 
-def _digest_gradients() -> list:
-    """From now on in this process, each of the first ``F6_STEPS`` train
-    steps records a digest of every parameter's gradient (its bytes' SHA-1,
-    16 hex digits; a sharded weight's: this rank's block) after the data
-    group's average and before the clip, where ``train/trainer.py``'s
-    ``optimizer_step`` calls ``apply_gradients``.  Returns the list the
-    steps fill, one ``{name: digest}`` a step."""
-    import hashlib
-
-    from multimodal_rssm_torch.train import trainer as tr
-
-    digests, apply = [], tr.apply_gradients
-
-    def digesting(model, *args, **kwargs):
-        if len(digests) < F6_STEPS:
-            digests.append({
-                name: hashlib.sha1(
-                    p.grad.detach().cpu().numpy().tobytes()).hexdigest()[:16]
-                for name, p in model.named_parameters()
-                if p.grad is not None})
-        return apply(model, *args, **kwargs)
-
-    tr.apply_gradients = digesting
-    return digests
+F6_STEPS = 3   # (d): the steps whose staged digests each rank records
 
 
-def _first_parting(a: list, b: list):
-    """The first step (from 1) at which two runs' ``_digest_gradients``
-    lists differ, with every parameter whose digest differs there (in
-    parameter order), as [step, [names]]; or None."""
-    for step, (x, y) in enumerate(zip(a, b), start=1):
-        names = [name for name in x if x[name] != y.get(name)]
-        if names:
-            return [step, names]
-    return None
+def _partings(a: list, b: list) -> list:
+    """Each rank's ``parallel/digests.first_parting`` of two worlds' staged
+    digests (one list of records a rank)."""
+    from multimodal_rssm_torch.parallel.digests import first_parting
 
-
-def _combined_digest(step: dict) -> str:
-    """One digest of a step's per-parameter digests, in parameter order."""
-    import hashlib
-
-    return hashlib.sha1("".join(step.values()).encode()).hexdigest()[:16]
+    return [first_parting(x, y) for x, y in zip(a, b)]
 
 
 def _free_port() -> int:
@@ -3672,6 +3727,11 @@ def _model_axis_cli_argv(tmp: str, steps: int, experiment: str) -> list:
     """(d)'s train CLI arguments: ``data=2 x model=2`` at
     ``MODEL_AXIS_CLI_BATCH`` x ``MODEL_AXIS_CLI_CHUNK``, ``steps`` steps
     with a checkpoint at the last, a validation every 3."""
+    return [*_model_axis_overrides(tmp, steps, experiment),
+            *_model_axis_cli_tail(tmp)]
+
+
+def _model_axis_overrides(tmp: str, steps: int, experiment: str) -> list:
     return [f"train.train_data_path=[{tmp}/train]",
             f"train.validation_data_path=[{tmp}/validation]",
             f"train.batch_size={MODEL_AXIS_CLI_BATCH}",
@@ -3681,8 +3741,7 @@ def _model_axis_cli_argv(tmp: str, steps: int, experiment: str) -> list:
             "train.mesh.model=2", "train.validation_interval=3",
             f"train.train_iteration={steps}",
             f"train.checkpoint_interval={steps}",
-            f"main.experiment_name={experiment}",
-            *_model_axis_cli_tail(tmp)]
+            f"main.experiment_name={experiment}"]
 
 
 def phase_model_axis(tmp: str, device_name: str, traced: bool = False
@@ -3769,6 +3828,7 @@ def phase_model_axis(tmp: str, device_name: str, traced: bool = False
     for remat in ("false", "true"):
         spec_c["bf16_overrides"] = base + MODEL_AXIS_MESH + [
             f"train.batch_size={SHAPE[1]}",
+            f"train.chunk_size={MODEL_AXIS_BF16_CHUNK}",
             f"train.train_iteration={MODEL_AXIS_BF16_STEPS}",
             f"train.validation_interval={MODEL_AXIS_BF16_STEPS}",
             "train.pallas_normalize=true", f"rssm.remat={remat}",
@@ -3902,20 +3962,19 @@ def phase_model_axis(tmp: str, device_name: str, traced: bool = False
         out_dir = os.path.join(tmp, f"model_axis_cli_{name}")
         os.makedirs(out_dir, exist_ok=True)
         t0 = time.perf_counter()
-        launch.spawn(model_axis_cli_rank, 4, (4, _free_port(), cards, argv,
-                                              out_dir),
+        launch.spawn(model_axis_cli_rank, 4, (4, _free_port(), cards, name,
+                                              argv, out_dir),
                      timeout=PARALLEL_WORLD_S)
-        got = [torch.load(os.path.join(out_dir, f"cli{r}.pt"),
+        got = [torch.load(os.path.join(out_dir, f"cli{r}_{name}.pt"),
                           weights_only=False) for r in range(4)]
         got[0]["wall_seconds"] = time.perf_counter() - t0
         return got
 
-    # one world at a time, so that the resume check holds the checkpoint
-    # alone: on an H100 a 3-step run made once beside the whole run parted
-    # from it by 4e-6 of the loss at step 3 (F6); three whole-script runs
-    # with the two side by side did not part, each rank's gradient digests
-    # at steps 1-3 equal in all.  The digests stay, so that a
-    # parting names its first step and layer
+    # one world at a time, each in fresh processes as a user's torchrun
+    # starts it, so that the resume check holds the checkpoint alone and a
+    # resumed run is a new process; F6 shows only between fresh processes
+    # (PERF.md), and the staged digests name a parting's rank, stage and
+    # RSSM step
     cli = {name: cli_world(name, argv) for name, argv in worlds.items()}
     cli["resume"] = cli_world("resume", [
         f"train.train_iteration={whole}",
@@ -3962,15 +4021,15 @@ def phase_model_axis(tmp: str, device_name: str, traced: bool = False
                    f"tensors {shapes_whole}")
     d["f6"] = {
         "steps": F6_STEPS,
-        "parameters_digested": [len(g["grad_digests"][0])
+        "parameters_digested": [len(g["digests"][0]["stages"]["local"])
                                 for g in cli["first"]],
-        "first_parting": [_first_parting(f["grad_digests"],
-                                         w["grad_digests"])
-                          for f, w in zip(cli["first"], cli["whole"])],
-        "digests": {name: [[_combined_digest(step)
-                            for step in g["grad_digests"][:F6_STEPS]]
-                           for g in cli[name]]
-                    for name in ("first", "whole")}}
+        "gru_calls_a_step": [len(g["digests"][0]["gru"])
+                             for g in cli["first"]],
+        "first_parting": _partings([g["digests"] for g in cli["first"]],
+                                   [g["digests"] for g in cli["whole"]]),
+        "products_recomputed_equal": all(
+            row["product_recomputed_equal"] for name in ("first", "whole")
+            for g in cli[name] for rec in g["digests"] for row in rec["gru"])}
     ck.reset_launch_counts()
     t0 = time.perf_counter()
     report = check_model.main(["--run", run_dir, "--itr", str(first),
@@ -4092,7 +4151,7 @@ def phase_model_axis_pairs(tmp: str, arms=MODEL_AXIS_PAIR_ARMS) -> dict:
     ``MEMORY_ARM_LEAVE_GIB`` of the card's free memory, then its 5-step
     world alone, pair after pair.  Per pair: the steps whose logged
     metrics differ, the loss's largest relative difference, and each
-    rank's first parting of its gradient digests (``_first_parting``);
+    rank's first parting of its staged digests (``_partings``);
     and how far each run's steps differ from the first pair's 5-step run
     of the first arm.  ``python3 chip_smoke.py --model-axis-pairs [arm
     ...]`` ("cudnn" names the first arm)."""
@@ -4118,13 +4177,14 @@ def phase_model_axis_pairs(tmp: str, arms=MODEL_AXIS_PAIR_ARMS) -> dict:
             os.makedirs(out_dir, exist_ok=True)
             try:
                 launch.spawn(model_axis_cli_rank, 4, (
-                    4, _free_port(), cards,
+                    4, _free_port(), cards, name,
                     _model_axis_cli_argv(tmp, steps, name), out_dir, strict),
                     timeout=PARALLEL_WORLD_S)
-                ranks = [torch.load(os.path.join(out_dir, f"cli{r}.pt"),
+                ranks = [torch.load(os.path.join(out_dir,
+                                                 f"cli{r}_{name}.pt"),
                                     weights_only=False) for r in range(4)]
                 runs[key] = _metric_lines(ranks[0]["result"]["results_dir"])
-                digests[key] = [r["grad_digests"] for r in ranks]
+                digests[key] = [r["digests"] for r in ranks]
             except Exception as e:   # recorded: the probe measures
                 errors.append(f"{key}: {e!r}"[-3000:])
 
@@ -4163,8 +4223,7 @@ def phase_model_axis_pairs(tmp: str, arms=MODEL_AXIS_PAIR_ARMS) -> dict:
             rec["pairs"].append({
                 "differ_at": _differ_at(early[a], early[b]),
                 "loss_max_rel": _loss_rel(early[a], early[b]),
-                "first_parting": [_first_parting(x, y) for x, y in
-                                  zip(digests[a], digests[b])]})
+                "first_parting": _partings(digests[a], digests[b])})
         rec["against_reference"] = {
             key: _differ_at(lines, reference) for key, lines in early.items()
             if reference is not None}
@@ -4219,19 +4278,19 @@ def profiler_edges(seconds: float = 90.0, launches: int = 20) -> dict:
     windows (CPU and CUDA activity, one warm-up step, as op_profile) around
     ``launches`` small kernels, launched at once after the window opens and
     closed at once after the synchronise (gap 0), or
-    ``op_profile.EDGE_GAP_S`` from both edges, the two arms alternating;
+    ``core/profiling.EDGE_GAP_S`` from both edges, the two arms alternating;
     per arm the windows that lost a kernel, the kernels lost, and the least
     time from a kernel's launch (host clock) to its start (device clock) in
     the trace, which is negative where the two clocks part, with its first
     and last windows.  ``python3 chip_smoke.py --profiler-edges``."""
     import torch
 
-    from multimodal_rssm_torch.cli import op_profile
+    from multimodal_rssm_torch.core.profiling import EDGE_GAP_S
 
     x = torch.zeros(1 << 10, device="cuda")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    gaps = (0.0, op_profile.EDGE_GAP_S)
+    gaps = (0.0, EDGE_GAP_S)
     rows = {g: [] for g in gaps}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4275,65 +4334,180 @@ def profiler_edges(seconds: float = 90.0, launches: int = 20) -> dict:
     return out
 
 
-def recompute_step(batches=(4, 8, 50), reps: int = 8) -> dict:
-    """F6 in one process: the default configuration's bf16 loss step at
-    full width, chunk MODEL_AXIS_CLI_CHUNK and each batch of ``batches``,
-    its backward run ``reps`` times from the same weights and batch under
-    (d)'s determinism settings; {batch: the parameters whose gradient
-    digest differed from the first run's, with the runs}.
-    ``python3 chip_smoke.py --recompute-step``."""
-    import hashlib
+# --recompute-step: the trials of step 1 in one world, and the arms
+RECOMPUTE_TRIALS = 24
+RECOMPUTE_ARMS = ("quiet", "busy", "cli")
 
-    import numpy as np
+
+def recompute_rank(rank: int, nprocs: int, port: int, cards: int, tmp: str,
+                   out_dir: str, trials: int) -> None:
+    """One rank of ``--recompute-step``'s ``data=2 x model=2`` world, joined
+    as (d)'s ranks join: (d)'s configuration (batch 8 x chunk 10, bf16, K1
+    on, deterministic cuDNN), the weights from seed 0, one global batch of
+    the replay with its draws and generator seed; step 1 (forward,
+    backward, the data group's average, the replicated gradients'
+    broadcast, the clip and Adam) run ``trials`` times from the same
+    weights, running stats and batch, each trial's staged digests recorded
+    (``parallel/digests.py``).  Writes ``rank{rank}.pt``."""
     import torch
+    import torch.distributed as dist
 
+    _join_as_torchrun(rank, nprocs, port, cards)
     from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.data.buffer import build_buffer, load_dataset
     from multimodal_rssm_torch.models.world_model import (
         WorldModel, init_parameters)
+    from multimodal_rssm_torch.parallel import mesh as mesh_lib
+    from multimodal_rssm_torch.parallel import tensor as tensor_lib
+    from multimodal_rssm_torch.parallel.digests import StagedDigests
     from multimodal_rssm_torch.train import trainer as tr
 
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cudnn.deterministic = True
-    dev = torch.device("cuda")
-    cfg = compose(overrides=["train.use_amp=true"])
-    L, out = MODEL_AXIS_CLI_CHUNK, {}
-    for B in batches:
-        rng = np.random.default_rng(0)
-        raw = {"image_horizon": torch.from_numpy(rng.integers(
-                   0, 256, (L, B, *SHAPE[2:]), np.uint8)).to(dev),
-               "sound": torch.from_numpy(rng.normal(
-                   size=(L, B, 128, 20)).astype(np.float32)).to(dev)}
-        spec = tr.AugSpec(modalities=(("image_horizon", tr.ModalityAugSpec(
-            SHAPE[2:4], False, False, False, True)),))
-        obs = tr.prepare_observations(raw, spec, {}, BIT_DEPTH,
-                                      torch.Generator(dev).manual_seed(0),
-                                      kernel_normalize=True)
-        batch = (obs, torch.from_numpy(rng.uniform(-1, 1, (L, B, 3)).astype(
-                     np.float32)).to(dev),
-                 torch.from_numpy(rng.normal(size=(L, B)).astype(
-                     np.float32)).to(dev), torch.ones(L, B, 1, device=dev))
+    cfg = compose(overrides=_model_axis_overrides(tmp, 1, "recompute"))
+    dev = mesh_lib.init_distributed("cuda", timeout_s=PARALLEL_COLLECTIVE_S)
+    try:
+        dp = mesh_lib.data_parallel(mesh_lib.mesh_from_config(cfg, "cuda"),
+                                    int(cfg.train.batch_size))
+        D = build_buffer(cfg, seed=0)
+        load_dataset(tmp, D, cfg.train.train_data_path)
+        aug_spec = tr.build_aug_spec(D)
+        obs, *rest = mesh_lib.shard_batch(
+            D.sample(int(cfg.train.batch_size), int(cfg.train.chunk_size)),
+            dp.train)
+        raw = ({k: torch.from_numpy(v).to(dev) for k, v in obs.items()},
+               *(torch.from_numpy(x).to(dev) for x in rest))
+        draws = tr.HostAugmentDraws(D, aug_spec, seed=1).draw()
         model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
         init_parameters(model, torch.Generator().manual_seed(0))
         model.to(dev)
-        weights = {k: v.clone() for k, v in model.state_dict().items()}
-        first, parted = None, {}
-        for i in range(reps):
-            model.load_state_dict(weights)
-            model.zero_grad(set_to_none=True)
-            loss, _ = tr.make_loss_fn(model, cfg)(batch, None, True)
-            loss.backward()
-            digests = {n: hashlib.sha1(p.grad.detach().cpu().numpy(
-                           ).tobytes()).hexdigest()[:16]
-                       for n, p in model.named_parameters()
-                       if p.grad is not None}
-            first = first or digests
-            for n in digests:
-                if digests[n] != first[n]:
-                    parted.setdefault(n, []).append(i)
-        out[str(B)] = {"parameters": len(first), "parted": parted}
-        del model
-    return {"phase": "recompute_step", "chunk": L, "reps": reps,
-            "batches": out}
+        opt, sched = tr.build_optimizer(cfg, model)
+        tensor_lib.shard_model_(
+            model, dp.model, int(cfg.train.mesh.get(
+                "min_shard_width", tensor_lib.MIN_SHARD_WIDTH)), opt)
+        start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        train_step, _ = tr.make_train_step(model, cfg, opt, sched, aug_spec,
+                                           dev, kernel_normalize=True, dp=dp)
+        records, losses, seconds = [], [], []
+        for _ in range(trials):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for k, v in model.state_dict().items():
+                    v.copy_(start[k])
+            with StagedDigests(1) as digests:
+                metrics = train_step(raw, draws,
+                                     torch.Generator(dev).manual_seed(5))
+            losses.append(float(metrics["loss"]))
+            records.append(digests.records[0])
+            seconds.append(time.perf_counter() - t0)
+        torch.save({"records": records, "losses": losses,
+                    "seconds": seconds, "model_rank": dp.model.rank,
+                    "data_rank": dp.train.rank},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _busy_cores(n: int):
+    """Within the block ``n`` processes spin on the host's cores."""
+    procs = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+             for _ in range(n)]
+    try:
+        yield n
+    finally:
+        for proc in procs:
+            proc.kill()
+        for proc in procs:
+            proc.wait()
+
+
+def _odd_trials(records: list) -> list:
+    """The trials whose staged digests differ from the most frequent
+    trial's, each as {"trial", and ``first_parting`` against it}."""
+    from multimodal_rssm_torch.parallel.digests import first_parting
+
+    keys = [json.dumps(r, sort_keys=True) for r in records]
+    usual = collections.Counter(keys).most_common(1)[0][0]
+    base = records[keys.index(usual)]
+    return [{"trial": i, **first_parting([base], [r])}
+            for i, (k, r) in enumerate(zip(keys, records)) if k != usual]
+
+
+def recompute_step(tmp: str, arms=RECOMPUTE_ARMS,
+                   trials: int = RECOMPUTE_TRIALS) -> dict:
+    """F6's harness: for each arm, one ``data=2 x model=2`` world of
+    ``recompute_rank`` on the card over gloo, ``trials`` trials of step 1;
+    per arm (one line as it ends) the trials in which some rank's staged
+    digests differ from its usual trial's, with that rank, its first stage,
+    the parameters and the RSSM steps and operands that part.  An arm
+    joins "+"-separated parts: "busy" (as many processes as the host has
+    cores spin beside the world), "cli" (``trials`` fresh worlds of (d)'s CLI for one step,
+    compared world against world: ``_cli_worlds``), "quiet" (none).
+    ``python3 chip_smoke.py --recompute-step [arm ...] [--trials N]``."""
+    import torch
+
+    from multimodal_rssm_torch.parallel import launch
+
+    cards = torch.cuda.device_count()
+    record = {"phase": "recompute_step", "trials": trials,
+              "batch": MODEL_AXIS_CLI_BATCH, "chunk": MODEL_AXIS_CLI_CHUNK,
+              "cores": len(os.sched_getaffinity(0)), "arms": {}}
+    for arm in arms:
+        parts = arm.split("+")
+        out_dir = os.path.join(tmp, f"recompute_{arm}")
+        os.makedirs(out_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        with _busy_cores(record["cores"] if "busy" in parts else 0) as busy:
+            if "cli" in parts:
+                ranks = _cli_worlds(tmp, out_dir, trials, cards)
+            else:
+                launch.spawn(recompute_rank, 4, (4, _free_port(), cards, tmp,
+                                                 out_dir, trials),
+                             timeout=PARALLEL_WORLD_S)
+                ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                                    weights_only=False) for r in range(4)]
+        odd = [{"rank": r, **o} for r, got in enumerate(ranks)
+               for o in _odd_trials(got["records"])]
+        record["arms"][arm] = {
+            "wall_seconds": time.perf_counter() - t0,
+            "busy_processes": busy,
+            "worlds": trials if "cli" in parts else 1,
+            "trial_seconds_median": statistics.median(
+                t for got in ranks for t in got["seconds"][1:]),
+            "parted_trials": len({o["trial"] for o in odd}),
+            "partings": odd[:24],
+            "losses": sorted({v for got in ranks for v in got["losses"]}),
+            "gru_calls_a_step": len(ranks[0]["records"][0]["gru"]),
+            "products_recomputed_equal": all(
+                row["product_recomputed_equal"] for got in ranks
+                for rec in got["records"] for row in rec["gru"])}
+        emit({"phase": "recompute_step", "arm": arm,
+              **record["arms"][arm]})
+    return record
+
+
+def _cli_worlds(tmp: str, out_dir: str, n: int, cards: int) -> list:
+    """Arm part "cli": ``n`` worlds one after another, each (d)'s train CLI
+    for one step in four fresh rank processes (``model_axis_cli_rank``),
+    as (d)'s runs start; each rank's step-1 staged digests, loss and
+    seconds a world, as ``recompute_rank`` gives them a trial."""
+    import torch
+
+    from multimodal_rssm_torch.parallel import launch
+
+    ranks = [{"records": [], "losses": [], "seconds": []} for _ in range(4)]
+    for i in range(n):
+        name = f"cli_world_{i}"
+        launch.spawn(model_axis_cli_rank, 4, (
+            4, _free_port(), cards, name, _model_axis_cli_argv(tmp, 1, name),
+            out_dir), timeout=PARALLEL_WORLD_S)
+        for r, got in enumerate(ranks):
+            run = torch.load(os.path.join(out_dir, f"cli{r}_{name}.pt"),
+                             weights_only=False)
+            got["records"].append(run["digests"][0])
+            got["losses"].append(run["result"]["metrics"]["loss"])
+            got["seconds"].append(run["seconds"])
+    return ranks
 
 
 def _differ_at(a: list, b: list) -> list:
@@ -4364,9 +4538,10 @@ def phase_parallel(tmp: str, device_name: str) -> dict:
     over gloo (NCCL refuses two ranks on one GPU), launched through
     ``parallel.launch.spawn``: the float32 step (default augmentation,
     deterministic cuDNN, K1 on) of each rank held against a one-rank step
-    here on the same global batch and weights (``PARALLEL_*`` tolerances),
-    the two ranks bit-equal; then the shipped bf16 settings for 6 steps and
-    a validation through ``train.loop.run``: steps/s, each rank's peak
+    here on the same global batch (``PARALLEL_F32_BATCH`` rows) and
+    weights (``PARALLEL_*`` tolerances), the two ranks bit-equal; then the
+    shipped bf16 settings for ``PARALLEL_BF16_STEPS`` steps and a
+    validation through ``train.loop.run``: steps/s, each rank's peak
     memory and K1 launches.  Where two full-width ranks do not fit the
     card, both runs of (b) take ``rssm.remat=true`` (said in the record).
     Returns K1's launches by path."""
@@ -4438,14 +4613,15 @@ def phase_parallel(tmp: str, device_name: str) -> dict:
     D = build_buffer(cfg, seed=0)
     load_dataset(tmp, D, cfg.train.train_data_path)
     aug_spec = tr.build_aug_spec(D)
-    raw = D.sample(SHAPE[1], SHAPE[0])
+    raw = D.sample(PARALLEL_F32_BATCH, SHAPE[0])
     raw = ({k: torch.from_numpy(v) for k, v in raw[0].items()},
            *(torch.from_numpy(x) for x in raw[1:]))
     model = WorldModel.from_config(cfg)
     init_parameters(model, torch.Generator().manual_seed(0))
     lr = float(cfg.rssm.model_learning_rate)
     for remat in ("false", "true"):
-        f32 = base + ["train.use_amp=false", f"rssm.remat={remat}"]
+        f32 = base + ["train.use_amp=false", f"rssm.remat={remat}",
+                      f"train.batch_size={PARALLEL_F32_BATCH}"]
         bf16 = base + [
             f"train.train_iteration={PARALLEL_BF16_STEPS}",
             f"train.validation_interval={PARALLEL_BF16_STEPS}",
@@ -4568,6 +4744,7 @@ def print_card() -> None:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4583,29 +4760,40 @@ def main() -> int:
           "capability": list(torch.cuda.get_device_capability(0)),
           "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                          "cudnn": torch.backends.cudnn.allow_tf32}})
-    phase_build()
-    kernel = phase_kernel(name)
-    launches, default = phase_train()
-    precision_k1 = phase_precision()
+    clock = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            clock[phase] = time.perf_counter() - t0
+
+    timed("build", phase_build)
+    kernel = timed("kernel", phase_kernel, name)
+    launches, default = timed("train", phase_train)
+    precision_k1 = timed("precision", phase_precision)
     with tempfile.TemporaryDirectory() as tmp:
-        parallel_k1 = phase_parallel(tmp, name)
-    phase_feed(name)
+        parallel_k1 = timed("parallel", phase_parallel, tmp, name)
+    timed("feed", phase_feed, name)
     with tempfile.TemporaryDirectory() as tmp:
-        run_dir = phase_checkpoint(tmp)
-        eval_k1 = phase_eval(tmp, run_dir, name)
-        control_k1 = phase_control(tmp, run_dir, name)
-        bridges_k1 = phase_bridges(tmp, run_dir, name)
-        phase_serve(tmp, run_dir, name)
-    phase_budget(((None, ()), (None, tuple(CODEC_RUNS["img256_groupnorm"]))))
-    phase_parity()
+        run_dir = timed("checkpoint", phase_checkpoint, tmp)
+        eval_k1 = timed("eval", phase_eval, tmp, run_dir, name)
+        control_k1 = timed("control", phase_control, tmp, run_dir, name)
+        bridges_k1 = timed("bridges", phase_bridges, tmp, run_dir, name)
+        timed("serve", phase_serve, tmp, run_dir, name)
+    timed("budget", phase_budget,
+          ((None, ()), (None, tuple(CODEC_RUNS["img256_groupnorm"]))))
+    timed("parity", phase_parity)
     with tempfile.TemporaryDirectory() as tmp:
-        variants_k1 = phase_variants(tmp, name)
+        variants_k1 = timed("variants", phase_variants, tmp, name)
     with tempfile.TemporaryDirectory() as tmp:
-        codecs_k1, k1_shapes = phase_codecs(tmp, name, default)
-    fused = phase_fused_codec(name, launches)
-    tools_k1 = phase_tools_process()
+        codecs_k1, k1_shapes = timed("codecs", phase_codecs, tmp, name,
+                                     default)
+    fused = timed("fused_codec", phase_fused_codec, name, launches)
+    tools_k1 = timed("tools", phase_tools_process)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_quality(tmp)
+        timed("quality", phase_quality, tmp)
     kernel["launches"] = launches["normalize_image"]
     kernel["launches_by_path"] = {
         "train": launches["normalize_image"],
@@ -4616,6 +4804,8 @@ def main() -> int:
     kernel["eval_episode_shape_ms"] = eval_k1["episode_shape_ms"]
     kernel["agent_frame_shape"] = control_k1["frame_shape"]
     kernel["codec_shapes"] = k1_shapes
+    emit({"phase": "total", "wall_seconds": time.perf_counter() - t_main,
+          "phases": clock})
     emit({"kernels": [kernel, *fused]})
     print_card()
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -4648,7 +4838,7 @@ if __name__ == "__main__":
             emit(phase_model_axis_pairs(tmp, arms or MODEL_AXIS_PAIR_ARMS))
         print_card()
         sys.exit(0)
-    if sys.argv[1:2] == ["--recompute-step"]:   # F6 in one process
+    if sys.argv[1:2] == ["--recompute-step"]:   # F6's harness
         sys.path.insert(0, REPO)
         import torch
 
@@ -4658,7 +4848,15 @@ if __name__ == "__main__":
 
         configure_float32()
         phase_build(force=False)
-        emit(recompute_step())
+        args = sys.argv[2:]
+        trials = RECOMPUTE_TRIALS
+        if "--trials" in args:
+            i = args.index("--trials")
+            trials = int(args[i + 1])
+            del args[i:i + 2]
+        with tempfile.TemporaryDirectory() as tmp:
+            write_dataset(tmp, 4)
+            emit(recompute_step(tmp, tuple(args) or RECOMPUTE_ARMS, trials))
         print_card()
         sys.exit(0)
     if sys.argv[1:2] == ["--profiler-edges"]:   # op_profile's window edges

@@ -10,16 +10,16 @@ The port's counterpart of the JAX package's ``scripts/op_profile.py`` (same
 flags and defaults): the step of ``cli/_profiling_common.build_step_setup``
 (the normalise through K1 on the card), 3 warm-up steps and one the profiler
 drops, then ``--steps`` steps traced (the card's kernels; on the CPU, the
-operators), ``EDGE_GAP_S`` of quiet between the window's edges and its first
-and last kernels.  In place of the TPU trace's ``hlo_category`` it sums the
-device kernels' self time by ``op_category``: ``gemm`` (cuBLAS / CUTLASS /
+operators) in a ``core/profiling.ProfilerWindow`` (quiet at both edges).
+In place of the TPU trace's ``hlo_category`` it sums the device kernels'
+self time by ``op_category``: ``gemm`` (cuBLAS / CUTLASS /
 ``sm90_xmma`` GEMMs), ``conv`` (cuDNN forward, dgrad and wgrad), ``layout``
 (cuDNN's NCHW <-> NHWC transposes), ``elementwise``, ``reduction``,
 ``memcpy/memset``, ``collective``, ``hand-written`` (the kernels named in
 ``ops/cuda_kernels.KERNELS``) and ``other``.  It also prints the device's idle
-share of the traced window (kernel time over wall time, as
-``cli/profile_step``).  With ``--device cpu`` the same tables hold the
-operators' self CPU time: they check the harness, not the card.
+share of the traced window (kernel time over wall time, the window's own
+reading, as ``cli/profile_step``'s).  With ``--device cpu`` the same tables
+hold the operators' self CPU time: they check the harness, not the card.
 
 The Chrome trace goes to ``--trace-dir``/op_profile.json.
 """
@@ -30,20 +30,13 @@ import argparse
 import collections
 import os
 import tempfile
-import time
 from typing import Dict, Iterable, Optional, Sequence
-
-import torch
 
 from multimodal_rssm_torch.cli._profiling_common import (
     add_device_argument, build_step_setup, synchronize)
+from multimodal_rssm_torch.core.profiling import (
+    ProfilerWindow, hand_written_names)
 
-# the profiler keeps a kernel only if its device timestamps fall inside the
-# window that the host clock opened and closed, and on an H100 the two
-# clocks part by up to ~3 ms in some windows: kernels launched at once after
-# the window opens were lost from 10 of 347 windows, none with this gap at
-# both edges (``chip_smoke.py --profiler-edges``)
-EDGE_GAP_S = 0.1
 CATEGORIES = ("gemm", "conv", "layout", "elementwise", "reduction",
               "memcpy/memset", "collective", "hand-written", "other")
 _RULES = (   # (category, substrings of the lower-cased name), in order
@@ -63,16 +56,6 @@ _RULES = (   # (category, substrings of the lower-cased name), in order
 )
 
 
-def hand_written_names() -> tuple:
-    """The names of the port's hand-written kernels, as their CUDA symbols
-    hold them (a wrapper counted as ``<name>_wgmma`` launches
-    ``<name>_kernel``)."""
-    from multimodal_rssm_torch.ops import cuda_kernels as ck
-
-    return tuple(sorted({n[:-len("_wgmma")] if n.endswith("_wgmma") else n
-                         for n in ck._all_kernels()}))
-
-
 def op_category(name: str, hand_written: Iterable[str] = ()) -> str:
     """The category of a device kernel (or, on the CPU, an operator) by its
     name; a name holding one of ``hand_written`` is ``hand-written``."""
@@ -83,18 +66,6 @@ def op_category(name: str, hand_written: Iterable[str] = ()) -> str:
         if any(k in low for k in keys):
             return category
     return "other"
-
-
-def _self_times(prof, device: torch.device):
-    """(name, self microseconds, count) of every kernel (CUDA) or operator
-    (CPU) in the profile."""
-    for e in prof.key_averages():
-        if device.type == "cuda":
-            if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.self_device_time_total > 0):
-                yield e.key, e.self_device_time_total, e.count
-        elif e.self_cpu_time_total > 0:
-            yield e.key, e.self_cpu_time_total, e.count
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
@@ -121,46 +92,30 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     # the card's kernels (on the CPU: the operators), after one step the
     # profiler traces and drops: the first kernels after a trace starts can
     # be missed
-    activity = (torch.profiler.ProfilerActivity.CUDA
-                if s.device.type == "cuda"
-                else torch.profiler.ProfilerActivity.CPU)
-    schedule = torch.profiler.schedule(wait=0, warmup=1, active=args.steps,
-                                       repeat=1)
-    with torch.profiler.profile(activities=[activity],
-                                schedule=schedule) as prof:
-        s.train_step(s.raw, s.draws, s.generator)
-        synchronize(s.device)
-        prof.step()
-        time.sleep(EDGE_GAP_S)
-        t0 = time.perf_counter()
-        for i in range(args.steps):
-            metrics = s.train_step(s.raw, s.draws, s.generator)
-            if i == args.steps - 1:
-                float(metrics["loss"])
-                synchronize(s.device)
-                wall_us = (time.perf_counter() - t0) * 1e6
-                time.sleep(EDGE_GAP_S)
-            prof.step()
+    window = ProfilerWindow(s.device, cpu=False).open(
+        warmup=lambda: s.train_step(s.raw, s.draws, s.generator))
+    for _ in range(args.steps):
+        metrics = s.train_step(s.raw, s.draws, s.generator)
+    float(metrics["loss"])
+    window.close()
     os.makedirs(args.trace_dir, exist_ok=True)
-    path = os.path.join(args.trace_dir, "op_profile.json")
-    prof.export_chrome_trace(path)
+    path = window.export(os.path.join(args.trace_dir, "op_profile.json"))
 
     hand = hand_written_names()
-    tot, cnt = collections.Counter(), collections.Counter()
-    for name, us, count in _self_times(prof, s.device):
-        tot[name] += us
-        cnt[name] += count
     n = args.steps
-    total = sum(tot.values())   # us over the n steps
+    summary = window.summary()
+    total = summary["kernel_ms"] * 1e3   # us over the n steps
     per_step = total / 1e3 / n
     kernels = [{"name": name, "ms_per_step": us / 1e3 / n,
-                "share": us / total, "count": cnt[name],
+                "share": us / total, "count": count,
                 "category": op_category(name, hand)}
-               for name, us in tot.most_common()]
+               for name, us, count in sorted(window.kernels(),
+                                             key=lambda k: -k[1])]
     cat = collections.Counter()
     for k in kernels:
         cat[k["category"]] += k["ms_per_step"]
-    idle = 1.0 - total / wall_us
+    wall_us = window.wall_ms * 1e3
+    idle = summary["device_idle_share"]
     what = "kernel" if s.device.type == "cuda" else "operator (CPU)"
     print(f"trace: {path}")
     print(f"total {what} self time: {total / 1e3:.1f} ms over {n} steps "
@@ -178,6 +133,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     return {"trace": path, "steps": n, "device": str(s.device),
             "total_ms_per_step": per_step,
             "window_ms": wall_us / 1e3, "device_idle_share": idle,
+            "launches": summary["launches"],
             "categories_ms_per_step": {k: cat[k] for k in CATEGORIES
                                        if k in cat},
             "hand_written": {k["name"]: {"ms_per_step": k["ms_per_step"],

@@ -16,11 +16,14 @@ tools share), warms up, then over ``--steps`` steps prints JSON lines:
   events recorded by module hooks), the whole loss forward, the backward
   and the optimizer step, plus the host-clock step time and the peak
   memory allocated;
-- ``profile``: the device-busy share of the profiled window (CUDA kernel
-  time over wall time) and the kernels with the most device time
-  (``torch.profiler``).
+- ``profile``: the device's idle share of the profiled window (one minus
+  CUDA kernel time over wall time), the hand-written kernels' launches in
+  it, and the kernels with the most device time (``torch.profiler``, in a
+  ``core/profiling.ProfilerWindow`` that traces the card alone, as
+  ``cli/op_profile``'s: quiet at both edges).
 
-``--trace`` writes a Chrome trace of the profiled window.
+``--trace`` writes a Chrome trace of the profiled window (the card's
+kernels and the runtime's launches).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from multimodal_rssm_torch.cli._profiling_common import build_step_setup
+from multimodal_rssm_torch.core.profiling import ProfilerWindow
 from multimodal_rssm_torch.train import trainer as tr
 
 
@@ -106,7 +110,9 @@ def setup(args: argparse.Namespace, device: str = "cuda"):
          *args.override, *args.overrides], device)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    """Parse ``argv``, time and profile; prints the two JSON lines and
+    returns them as {"phases", "profile"}."""
     args = parse_args(argv)
     (cfg, model, optimizer, scheduler, spec, _, raw, generator, device,
      _) = setup(args)
@@ -148,34 +154,32 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         host.append((time.perf_counter() - t0) * 1e3)
         per_step.append(spans.ms())
     phases = {k: statistics.median(s[k] for s in per_step) for k in per_step[0]}
-    print(json.dumps({"phases_ms": phases, "host_step_ms": statistics.median(host),
-                      "max_memory_allocated_GiB":
-                          torch.cuda.max_memory_allocated() / 2 ** 30,
-                      "batch": int(cfg.train.batch_size),
-                      "chunk": int(cfg.train.chunk_size),
-                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    result = {"phases_ms": phases, "host_step_ms": statistics.median(host),
+              "max_memory_allocated_GiB":
+                  torch.cuda.max_memory_allocated() / 2 ** 30,
+              "batch": int(cfg.train.batch_size),
+              "chunk": int(cfg.train.chunk_size),
+              "device": torch.cuda.get_device_name(0)}
+    print(json.dumps(result), flush=True)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    with ProfilerWindow(device, cpu=False) as window:
         for _ in range(args.steps):
             step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_time_total", 0) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:20]
-    print(json.dumps({
-        "profile_steps": args.steps, "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
-        "top_kernels": [{"name": e.key[:90], "calls": e.count,
-                         "ms_per_step": e.device_time_total / 1e3 / args.steps}
-                        for e in top]}), flush=True)
+    summary = window.summary()
+    kernels = sorted(window.kernels(), key=lambda k: k[1], reverse=True)
+    profile = {
+        "profile_steps": args.steps, "wall_ms": summary["wall_ms"],
+        "device_busy_ms": summary["kernel_ms"],
+        "device_idle_share": summary["device_idle_share"],
+        "launches": summary["launches"],
+        "hand_written_in_trace": summary["hand_written_in_trace"],
+        "top_kernels": [{"name": name[:90], "calls": count,
+                         "ms_per_step": us / 1e3 / args.steps}
+                        for name, us, count in kernels[:20]]}
+    print(json.dumps(profile), flush=True)
     if args.trace:
-        prof.export_chrome_trace(args.trace)
+        profile["trace"] = window.export(args.trace)
+    return {"phases": result, "profile": profile}
 
 
 if __name__ == "__main__":

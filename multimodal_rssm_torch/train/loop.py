@@ -27,7 +27,8 @@ and of the gradients of one extra forward and backward on the step's batch
 (``trainer.make_grad_fn``; its own generator, frozen running stats, no
 optimizer) every N steps, so a run with them equals one without.
 ``train.profile_dir`` traces steps 10-15 after the first with
-``torch.profiler`` (CPU and CUDA activities) into a Chrome trace there.
+``torch.profiler`` (CPU and CUDA activities; ``core/profiling``: quiet at
+both edges) into a Chrome trace there.
 
 Checkpoints hold the whole training state, the NumPy generators' states
 included, and are written atomically; cadence checkpoints are written off
@@ -71,6 +72,7 @@ from typing import Dict, Optional
 import torch
 
 from multimodal_rssm_torch.core.device import configure_float32, resolve_device
+from multimodal_rssm_torch.core.profiling import ProfilerWindow
 from multimodal_rssm_torch.core.runtime import GracefulShutdown
 from multimodal_rssm_torch.data.buffer import (
     HostBatchFeed, build_buffer, load_dataset, to_device)
@@ -135,44 +137,41 @@ def log_histograms(logger: MetricLogger, model, grads: Dict[str, torch.Tensor],
 
 class ProfileWindow:
     """A ``torch.profiler`` trace of steps ``first``..``last`` (CPU and, on
-    CUDA, device activities), written as a Chrome trace into ``out_dir``:
-    the JAX package's ``jax.profiler`` window.  ``at_start(itr)`` before a
-    step, ``at_end(itr)`` after it; ``close(itr)`` ends a trace the run
-    left open (a run shorter than the window).  ``path``: the trace
-    written, or None."""
+    CUDA, device activities) in a ``core/profiling.ProfilerWindow`` (quiet
+    at both edges), written as a Chrome trace into ``out_dir``: the JAX
+    package's ``jax.profiler`` window.  ``at_start(itr)`` before a step,
+    ``at_end(itr)`` after it; ``close(itr)`` ends a trace the run left open
+    (a run shorter than the window).  ``path``: the trace written, or None;
+    ``summary``: the window's kernel and wall ms, idle share and
+    hand-written kernel launches, or None."""
 
     def __init__(self, out_dir: str, first: int, last: int,
                  device: torch.device):
         self.out_dir, self.first, self.last = out_dir, first, last
         self.device = device
-        self.prof = None
+        self.window: Optional[ProfilerWindow] = None
         self.path: Optional[str] = None
+        self.summary: Optional[Dict] = None
 
     def at_start(self, itr: int) -> None:
         if itr == self.first:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            self.prof = torch.profiler.profile(activities=activities)
-            self.prof.start()
+            self.window = ProfilerWindow(self.device).open()
 
     def at_end(self, itr: int) -> None:
         if itr == self.last:
             self.close(itr)
 
     def close(self, itr: Optional[int] = None) -> None:
-        if self.prof is None:
+        if self.window is None:
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.prof.stop()
+        self.window.close()
         os.makedirs(self.out_dir, exist_ok=True)
-        self.path = os.path.join(
-            self.out_dir, f"trace_steps_{self.first}-{itr or self.last}.json")
-        self.prof.export_chrome_trace(self.path)
+        self.path = self.window.export(os.path.join(
+            self.out_dir, f"trace_steps_{self.first}-{itr or self.last}.json"))
+        self.summary = self.window.summary()
         print(f"profile of steps {self.first}-{itr or self.last}: "
               f"{self.path}")
-        self.prof = None
+        self.window = None
 
 
 def select_feed(cfg, D, device: torch.device, seed: int,
@@ -493,4 +492,5 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
             "start_step": start_step, "metrics": last,
             "validation_metrics": last_val, "step_seconds": step_seconds,
             "profile_trace": None if window is None else window.path,
+            "profile": None if window is None else window.summary,
             "preempted": requested}

@@ -493,6 +493,19 @@ def data_parallel_scope(model: WorldModel, dp: Optional[DataParallel],
         yield
 
 
+# ``hook(stage, model)`` callables that ``optimizer_step`` calls at the
+# start of a step and after each stage of its gradients: "local" (this
+# rank's backward), "data_mean" (the data group's average) and "broadcast"
+# (the model group's replicated gradients from its first rank).  Empty but
+# for an instrument (``parallel/digests.py``).
+STAGE_HOOKS: List[Callable] = []
+
+
+def _stage(stage: str, model: WorldModel) -> None:
+    for hook in STAGE_HOOKS:
+        hook(stage, model)
+
+
 def optimizer_step(model: WorldModel, loss_fn: Callable, batch,
                    generator: Optional[torch.Generator], optimizer,
                    scheduler, accum: int, max_norm: float,
@@ -504,14 +517,18 @@ def optimizer_step(model: WorldModel, loss_fn: Callable, batch,
     norms under ``dp.model``).  Returns the metrics and the gradient
     norms."""
     optimizer.zero_grad(set_to_none=True)
+    _stage("start", model)
     with data_parallel_scope(model, dp):
         metrics = accumulated_backward(loss_fn, model, batch, generator,
                                        accum)
+    _stage("local", model)
     if dp is not None:
         all_reduce_mean_([p.grad for p in model.parameters()
                           if p.grad is not None], dp.group)
+        _stage("data_mean", model)
         if dp.model is not None:
             broadcast_replicated_grads_(model, dp.model)
+            _stage("broadcast", model)
         metrics = mean_metrics(metrics, dp.group)
     metrics.update(apply_gradients(model, optimizer, scheduler, max_norm,
                                    None if dp is None else dp.model))

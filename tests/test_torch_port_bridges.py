@@ -79,6 +79,7 @@ from multimodal_rssm_torch.models.world_model import WorldModel
 from multimodal_rssm_torch.train import behavior as bh
 from multimodal_rssm_torch.train import loop
 from multimodal_rssm_torch.train import trainer as tr
+from torch_port_tmp import _remove_module_tmp  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE_DIR = os.path.join(REPO, "tests", "torch_port_fixtures")
@@ -885,7 +886,8 @@ def test_histogram_record_bins_as_numpy_does(kind):
 
 def test_profile_dir_writes_a_chrome_trace(data_dir, tmp_path):
     """``train.profile_dir`` traces steps 10-15 into a Chrome trace (a run
-    shorter than the window closes it at its last step)."""
+    shorter than the window closes it at its last step), with the window's
+    summary in the run's result."""
     out = tmp_path / "prof"
     result = _train(data_dir, "train.train_iteration=12",
                     f"train.profile_dir={out}")
@@ -894,6 +896,9 @@ def test_profile_dir_writes_a_chrome_trace(data_dir, tmp_path):
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("conv" in n for n in names), sorted(names)[:20]
+    window = result["profile"]   # core/profiling.ProfilerWindow's summary
+    assert window["wall_ms"] > 0 and window["kernel_ms"] > 0
+    assert window["launches"] == {}   # K1's plain version counts nothing
 
 
 def test_run_archive_records_the_git_hash(data_dir, tmp_path):

@@ -32,6 +32,7 @@ from multimodal_rssm_torch.io.jax_weights import state_dict_from_jax
 from multimodal_rssm_torch.models.world_model import WorldModel, init_parameters
 from multimodal_rssm_torch.train import loop
 from multimodal_rssm_torch.train import trainer as tr
+from torch_port_tmp import _remove_module_tmp  # noqa: E402,F401
 
 SMALL = ["rssm.belief_size=64", "rssm.state_size=16", "rssm.hidden_size=64",
          "rssm.embedding_size.image=64", "rssm.embedding_size.sound=32",

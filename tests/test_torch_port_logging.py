@@ -45,6 +45,7 @@ from multimodal_rssm_torch.io.jax_weights import codec_state_dict
 from multimodal_rssm_torch.models import encoders as penc
 from multimodal_rssm_torch.models.world_model import WorldModel
 from multimodal_rssm_torch.parallel import mesh as mesh_lib
+from torch_port_tmp import _remove_module_tmp  # noqa: E402,F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SMALL = ["rssm.belief_size=64", "rssm.state_size=16", "rssm.hidden_size=64",

@@ -63,6 +63,7 @@ from multimodal_rssm_torch.models.layers import BatchNorm, GRUCell
 from multimodal_rssm_torch.models.world_model import WorldModel
 from multimodal_rssm_torch.parallel import launch
 from multimodal_rssm_torch.parallel import mesh as mesh_lib
+from multimodal_rssm_torch.parallel import digests
 from multimodal_rssm_torch.parallel import tensor as tensor_lib
 from multimodal_rssm_torch.train import trainer as tr
 
@@ -71,6 +72,7 @@ from test_torch_port_codecs import SMALL, _batch, _bridged
 from test_torch_port_parallel import (
     WORLD_TIMEOUT_S, _assert_two_tier, _checkpoint, _close, _in_background,
     _jax_step, _logged, _same)
+from torch_port_tmp import _remove_module_tmp  # noqa: E402,F401
 
 B = 4
 OVER = SMALL + [f"train.batch_size={B}", "train.mesh.min_shard_width=1"]
@@ -142,6 +144,7 @@ def worlds(tmp_path_factory, data_dir):
     jcfg, cfg, jm, variables = _bridged(tuple([f"train.batch_size={B}"]))
     jbatch, pbatch = _batch(cfg, 2, Bn=B)
     inputs = {"overrides": OVER, "cases": CASES, "batch": pbatch,
+              "digested": "data2_model2",
               "state_dict": state_dict_from_jax(variables["params"],
                                                 variables["batch_stats"])}
     torch.save(inputs, str(tmp / "inputs.pt"))
@@ -315,6 +318,46 @@ def test_ranks_agree_and_hold_their_columns(steps, worlds, case):
             assert torch.equal(got["blocks"][name], whole.narrow(
                 dim, got["model_rank"] * n, n)), name
     assert any("running_mean" in k for k in first["stats"])   # BatchNorm
+
+
+def test_staged_digests_of_a_model_axis_step_repeat_bit_for_bit(steps):
+    """``data=2 x model=2``: the same step run twice in one world gives
+    bit-equal staged digests (``parallel/digests.py``) on every rank, at
+    every stage and for every RSSM step's operands of the GRU's
+    input-to-hidden product; the stages say what each should: a model
+    group's ranks (same rows) agree before any collective, the data
+    group's average and the broadcast leave every replicated gradient one
+    over the world, and a sharded weight's block one over its data group
+    (the step under the instrument equals the JAX package's:
+    ``test_model_axis_step_matches_the_jax_single_device_step``)."""
+    ranks = steps["ranks"]["data2_model2"]
+    for p in ranks:
+        first, again = p["digests"]
+        assert digests.first_parting(first, again) is None
+        rec = first[0]
+        assert tuple(rec["stages"]) == digests.STAGES
+        assert rec["gru"], "no GRU call digested"
+        for row in rec["gru"]:
+            assert None not in row.values(), row
+            assert row["x_forward"] == row["x_backward"]
+            assert row["product_recomputed_equal"] is True
+    stages = [p["digests"][0][0]["stages"] for p in ranks]
+    names = set(stages[0]["local"])   # the parameters the loss reaches
+    blocks = set(ranks[0]["blocks"]) & names
+    assert blocks and blocks < names
+    by_model = {m: [r for r, p in enumerate(ranks) if p["model_rank"] == m]
+                for m in (0, 1)}
+    for name in names - blocks:
+        for group in ((0, 1), (2, 3)):   # the model groups: the same rows
+            assert len({stages[r]["local"][name] for r in group}) == 1, name
+        for stage in ("data_mean", "broadcast"):
+            assert len({s[stage][name] for s in stages}) == 1, (stage, name)
+    assert any(stages[0]["local"][n] != stages[2]["local"][n]
+               for n in names - blocks)   # the data groups' rows differ
+    for name in blocks:
+        for ranks_m in by_model.values():
+            for stage in ("data_mean", "broadcast"):
+                assert len({stages[r][stage][name] for r in ranks_m}) == 1
 
 
 @pytest.mark.parametrize("case", ["data1_model2_remat",

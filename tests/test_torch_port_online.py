@@ -44,6 +44,7 @@ from multimodal_rssm_torch.train import online
 from tests.test_env_zoo import (
     FakeClassicGym, FakeDMControl, FakeGymnasium, FakeRobosuite)
 from tests.test_online import _CounterEnv
+from torch_port_tmp import _remove_module_tmp  # noqa: E402,F401
 
 SMALL = ["rssm.belief_size=64", "rssm.state_size=16", "rssm.hidden_size=64",
          "rssm.embedding_size.image=64", "rssm.embedding_size.sound=32",

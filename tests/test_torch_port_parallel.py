@@ -58,6 +58,7 @@ from multimodal_rssm_torch.train import trainer as tr
 
 import torch_port_parallel_cases as cases
 from test_torch_port_codecs import SMALL, _batch, _bridged, _np_tree
+from torch_port_tmp import _remove_module_tmp  # noqa: E402,F401
 
 WORLD_TIMEOUT_S = 600.0
 B, LR = 4, 1e-3

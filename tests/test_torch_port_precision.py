@@ -142,6 +142,7 @@ from multimodal_rssm_torch.models import dtype_map as dm
 from multimodal_rssm_torch.models import layers
 from multimodal_rssm_torch.models.world_model import WorldModel
 from multimodal_rssm_torch.train import trainer as tr
+from torch_port_tmp import _remove_module_tmp  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "torch_port_fixtures",

@@ -49,6 +49,7 @@ from multimodal_rssm_torch.ops import keyed_noise
 from multimodal_rssm_torch.train import planner as plan_mod
 from tests.test_torch_port_control import (  # noqa: F401  (fixtures)
     PLANNER, _configs, _heads, _jax_cem, jax_side_modes, world)
+from torch_port_tmp import _remove_module_tmp  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, A, HB, S = 2, 3, 64, 16

@@ -352,6 +352,108 @@ def test_profile_step_takes_the_jax_scripts_flags():
             defaults.override) == (50, 50, False, [])
 
 
+def test_profiler_window_keeps_quiet_edges_outside_its_timed_span(
+        monkeypatch, tmp_path):
+    """``core/profiling.ProfilerWindow`` (op_profile's, profile_step's and
+    the train loop's window) on the CPU: ``EDGE_GAP_S`` of sleep after it
+    opens and before it closes, both outside the timed span; the kernel
+    (here: operator) time, the wall time and the idle share of that span;
+    the launches the wrappers counted inside the window only; a warm-up
+    step traced and dropped."""
+    import time
+
+    from multimodal_rssm_torch.core import profiling
+    from multimodal_rssm_torch.ops import cuda_kernels as ck
+
+    events = []
+
+    class Clock:
+        def sleep(self, seconds):
+            events.append(("sleep", seconds))
+            time.sleep(seconds)
+
+        def perf_counter(self):
+            events.append(("clock",))
+            return time.perf_counter()
+
+    monkeypatch.setattr(profiling, "time", Clock())
+    k1 = ck._all_kernels()["normalize_image"]
+    monkeypatch.setattr(k1, "launches", k1.launches + 5)
+    x = torch.randn(64, 64)
+    with profiling.ProfilerWindow(torch.device("cpu")) as window:
+        events.append(("work",))
+        for _ in range(3):
+            x = torch.tanh(x @ x.t())
+        k1.launches += 2
+    assert [e[0] for e in events] == ["sleep", "clock", "work", "clock",
+                                      "sleep"]
+    assert events[0][1] == events[-1][1] == profiling.EDGE_GAP_S
+    assert window.launches == {"normalize_image": 2}
+    s = window.summary()
+    assert s["launches"] == window.launches
+    assert 0 < s["kernel_ms"] and 0 < s["wall_ms"]
+    assert s["device_idle_share"] == pytest.approx(
+        1 - s["kernel_ms"] / s["wall_ms"])
+    names = {name for name, _, _ in window.kernels()}
+    assert {"aten::mm", "aten::tanh"} <= names
+
+    events.clear()
+    warm = profiling.ProfilerWindow(torch.device("cpu")).open(
+        warmup=lambda: torch.sin(x))
+    torch.cos(x)
+    warm.close()
+    names = {name for name, _, _ in warm.kernels()}
+    assert "aten::cos" in names and "aten::sin" not in names
+    assert not any(n.startswith("ProfilerStep") for n in names)
+    assert [e[0] for e in events] == ["sleep", "clock", "clock", "sleep"]
+
+    assert s["hand_written_in_trace"] == {}   # no kernel on the CPU
+
+
+def test_profiler_window_reads_only_the_timed_spans_kernels():
+    """``ProfilerWindow`` on a CUDA device, its profiler's records faked
+    (no card here): the window's own empty warm-up kernels (ATen's
+    ``spin_kernel``) and the annotations mirrored onto the device are left
+    out of the kernel time, the counts and the idle share; K1's records
+    are counted; a window that traces the host as well names its idle
+    share ``device_idle_share_host_traced``, one of the card alone
+    ``device_idle_share``."""
+    from types import SimpleNamespace
+
+    from multimodal_rssm_torch.core import profiling
+
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def record(name, us, device=cuda, annotation=False):
+        return SimpleNamespace(
+            name=lambda: name, duration_ns=lambda: int(us * 1e3),
+            device_type=lambda: device,
+            is_user_annotation=lambda: annotation)
+
+    records = (
+        [record("at::cuda::(anonymous namespace)::spin_kernel(long)", 2.0)]
+        * profiling.WARMUP_LAUNCHES
+        + [record("ProfilerStep#1", 900.0, annotation=True),
+           record("normalize_image_kernel", 30.0),
+           record("normalize_image_kernel", 30.0),
+           record("sm90_xmma_gemm_bf16", 240.0),
+           record("aten::mm", 500.0, device=torch.autograd.DeviceType.CPU)])
+    kineto = SimpleNamespace(events=lambda: records)
+    for cpu, key in ((True, "device_idle_share_host_traced"),
+                     (False, "device_idle_share")):
+        window = profiling.ProfilerWindow(torch.device("cuda"), cpu=cpu)
+        window.prof = SimpleNamespace(
+            profiler=SimpleNamespace(kineto_results=kineto))
+        window.wall_ms, window.launches = 1.0, {"normalize_image": 2}
+        assert sorted(window.kernels()) == [
+            ("normalize_image_kernel", 60.0, 2),
+            ("sm90_xmma_gemm_bf16", 240.0, 1)]
+        s = window.summary()
+        assert s["kernel_ms"] == pytest.approx(0.3)
+        assert s[key] == pytest.approx(0.7) and len(s) == 5
+        assert s["hand_written_in_trace"] == {"normalize_image": 2}
+
+
 def test_step_setup_and_profile_step_device(monkeypatch):
     """``build_step_setup`` on the CPU: the synthetic batch's layout, K1's
     flag resolved to the plain path there, one step's finite loss;

@@ -22,6 +22,7 @@ from multimodal_rssm_torch.models.world_model import WorldModel
 from multimodal_rssm_torch.parallel import feed
 from multimodal_rssm_torch.parallel import mesh as mesh_lib
 from multimodal_rssm_torch.parallel import tensor as tensor_lib
+from multimodal_rssm_torch.parallel.digests import StagedDigests
 from multimodal_rssm_torch.train import trainer as tr
 
 TIMEOUT_S = 300.0   # a collective (or the rendezvous) waiting longer fails
@@ -206,8 +207,9 @@ def sigterm_world(rank, nprocs, init_method, argv, signal_rank, signal_step,
 def model_axis_world(rank, nprocs, init_method, in_path, out_dir):
     """The model-axis step cases of this world's size (``inputs["cases"]``:
     name -> (world size, overrides)), each on the same weights and batch,
-    with this rank's groups; in a world of 2, the refusals of meshes that
-    do not cover it."""
+    with this rank's groups and its staged digests (the case
+    ``inputs["digested"]`` twice); in a world of 2, the refusals of meshes
+    that do not cover it."""
     _join(rank, nprocs, init_method)
     inputs = torch.load(in_path, weights_only=False)
     for name, (size, overrides) in inputs["cases"].items():
@@ -217,8 +219,13 @@ def model_axis_world(rank, nprocs, init_method, in_path, out_dir):
         mesh = mesh_lib.mesh_from_config(cfg, "cpu")
         dp = mesh_lib.data_parallel(mesh, int(cfg.train.batch_size),
                                     tr.resolve_grad_accum(cfg))
-        out = deterministic_step(cfg, inputs["state_dict"], inputs["batch"],
-                                 dp)
+        runs = []
+        for _ in range(2 if name == inputs.get("digested") else 1):
+            with StagedDigests(1) as digests:
+                out = deterministic_step(cfg, inputs["state_dict"],
+                                         inputs["batch"], dp)
+            runs.append(digests.records)
+        out["digests"] = runs
         out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
         out["rows"] = dp.train.rows.tolist()
         out["data_rank"], out["model_rank"] = dp.train.rank, dp.model.rank
@@ -264,3 +271,4 @@ def gpu_model_axis_world(rank, nprocs, init_method, backend, in_path,
     out["model_rank"] = dp.model.rank
     torch.save(out, os.path.join(out_dir, f"gpu_model_axis_{rank}.pt"))
     dist.destroy_process_group()
+
