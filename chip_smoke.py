@@ -62,22 +62,27 @@ each printed as one JSON line:
                (d) data=2 x model=2
                through the train CLI, four ranks joined as torchrun joins
                them (over gloo on one card: more ranks than cards), batch
-               8 x chunk 10, each run a world of four fresh processes:
-               3 steps, then a 5-step run, each rank's
-               staged digests at steps 1-3 (parallel/digests.py: every
-               gradient after the backward, the data group's average and
-               the broadcast, and the GRU's input-to-hidden product's
-               operands at every RSSM step; where the two runs part:
-               rank, stage, step and operand, F6), --resume to 5
-               bit-equal to the 5-step run, the checkpoint whole and read
+               8 x chunk 10, in two worlds of four fresh processes: the
+               5-step run in one; in the other 3 steps, then --resume to 5
+               as a second CLI call of the same processes (everything
+               built anew from the checkpoint file), bit-equal to the
+               5-step run; each rank's staged digests at steps 1-3
+               (parallel/digests.py: the weights as placed, the step's
+               inputs and forward, its kernels, every gradient after the
+               backward, the data group's average and the broadcast, and
+               the GRU's input-to-hidden product's operands at every RSSM
+               step; where the two worlds part: rank, stage, step and
+               tensor or kernel, F6); the checkpoint whole and read
                mesh-less by the check_model CLI (`python3 chip_smoke.py
                --model-axis` runs the build and (c), (d) alone;
-               `--model-axis-pairs [arm ...]` runs (d)'s worlds in pairs,
-               one arm of them beside a process that holds most of the
-               card's memory; `--recompute-step [arm ...]` repeats (d)'s
-               step 1 in one data=2 x model=2 world, with the staged
-               digests, quiet or beside busy host cores, or compares fresh
-               worlds of (d)'s CLI one step each);
+               `--recompute-step [arm ...]` is F6's harness: fresh
+               data=2 x model=2 worlds of (d)'s CLI for one step ("cli",
+               "cli+flag", "cli+fill"), of the step without the CLI
+               ("fresh") or of the weights' placement alone
+               ("place+fresh"; "place": repeated in one world), compared
+               world against world with the staged digests;
+               `--init-draws` reads the first parameter draw of fresh
+               processes, F6's cause);
 3b. feed    -- the same CLI on a dataset of a real set's size (360 x 120
                episodes, 43,200 rows, 0.97 GB; experience_size to match),
                5 steps a run, with train.device_replay=true (the whole
@@ -145,7 +150,7 @@ each printed as one JSON line:
                K1 at [1, 1, 64, 64, 3], bit-equal, its graph device time
                against its bytes bound;
 3g. bridges -- a user's files in and out, at full width, in 3c's temp dir:
-               5 raw recordings of 60 frames of 480 x 640 (sound,
+               3 raw recordings of 60 frames of 480 x 640 (sound,
                pose_quat, servo_value) built by data/dataset_builder
                (binary channels; host s per episode); the train CLI on the
                built set, 16 steps (batch 50 x chunk 50, bf16, K1 on) with
@@ -185,13 +190,15 @@ each printed as one JSON line:
                over HTTP (a 3-frame streaming carry equal to the direct
                calls; 400 for a missing input and an unknown artifact, 404
                for an unknown path), ms per call at batch 1 direct and over
-               HTTP (median of 10 after 3), and no kernel launched;
+               HTTP (median of 10 after 3, timed once the learning gate of
+               6, which runs beside the export and the checks, has ended),
+               and no kernel launched;
 3d. budget  -- in a fresh process, as the CLI starts, for the default
                configuration and for the 256 px GroupNorm one: a
                device-resident replay as large as hbm_budget_bytes allows
                at the configuration's reserve (step_reserve_bytes; rows
-               tiled from a small dataset), 6 full-width steps with an
-               async checkpoint after step 3: no out-of-memory, finite
+               tiled from a small dataset), 4 full-width steps with an
+               async checkpoint after step 2: no out-of-memory, finite
                losses, and what the run needed beyond the replay (peak
                reserved, memory outside the allocator) against the
                reserve;
@@ -270,7 +277,7 @@ each printed as one JSON line:
                warm-up: K1 in its trace as often as its wrapper counted it
                in the window), micro_bench (the six codec cases' fwd and
                fwd+bwd ms), profile_host_feed (each host-feed component, 2
-               calls each), sweep_perf (remat and poe, 2 steps each, no row
+               calls each), sweep_perf (poe, 2 steps, no row
                FAILED) and bench_scaling (1x1, 2 steps); K1 once per step
                of each tool that steps; in a process of its own
                (`python3 chip_smoke.py --tools`, which builds the
@@ -278,10 +285,12 @@ each printed as one JSON line:
                alone; `--profiler-edges` times the profiler's window
                edges against the kernels launched at them);
 
-6. quality -- the learning gate (cli/quality_gate.py): the default
-               configuration, seed 0, 300 iterations at batch 8 x chunk 20
-               through the port's CLIs, every metric inside the committed
-               cuda window, the JAX package's tpu window read beside it.
+6. quality -- the learning gate (cli/quality_gate.py), in processes of
+               its own beside 3h's export and checks (the card nearly idle
+               there): the default configuration, seed 0, 300 iterations
+               at batch 8 x chunk 20 through the port's CLIs, every metric
+               inside the committed cuda window, the JAX package's tpu
+               window read beside it; its line comes before 3h's.
 
 Every phase's line carries its wall_seconds.  Then a "total" line (the
 script's seconds and each phase's), the {"kernels": [...]} line, the card's
@@ -1504,7 +1513,7 @@ def phase_control(tmp: str, run_dir: str, device_name: str) -> dict:
         "train_online": online_launches}, "frame_shape": frame}
 
 
-BRIDGE_EPISODES = 5          # raw recordings: 4 train + 1 validation
+BRIDGE_EPISODES = 3          # raw recordings: 2 train + 1 validation
 BRIDGE_T = 60                # frames a recording
 BRIDGE_FRAME = (480, 640)    # a VGA camera, resized to 256 / 128 / 64
 BRIDGE_STEPS = 16            # the profiler's window is steps 10-15
@@ -2036,7 +2045,7 @@ def _http_error(url: str, arrays: Optional[dict] = None) -> int:
     raise AssertionError(f"{url} answered 200")
 
 
-def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
+def phase_serve(tmp: str, run_dir: str, device_name: str):
     """Serving on the checkpoint phase's run (models_6.pt, the default
     configuration at full width, trained in bf16, with the control phase's
     behavior/ checkpoint): the export CLI (all four artifacts at batch 1,
@@ -2051,7 +2060,11 @@ def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
     400 for a missing input and an unknown artifact, 404 for an unknown
     path), ms per call at batch 1 direct and over HTTP (median of
     SERVE_CALLS after SERVE_WARMUP, synchronised), and no kernel launched
-    (serving normalises without K1, as the JAX package's artifacts do)."""
+    (serving normalises without K1, as the JAX package's artifacts do).
+    A generator: its first ``next`` runs the export and the checks and
+    stops before the timed calls, the second ends the phase (``main``
+    waits there for the learning gate, which runs beside the export and
+    the checks and not beside the timed calls)."""
     import threading
 
     import numpy as np
@@ -2213,6 +2226,7 @@ def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
             raise AssertionError(f"serve errors: {errors}")
 
         # 4. ms per call at batch 1, direct and over HTTP
+        yield
         timing = {}
         for name in ("filter_step", "decode", "agent_step", "plan_step"):
             fn = arts[name][0]
@@ -2253,18 +2267,50 @@ def phase_serve(tmp: str, run_dir: str, device_name: str) -> dict:
     return record
 
 
-def phase_quality(tmp: str) -> dict:
-    """The learning gate (cli/quality_gate.py) on the card: the default
-    configuration, seed 0, 300 iterations at batch 8 x chunk 20 through the
-    port's own CLIs, every metric inside the committed ``cuda`` window; the
-    reading against the JAX package's ``tpu`` window beside it."""
-    from multimodal_rssm_torch.cli import quality_gate as qg
+def start_quality(tmp: str) -> dict:
+    """The learning gate (``python -m multimodal_rssm_torch.cli.quality_gate
+    --config default --seed 0``) on the card, started as a process of its
+    own with its output in ``tmp`` (the whole script runs it beside phase
+    serve's export and checks, which leave the card nearly idle): the
+    default configuration, seed 0, 300 iterations at batch 8 x chunk 20
+    through the port's own CLIs.  ``finish_quality`` waits for it."""
+    log = os.path.join(tmp, "quality_gate.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "multimodal_rssm_torch.cli.quality_gate",
+             "--config", "default", "--seed", "0", "--workdir",
+             os.path.join(tmp, "work")], cwd=REPO, stdout=f,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    return {"proc": proc, "log": log, "started": time.time()}
 
-    t0 = time.perf_counter()
-    summary = qg.gate(qg.parse_args(["--config", "default", "--seed", "0",
-                                     "--workdir", tmp]))
-    record = {"phase": "quality", **summary,
-              "wall_seconds": time.perf_counter() - t0}
+
+def finish_quality(gate: dict) -> dict:
+    """Wait for ``start_quality``'s gate and hold every metric inside the
+    committed ``cuda`` window (the reading against the JAX package's
+    ``tpu`` window beside it); its seconds from its start to its last line
+    of output."""
+    rc = gate["proc"].wait()
+    with open(gate["log"]) as f:
+        lines = f.read().splitlines()
+    if rc not in (0, 1) or not lines or not lines[-1].startswith("{"):
+        print("\n".join(lines[-40:]), file=sys.stderr)
+        raise RuntimeError(f"quality_gate exited {rc} without its summary")
+    return _quality_record(json.loads(lines[-1]),
+                           os.stat(gate["log"]).st_mtime - gate["started"])
+
+
+def stop_quality(gate: dict) -> None:
+    """End ``start_quality``'s gate and the processes it started, if it
+    still runs."""
+    import signal
+
+    if gate["proc"].poll() is None:
+        os.killpg(gate["proc"].pid, signal.SIGKILL)
+    gate["proc"].wait()
+
+
+def _quality_record(summary: dict, seconds: float) -> dict:
+    record = {"phase": "quality", **summary, "wall_seconds": seconds}
     emit(record)
     if summary["rc"] != 0 or not _finite(summary["metrics"].values()):
         raise AssertionError(f"quality gate: rc {summary['rc']}, failures "
@@ -2272,14 +2318,19 @@ def phase_quality(tmp: str) -> dict:
     return record
 
 
+BUDGET_STEPS = 4     # a budget run's full-width steps
+BUDGET_SAVE_AT = 2   # its async checkpoint: the clones held for two steps
+
+
 def budget_run(reserve_bytes: Optional[int], overrides=()) -> dict:
     """In a fresh process, as the train CLI starts: the model of the
     default configuration with ``overrides`` on the card, then a
     device-resident replay as large as ``hbm_budget_bytes`` allows at
     ``reserve_bytes`` (None: the port's ``step_reserve_bytes`` of the
-    configuration; rows tiled from a small synthetic set), then six
-    full-width steps from it with an async checkpoint after step 3 (its
-    clones on the card inside the window).  Returns the memory readings;
+    configuration; rows tiled from a small synthetic set), then
+    ``BUDGET_STEPS`` full-width steps from it with an async checkpoint
+    after step ``BUDGET_SAVE_AT`` (its clones on the card inside the
+    window).  Returns the memory readings;
     ``oom`` if a step ran out."""
     import numpy as np
     import torch
@@ -2335,13 +2386,13 @@ def budget_run(reserve_bytes: Optional[int], overrides=()) -> dict:
         saver = ckpt.AsyncCheckpointer()
         losses, seconds, pending = [], [], None
         try:
-            for step in range(1, 7):
+            for step in range(1, BUDGET_STEPS + 1):
                 t0 = time.perf_counter()
                 starts = rng.integers(0, rows - L + 1, size=B)
                 idxs = db.indices_to_device(starts[:, None] + np.arange(L),
                                             dev)
                 metrics = train_step(arrays, idxs, draws.draw(), gen)
-                if step == 3:
+                if step == BUDGET_SAVE_AT:
                     saver.save(tmp, step, model, optimizer, scheduler, {})
                 if pending is not None:    # read back a step late, as the loop
                     losses.append(float(pending))
@@ -3485,13 +3536,6 @@ MODEL_AXIS_RTOL, MODEL_AXIS_ATOL = 2e-2, 5e-4
 # for the other ranks' work on the shared card)
 MODEL_AXIS_CLI_BATCH, MODEL_AXIS_CLI_CHUNK = 8, 10
 MODEL_AXIS_CLI_STEPS = (3, 5)   # (d): the run resumed, and the whole run
-# --model-axis-pairs: the arms (model_axis_cli_rank's ``strict``) and how
-# many (3-step, 5-step) pairs of (d)'s worlds each runs at once on the card
-MODEL_AXIS_PAIR_ARMS = (None, "flag", "fill", "memory")
-MODEL_AXIS_PAIRS = 2
-# arm "memory": what the held card leaves free for a world's four ranks
-# (each peaks at 1.3-2.0 GiB allocated in (d), plus its CUDA context)
-MEMORY_ARM_LEAVE_GIB = 16.0
 
 
 def model_axis_rank(rank: int, nprocs: int, init_method: str, backend: str,
@@ -3622,43 +3666,44 @@ def _traced_model_axis_step(spec: dict, model, bf16_cfg, dev, out_dir: str,
     return out
 
 
-def model_axis_cli_rank(rank: int, nprocs: int, port: int, cards: int,
-                        name: str, argv: list, out_dir: str,
-                        strict: Optional[str] = None) -> None:
-    """One rank of (d)'s world: the train CLI joined as ``torchrun`` joins
-    it (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``;
-    every rank sees the one card), with deterministic cuDNN, so that a
-    resumed run can equal the whole one bit for bit (``strict``: "flag"
-    adds ``torch.use_deterministic_algorithms``, "fill" that and its fill
-    of uninitialised memory), the first ``F6_STEPS`` steps' staged digests
-    recorded (``parallel/digests.py``); writes the rank's backend, K1
-    launches, peak memory, digests, seconds and result to
-    ``cli{rank}_{name}.pt``."""
+def model_axis_cli_rank(rank: int, nprocs: int, cards: int, runs: list,
+                        out_dir: str, strict: Optional[str] = None) -> None:
+    """One rank of (d)'s world: for each (name, argv, port) of ``runs`` in
+    turn, the train CLI joined as ``torchrun`` joins it (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``; every rank sees the
+    one card), with deterministic cuDNN, so that a resumed run can equal
+    the whole one bit for bit (``strict`` as ``_strict``), the first
+    ``F6_STEPS`` steps' staged digests recorded (``parallel/digests.py``);
+    writes the rank's backend, K1 launches, peak memory, digests, seconds
+    and result to ``cli{rank}_{name}.pt``.  A later run of ``runs`` (a
+    ``--resume``) starts in the same process from what the earlier one
+    wrote."""
     import torch
 
-    _join_as_torchrun(rank, nprocs, port, cards)
+    _join_as_torchrun(rank, nprocs, runs[0][2], cards)
     from multimodal_rssm_torch.cli.train import main as train_main
     from multimodal_rssm_torch.ops import cuda_kernels as ck
     from multimodal_rssm_torch.parallel.digests import StagedDigests
     from multimodal_rssm_torch.parallel.mesh import default_backend
 
-    torch.backends.cudnn.deterministic = True
-    if strict is not None:
-        torch.use_deterministic_algorithms(True)
-        torch.utils.deterministic.fill_uninitialized_memory = (
-            strict == "fill")
-    ck.reset_launch_counts()
-    t0 = time.perf_counter()
-    with StagedDigests(F6_STEPS) as digests:
-        result = train_main(argv)
-    torch.save({"backend": default_backend(torch.device("cuda")),
-                "launches": ck.launch_counts(),
-                "max_memory_allocated_GiB":
-                    torch.cuda.max_memory_allocated() / 2 ** 30,
-                "digests": digests.records,
-                "seconds": time.perf_counter() - t0,
-                "result": {k: v for k, v in result.items() if k != "model"}},
-               os.path.join(out_dir, f"cli{rank}_{name}.pt"))
+    _strict(strict)
+    for name, argv, port in runs:
+        os.environ["MASTER_PORT"] = str(port)
+        ck.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with StagedDigests(F6_STEPS) as digests:
+            result = train_main(argv)
+        torch.save({"backend": default_backend(torch.device("cuda")),
+                    "launches": ck.launch_counts(),
+                    "max_memory_allocated_GiB":
+                        torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "digests": digests.records,
+                    "seconds": time.perf_counter() - t0,
+                    "result": {k: v for k, v in result.items()
+                               if k != "model"}},
+                   os.path.join(out_dir, f"cli{rank}_{name}.pt"))
+        del result
 
 
 def _join_as_torchrun(rank: int, nprocs: int, port: int, cards: int
@@ -3955,31 +4000,45 @@ def phase_model_axis(tmp: str, device_name: str, traced: bool = False
     d_backend = "nccl" if cards >= 4 else "gloo"
     tail = _model_axis_cli_tail(tmp)
     first, whole = MODEL_AXIS_CLI_STEPS
-    worlds = {"first": _model_axis_cli_argv(tmp, first, "model_axis_cli_3"),
-              "whole": _model_axis_cli_argv(tmp, whole, "model_axis_cli_5")}
+    resume = [f"train.train_iteration={whole}",
+              f"train.checkpoint_interval={whole}",
+              "main.experiment_name=model_axis_cli_3", "--resume", "latest",
+              *tail]
+    worlds = {"whole": [("whole", _model_axis_cli_argv(
+                  tmp, whole, "model_axis_cli_5"))],
+              "first": [("first", _model_axis_cli_argv(
+                  tmp, first, "model_axis_cli_3")), ("resume", resume)]}
 
-    def cli_world(name, argv):
-        out_dir = os.path.join(tmp, f"model_axis_cli_{name}")
+    def cli_world(world, runs):
+        out_dir = os.path.join(tmp, f"model_axis_cli_{world}")
         os.makedirs(out_dir, exist_ok=True)
+        ports = set()
+        while len(ports) < len(runs):
+            ports.add(_free_port())
         t0 = time.perf_counter()
-        launch.spawn(model_axis_cli_rank, 4, (4, _free_port(), cards, name,
-                                              argv, out_dir),
-                     timeout=PARALLEL_WORLD_S)
-        got = [torch.load(os.path.join(out_dir, f"cli{r}_{name}.pt"),
-                          weights_only=False) for r in range(4)]
-        got[0]["wall_seconds"] = time.perf_counter() - t0
-        return got
+        launch.spawn(model_axis_cli_rank, 4, (
+            4, cards, [(name, argv, port)
+                       for (name, argv), port in zip(runs, sorted(ports))],
+            out_dir), timeout=PARALLEL_WORLD_S)
+        wall = time.perf_counter() - t0
+        out = {}
+        for name, _ in runs:
+            out[name] = [torch.load(os.path.join(out_dir,
+                                                 f"cli{r}_{name}.pt"),
+                                    weights_only=False) for r in range(4)]
+            out[name][0]["wall_seconds"] = wall
+        return out
 
-    # one world at a time, each in fresh processes as a user's torchrun
-    # starts it, so that the resume check holds the checkpoint alone and a
-    # resumed run is a new process; F6 shows only between fresh processes
-    # (PERF.md), and the staged digests name a parting's rank, stage and
-    # RSSM step
-    cli = {name: cli_world(name, argv) for name, argv in worlds.items()}
-    cli["resume"] = cli_world("resume", [
-        f"train.train_iteration={whole}",
-        f"train.checkpoint_interval={whole}", "--resume",
-        cli["first"][0]["result"]["results_dir"], *tail])
+    # two worlds one after the other, each in fresh processes as a user's
+    # torchrun starts them: the whole run in one, the first three steps
+    # and then their --resume (a second CLI call of the same processes,
+    # which builds everything anew and reads the checkpoint file alone) in
+    # the other, so the resume check and the staged digests compare two
+    # fresh worlds (F6 showed only between fresh processes: PERF.md), and
+    # the digests name a parting's rank, stage and RSSM step
+    cli = {}
+    for world, runs in worlds.items():
+        cli.update(cli_world(world, runs))
     run_dir = cli["first"][0]["result"]["results_dir"]
     resumed = _metric_lines(run_dir)
     straight_dir = cli["whole"][0]["result"]["results_dir"]
@@ -4140,139 +4199,6 @@ def k1_under_a_mesh(device_name: str) -> dict:
     return out
 
 
-def phase_model_axis_pairs(tmp: str, arms=MODEL_AXIS_PAIR_ARMS) -> dict:
-    """Whether (d)'s 3-step and 5-step worlds log the same steps 1-3 when
-    they share the card at once ((d) runs them one at a time): for each
-    arm of ``arms`` (deterministic cuDNN; and
-    ``torch.use_deterministic_algorithms``; and that with its fill of
-    uninitialised memory), ``MODEL_AXIS_PAIRS`` pairs side by side, four
-    worlds of four ranks.  Arm "memory" (deterministic cuDNN) runs each
-    pair's 3-step world while another process holds all but
-    ``MEMORY_ARM_LEAVE_GIB`` of the card's free memory, then its 5-step
-    world alone, pair after pair.  Per pair: the steps whose logged
-    metrics differ, the loss's largest relative difference, and each
-    rank's first parting of its staged digests (``_partings``);
-    and how far each run's steps differ from the first pair's 5-step run
-    of the first arm.  ``python3 chip_smoke.py --model-axis-pairs [arm
-    ...]`` ("cudnn" names the first arm)."""
-    import threading
-
-    import torch
-
-    from multimodal_rssm_torch.parallel import launch
-
-    cards = torch.cuda.device_count()
-    record = {"phase": "parallel/model_axis_pairs", "cards": cards,
-              "arms": {}}
-    reference = None
-    t_phase = time.perf_counter()
-    for arm in arms:
-        label = arm or "cudnn"
-        strict = arm if arm in ("flag", "fill") else None
-        runs, digests, errors = {}, {}, []
-
-        def world(key, steps):
-            name = f"pairs_{label}_{key}"
-            out_dir = os.path.join(tmp, name)
-            os.makedirs(out_dir, exist_ok=True)
-            try:
-                launch.spawn(model_axis_cli_rank, 4, (
-                    4, _free_port(), cards, name,
-                    _model_axis_cli_argv(tmp, steps, name), out_dir, strict),
-                    timeout=PARALLEL_WORLD_S)
-                ranks = [torch.load(os.path.join(out_dir,
-                                                 f"cli{r}_{name}.pt"),
-                                    weights_only=False) for r in range(4)]
-                runs[key] = _metric_lines(ranks[0]["result"]["results_dir"])
-                digests[key] = [r["digests"] for r in ranks]
-            except Exception as e:   # recorded: the probe measures
-                errors.append(f"{key}: {e!r}"[-3000:])
-
-        t0 = time.perf_counter()
-        keys = [(f"{i}_{n}", n) for i in range(MODEL_AXIS_PAIRS)
-                for n in MODEL_AXIS_CLI_STEPS]
-        held = []
-        if arm == "memory":
-            for key, n in keys:
-                if n == MODEL_AXIS_CLI_STEPS[0]:
-                    with _memory_held(MEMORY_ARM_LEAVE_GIB) as h:
-                        held.append(h)
-                        world(key, n)
-                else:
-                    world(key, n)
-        else:
-            threads = [threading.Thread(target=world, args=kn)
-                       for kn in keys]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
-        rec = {"wall_seconds": time.perf_counter() - t0, "errors": errors,
-               "pairs": []}
-        if held:
-            rec["memory_held"] = held
-        first = MODEL_AXIS_CLI_STEPS[0]
-        early = {key: [r for r in lines if r["step"] <= first]
-                 for key, lines in runs.items()}
-        if reference is None and f"0_{MODEL_AXIS_CLI_STEPS[1]}" in early:
-            reference = early[f"0_{MODEL_AXIS_CLI_STEPS[1]}"]
-        for i in range(MODEL_AXIS_PAIRS):
-            a, b = (f"{i}_{n}" for n in MODEL_AXIS_CLI_STEPS)
-            if a not in early or b not in early:
-                continue
-            rec["pairs"].append({
-                "differ_at": _differ_at(early[a], early[b]),
-                "loss_max_rel": _loss_rel(early[a], early[b]),
-                "first_parting": _partings(digests[a], digests[b])})
-        rec["against_reference"] = {
-            key: _differ_at(lines, reference) for key, lines in early.items()
-            if reference is not None}
-        rec["finite"] = all(math.isfinite(v) for lines in early.values()
-                            for r in lines for v in r.values()
-                            if isinstance(v, float))
-        record["arms"][label] = rec
-    record["wall_seconds"] = time.perf_counter() - t_phase
-    return record
-
-
-@contextlib.contextmanager
-def _memory_held(leave_gib: float):
-    """Within the block another process (``chip_smoke.py --hold-memory``)
-    holds all but ``leave_gib`` GiB of the card's free memory; yields
-    {the GiB it holds, the GiB free beside it}."""
-    import torch
-
-    hog = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--hold-memory",
-         str(leave_gib)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-        text=True)
-    try:
-        line = hog.stdout.readline()
-        if not line:
-            raise RuntimeError(f"--hold-memory exited {hog.wait()}")
-        free, _ = torch.cuda.mem_get_info()
-        yield {**json.loads(line), "free_GiB": free / 2 ** 30}
-    finally:
-        hog.stdin.close()
-        try:
-            hog.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            hog.kill()
-            hog.wait()
-
-
-def hold_memory(leave_gib: float) -> None:
-    """Hold all but ``leave_gib`` GiB of the card's free memory until stdin
-    closes (``_memory_held``'s other process)."""
-    import torch
-
-    free, _ = torch.cuda.mem_get_info()
-    held = torch.empty(max(free - int(leave_gib * 2 ** 30), 0),
-                       dtype=torch.uint8, device="cuda")
-    print(json.dumps({"held_GiB": held.numel() / 2 ** 30}), flush=True)
-    sys.stdin.read()
-
-
 def profiler_edges(seconds: float = 90.0, launches: int = 20) -> dict:
     """op_profile's window edges on the card: for ``seconds``, profiler
     windows (CPU and CUDA activity, one warm-up step, as op_profile) around
@@ -4334,21 +4260,42 @@ def profiler_edges(seconds: float = 90.0, launches: int = 20) -> dict:
     return out
 
 
-# --recompute-step: the trials of step 1 in one world, and the arms
+# --recompute-step: the arms (arm -> the ranks' work, fresh worlds or one,
+# model_axis_cli_rank's ``strict``), the trials of an arm in one world, and
+# the most fresh worlds an arm starts, stopping once this many have parted
+RECOMPUTE_ARMS = {"cli": ("cli", True, None), "cli+flag": ("cli", True, "flag"),
+                  "cli+fill": ("cli", True, "fill"),
+                  "fresh": ("step", True, None),
+                  "place": ("place", False, None),
+                  "place+fresh": ("place", True, None)}
 RECOMPUTE_TRIALS = 24
-RECOMPUTE_ARMS = ("quiet", "busy", "cli")
+RECOMPUTE_WORLDS = 32
+RECOMPUTE_PARTINGS = 3
+
+
+def _strict(strict: Optional[str]) -> None:
+    """Deterministic cuDNN; ``strict`` "flag" adds
+    ``torch.use_deterministic_algorithms``, "fill" that and its fill of
+    uninitialised memory."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    if strict is not None:
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = (
+            strict == "fill")
 
 
 def recompute_rank(rank: int, nprocs: int, port: int, cards: int, tmp: str,
-                   out_dir: str, trials: int) -> None:
-    """One rank of ``--recompute-step``'s ``data=2 x model=2`` world, joined
-    as (d)'s ranks join: (d)'s configuration (batch 8 x chunk 10, bf16, K1
+                   out_dir: str, name: str = "step") -> None:
+    """One rank of arm "fresh"'s ``data=2 x model=2`` world, joined as
+    (d)'s ranks join: (d)'s configuration (batch 8 x chunk 10, bf16, K1
     on, deterministic cuDNN), the weights from seed 0, one global batch of
     the replay with its draws and generator seed; step 1 (forward,
     backward, the data group's average, the replicated gradients'
-    broadcast, the clip and Adam) run ``trials`` times from the same
-    weights, running stats and batch, each trial's staged digests recorded
-    (``parallel/digests.py``).  Writes ``rank{rank}.pt``."""
+    broadcast, the clip and Adam) with its staged digests
+    (``parallel/digests.py``), without the train CLI.  Writes
+    ``{name}{rank}.pt``."""
     import torch
     import torch.distributed as dist
 
@@ -4384,41 +4331,114 @@ def recompute_rank(rank: int, nprocs: int, port: int, cards: int, tmp: str,
         tensor_lib.shard_model_(
             model, dp.model, int(cfg.train.mesh.get(
                 "min_shard_width", tensor_lib.MIN_SHARD_WIDTH)), opt)
-        start = {k: v.detach().clone() for k, v in model.state_dict().items()}
         train_step, _ = tr.make_train_step(model, cfg, opt, sched, aug_spec,
                                            dev, kernel_normalize=True, dp=dp)
-        records, losses, seconds = [], [], []
-        for _ in range(trials):
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                for k, v in model.state_dict().items():
-                    v.copy_(start[k])
-            with StagedDigests(1) as digests:
-                metrics = train_step(raw, draws,
-                                     torch.Generator(dev).manual_seed(5))
-            losses.append(float(metrics["loss"]))
-            records.append(digests.records[0])
-            seconds.append(time.perf_counter() - t0)
-        torch.save({"records": records, "losses": losses,
-                    "seconds": seconds, "model_rank": dp.model.rank,
-                    "data_rank": dp.train.rank},
-                   os.path.join(out_dir, f"rank{rank}.pt"))
+        t0 = time.perf_counter()
+        with StagedDigests(1) as digests:
+            metrics = train_step(raw, draws,
+                                 torch.Generator(dev).manual_seed(5))
+        torch.save({"records": digests.records,
+                    "losses": [float(metrics["loss"])],
+                    "seconds": [time.perf_counter() - t0]},
+                   os.path.join(out_dir, f"{name}{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-@contextlib.contextmanager
-def _busy_cores(n: int):
-    """Within the block ``n`` processes spin on the host's cores."""
-    procs = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
-             for _ in range(n)]
+def placement_rank(rank: int, nprocs: int, port: int, cards: int, tmp: str,
+                   out_dir: str, name: str = "place", trials: int = 1
+                   ) -> None:
+    """One rank of arm "place": (d)'s configuration placed as
+    ``train/loop.run`` places it before the first step, ``trials`` times
+    in this process: the dataset, the model initialised on the host from
+    seed 0 and moved to the card, the feed's agreed budget
+    (``select_feed``: two all-reduces), the validation replay, the
+    weights' broadcast from rank 0 and the shard over the model group;
+    each trial's weight digests at every point (``parallel/digests``'s
+    ``weights/...``) and its first parameter's values there.  Writes
+    ``{name}{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    _join_as_torchrun(rank, nprocs, port, cards)
+    from multimodal_rssm_torch.core.config import compose
+    from multimodal_rssm_torch.data.buffer import build_buffer, load_dataset
+    from multimodal_rssm_torch.data.device_buffer import DeviceReplay
+    from multimodal_rssm_torch.models.world_model import (
+        WorldModel, init_parameters)
+    from multimodal_rssm_torch.parallel import digests as dg
+    from multimodal_rssm_torch.parallel import mesh as mesh_lib
+    from multimodal_rssm_torch.parallel import tensor as tensor_lib
+    from multimodal_rssm_torch.train import loop
+    from multimodal_rssm_torch.train import trainer as tr
+
+    torch.backends.cudnn.deterministic = True
+    cfg = compose(overrides=_model_axis_overrides(tmp, 1, "place"))
+    dev = mesh_lib.init_distributed("cuda", timeout_s=PARALLEL_COLLECTIVE_S)
     try:
-        yield n
+        dp = mesh_lib.data_parallel(mesh_lib.mesh_from_config(cfg, "cuda"),
+                                    int(cfg.train.batch_size))
+        D = build_buffer(cfg, seed=0)
+        load_dataset(tmp, D, cfg.train.train_data_path)
+        D_val = build_buffer(cfg, seed=1)
+        load_dataset(tmp, D_val, cfg.train.validation_data_path)
+        records, firsts, seconds = [], [], []
+        for _ in range(trials):
+            t0 = time.perf_counter()
+            model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
+            init_parameters(model, torch.Generator().manual_seed(0))
+            digests = dg.weight_digests(model, "initialised")
+            first = {"initialised": next(model.parameters()).detach().clone()}
+            model.to(dev)
+            tr.build_optimizer(cfg, model)
+            loop.select_feed(cfg, D, dev, 0, dp)
+            DeviceReplay(D_val, dev)
+            digests.update(dg.weight_digests(model, "loaded"))
+            first["loaded"] = next(model.parameters()).detach().cpu()
+            mesh_lib.broadcast_module_(model)
+            digests.update(dg.weight_digests(model, "broadcast"))
+            first["broadcast"] = next(model.parameters()).detach().cpu()
+            tensor_lib.shard_model_(model, dp.model, int(cfg.train.mesh.get(
+                "min_shard_width", tensor_lib.MIN_SHARD_WIDTH)))
+            digests.update(dg.weight_digests(model, "sharded"))
+            records.append({"stages": {"inputs": digests}, "gru": []})
+            firsts.append(first)
+            seconds.append(time.perf_counter() - t0)
+            del model
+        torch.save({"records": records, "losses": [0.0] * trials,
+                    "seconds": seconds, "first_parameter": firsts},
+                   os.path.join(out_dir, f"{name}{rank}.pt"))
     finally:
-        for proc in procs:
-            proc.kill()
-        for proc in procs:
-            proc.wait()
+        dist.destroy_process_group()
+
+
+def _first_parameter_parting(ranks: list, odd: list) -> list:
+    """Arm "place": for each odd trial, where its first parameter differs
+    from the usual trial's at each placement point: how many elements,
+    the first and last flat index, the largest difference, and how many
+    of the odd trial's values there are zero or not finite."""
+    import torch
+
+    out = []
+    for o in odd:
+        got = ranks[o["rank"]]
+        usual = next(i for i in range(len(got["records"]))
+                     if i not in {p["trial"] for p in odd
+                                  if p["rank"] == o["rank"]})
+        entry = {"trial": o["trial"], "rank": o["rank"]}
+        for at, x in got["first_parameter"][o["trial"]].items():
+            y = got["first_parameter"][usual][at]
+            diff = (x != y).reshape(-1).nonzero().reshape(-1)
+            if diff.numel():
+                xd = x.reshape(-1)[diff]
+                entry[at] = {
+                    "elements": int(diff.numel()), "of": x.numel(),
+                    "first": int(diff[0]), "last": int(diff[-1]),
+                    "max_abs": float((xd - y.reshape(-1)[diff]).abs().max()),
+                    "zero": int((xd == 0).sum()),
+                    "nonfinite": int((~torch.isfinite(xd)).sum())}
+        out.append(entry)
+    return out
 
 
 def _odd_trials(records: list) -> list:
@@ -4433,97 +4453,320 @@ def _odd_trials(records: list) -> list:
             for i, (k, r) in enumerate(zip(keys, records)) if k != usual]
 
 
-def recompute_step(tmp: str, arms=RECOMPUTE_ARMS,
-                   trials: int = RECOMPUTE_TRIALS) -> dict:
-    """F6's harness: for each arm, one ``data=2 x model=2`` world of
-    ``recompute_rank`` on the card over gloo, ``trials`` trials of step 1;
-    per arm (one line as it ends) the trials in which some rank's staged
-    digests differ from its usual trial's, with that rank, its first stage,
-    the parameters and the RSSM steps and operands that part.  An arm
-    joins "+"-separated parts: "busy" (as many processes as the host has
-    cores spin beside the world), "cli" (``trials`` fresh worlds of (d)'s CLI for one step,
-    compared world against world: ``_cli_worlds``), "quiet" (none).
-    ``python3 chip_smoke.py --recompute-step [arm ...] [--trials N]``."""
+def _odd(ranks: list) -> list:
+    """Every rank's odd trials, each with its rank."""
+    return [{"rank": r, **o} for r, got in enumerate(ranks)
+            for o in _odd_trials(got["records"])]
+
+
+def recompute_step(tmp: str, arms=("cli",), trials: Optional[int] = None,
+                   out: Optional[str] = None) -> dict:
+    """F6's harness: for each arm of ``RECOMPUTE_ARMS``, ``data=2 x
+    model=2`` worlds of (d)'s configuration on the card over gloo, whose
+    ranks record the staged digests of step 1 (``parallel/digests.py``:
+    inputs, forward, kernels, gradients) or of the weights' placement:
+
+    - "cli", "cli+flag", "cli+fill": fresh worlds of (d)'s train CLI for
+      one step (``model_axis_cli_rank``; its ``strict`` "flag" or "fill");
+    - "fresh": fresh worlds of ``recompute_rank`` (the step without the
+      CLI);
+    - "place+fresh": fresh worlds of ``placement_rank``; "place": one world
+      of it, ``trials`` trials (default ``RECOMPUTE_TRIALS``).
+
+    An arm of fresh worlds starts at most ``trials`` (default
+    ``RECOMPUTE_WORLDS``) and stops once ``RECOMPUTE_PARTINGS`` have
+    parted; it compares world against world.  A trial or world parts where
+    some rank's digests differ from its most frequent one's.  Each arm
+    prints one line as it ends: trials or worlds, partings, and each
+    parting's rank, step, first stage and first tensor or kernel; ``out``:
+    a directory for the whole record (``recompute_step.json``: every
+    parting's stages and RSSM steps).  ``python3 chip_smoke.py
+    --recompute-step [arm ...] [--trials N] [--out DIR]``."""
     import torch
 
     from multimodal_rssm_torch.parallel import launch
 
     cards = torch.cuda.device_count()
-    record = {"phase": "recompute_step", "trials": trials,
+    record = {"phase": "recompute_step",
               "batch": MODEL_AXIS_CLI_BATCH, "chunk": MODEL_AXIS_CLI_CHUNK,
-              "cores": len(os.sched_getaffinity(0)), "arms": {}}
+              "arms": {}}
     for arm in arms:
-        parts = arm.split("+")
+        kind, fresh, strict = RECOMPUTE_ARMS[arm]
         out_dir = os.path.join(tmp, f"recompute_{arm}")
         os.makedirs(out_dir, exist_ok=True)
         t0 = time.perf_counter()
-        with _busy_cores(record["cores"] if "busy" in parts else 0) as busy:
-            if "cli" in parts:
-                ranks = _cli_worlds(tmp, out_dir, trials, cards)
-            else:
-                launch.spawn(recompute_rank, 4, (4, _free_port(), cards, tmp,
-                                                 out_dir, trials),
-                             timeout=PARALLEL_WORLD_S)
-                ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
-                                    weights_only=False) for r in range(4)]
-        odd = [{"rank": r, **o} for r, got in enumerate(ranks)
-               for o in _odd_trials(got["records"])]
+        if fresh:
+            ranks = _fresh_worlds(tmp, out_dir, trials or RECOMPUTE_WORLDS,
+                                  cards, kind, strict)
+        else:
+            launch.spawn(placement_rank, 4, (
+                4, _free_port(), cards, tmp, out_dir, "place",
+                trials or RECOMPUTE_TRIALS), timeout=PARALLEL_WORLD_S)
+            ranks = [torch.load(os.path.join(out_dir, f"place{r}.pt"),
+                                weights_only=False) for r in range(4)]
+        odd = _odd(ranks)
+        runs = len(ranks[0]["records"])
+        seconds = [t for got in ranks for t in got["seconds"][1:]]
         record["arms"][arm] = {
             "wall_seconds": time.perf_counter() - t0,
-            "busy_processes": busy,
-            "worlds": trials if "cli" in parts else 1,
-            "trial_seconds_median": statistics.median(
-                t for got in ranks for t in got["seconds"][1:]),
+            "worlds": runs if fresh else 1, "trials": runs,
+            "trial_seconds_median": statistics.median(seconds or [0.0]),
             "parted_trials": len({o["trial"] for o in odd}),
-            "partings": odd[:24],
+            "partings": odd,
             "losses": sorted({v for got in ranks for v in got["losses"]}),
             "gru_calls_a_step": len(ranks[0]["records"][0]["gru"]),
+            "kernels_a_step": len(ranks[0]["records"][0]["stages"].get(
+                "kernels", {})),
             "products_recomputed_equal": all(
                 row["product_recomputed_equal"] for got in ranks
                 for rec in got["records"] for row in rec["gru"])}
-        emit({"phase": "recompute_step", "arm": arm,
-              **record["arms"][arm]})
+        summary = {k: v for k, v in record["arms"][arm].items()
+                   if k != "partings"}
+        summary["partings"] = [
+            {k: o[k] for k in ("trial", "rank", "step", "first_stage",
+                               "first")} for o in odd]
+        if kind == "place":
+            summary["first_parameter"] = record["arms"][arm][
+                "first_parameter"] = _first_parameter_parting(ranks, odd)
+        emit({"phase": "recompute_step", "arm": arm, **summary})
+        if out is not None:
+            os.makedirs(out, exist_ok=True)
+            with open(os.path.join(out, "recompute_step.json"), "w") as f:
+                json.dump(record, f, indent=1, default=str)
     return record
 
 
-def _cli_worlds(tmp: str, out_dir: str, n: int, cards: int) -> list:
-    """Arm part "cli": ``n`` worlds one after another, each (d)'s train CLI
-    for one step in four fresh rank processes (``model_axis_cli_rank``),
-    as (d)'s runs start; each rank's step-1 staged digests, loss and
-    seconds a world, as ``recompute_rank`` gives them a trial."""
+def _fresh_worlds(tmp: str, out_dir: str, n: int, cards: int, kind: str,
+                  strict: Optional[str] = None) -> list:
+    """The arms of fresh worlds: at most ``n`` worlds one after another,
+    each in four fresh rank processes, until ``RECOMPUTE_PARTINGS`` have
+    parted: (d)'s train CLI for one step (``kind`` "cli":
+    ``model_axis_cli_rank``, as (d)'s runs start), ``recompute_rank``
+    ("step") or ``placement_rank`` ("place"); each rank's staged digests,
+    loss and seconds a world, as ``placement_rank`` gives them a trial."""
     import torch
 
     from multimodal_rssm_torch.parallel import launch
 
     ranks = [{"records": [], "losses": [], "seconds": []} for _ in range(4)]
     for i in range(n):
-        name = f"cli_world_{i}"
-        launch.spawn(model_axis_cli_rank, 4, (
-            4, _free_port(), cards, name, _model_axis_cli_argv(tmp, 1, name),
-            out_dir), timeout=PARALLEL_WORLD_S)
+        name = f"{kind}_world_{i}"
+        if kind == "cli":
+            launch.spawn(model_axis_cli_rank, 4, (
+                4, cards, [(name, _model_axis_cli_argv(tmp, 1, name),
+                            _free_port())], out_dir, strict),
+                timeout=PARALLEL_WORLD_S)
+        else:
+            launch.spawn(
+                placement_rank if kind == "place" else recompute_rank, 4,
+                (4, _free_port(), cards, tmp, out_dir, name),
+                timeout=PARALLEL_WORLD_S)
         for r, got in enumerate(ranks):
-            run = torch.load(os.path.join(out_dir, f"cli{r}_{name}.pt"),
-                             weights_only=False)
-            got["records"].append(run["digests"][0])
-            got["losses"].append(run["result"]["metrics"]["loss"])
-            got["seconds"].append(run["seconds"])
+            run = torch.load(os.path.join(
+                out_dir, f"cli{r}_{name}.pt" if kind == "cli"
+                else f"{name}{r}.pt"), weights_only=False)
+            if kind == "cli":
+                got["records"].append(run["digests"][0])
+                got["losses"].append(run["result"]["metrics"]["loss"])
+                got["seconds"].append(run["seconds"])
+            else:
+                for key in ("records", "losses", "seconds",
+                            "first_parameter"):
+                    if key in run:
+                        got.setdefault(key, []).append(run[key][0])
+        parted = sorted({o["trial"] for o in _odd(ranks)})
+        print(f"recompute_step {kind} world {i}: "
+              f"{ranks[0]['seconds'][-1]:.1f} s, parted so far {parted}",
+              flush=True)
+        if len(parted) >= RECOMPUTE_PARTINGS:
+            break
     return ranks
 
 
-def _differ_at(a: list, b: list) -> list:
-    """The steps at which two runs' logged lines differ."""
-    return sorted({r["step"] for r, q in zip(a, b) if r != q}
-                  | ({-1} if len(a) != len(b) else set()))
+# --init-draws: the kinds of fresh process, how many of each, and how many
+# run at once (the kinds taken in turn, so that each meets the same load)
+INIT_DRAW_KINDS = ("view", "parent", "serial", "port")
+INIT_DRAW_PROCESSES, INIT_DRAW_AT_ONCE = 80, 6
+_TRUNC_OPS = ("uniform_", "erfinv_", "mul_", "add_", "clamp_")
 
 
-def _loss_rel(a: list, b: list) -> float:
-    """The largest relative difference of two runs' logged losses."""
-    rel = 0.0
-    for r, q in zip(a, b):
-        for k, v in r.items():
-            if k.startswith("loss/") and k in q and v != q[k]:
-                rel = max(rel, abs(v - q[k]) / max(abs(q[k]), 1e-30))
-    return rel
+def _digest(x) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha1(np.ascontiguousarray(x).tobytes()).hexdigest()[:12]
+
+
+def _parent_draw(threads: Optional[int] = None) -> list:
+    """The first parameter that the parent's ``init_parameters`` drew at
+    the default width (``fc_embed_state_action``'s state columns, a
+    [1024, 128] view of a [1024, 131] weight, from seed 0), made op by op
+    as torch 2.11's ``nn.init.trunc_normal_`` makes it (the inverse CDF:
+    ``_TRUNC_OPS``) on ``threads`` intra-op threads (default: the
+    process's).  Returns a numpy copy of the view after each op (numpy's,
+    so that no ATen op runs between the draw's own)."""
+    import numpy as np
+    import torch
+
+    std = 128 ** -0.5 / 0.87962566103423978
+    a, b = -2.0 * std, 2.0 * std
+    lo, hi = (2 * ((1.0 + math.erf(x / math.sqrt(2.0))) / 2.0) - 1
+              for x in (a / std, b / std))
+    view = torch.zeros(1024, 131)[:, :128]
+    g = torch.Generator().manual_seed(0)
+    usual = torch.get_num_threads()
+    torch.set_num_threads(threads or usual)
+    out = []
+    try:
+        for op in (lambda: view.uniform_(lo, hi, generator=g), view.erfinv_,
+                   lambda: view.mul_(std * math.sqrt(2.0)),
+                   lambda: view.add_(0.0), lambda: view.clamp_(a, b)):
+            op()
+            out.append(np.array(view.numpy()))
+    finally:
+        torch.set_num_threads(usual)
+    return out
+
+
+def _view_draw() -> list:
+    """The same block drawn as the parent's ``init_parameters`` drew it,
+    ``nn.init.trunc_normal_`` straight on the view, with no copy between
+    its ops; as ``_parent_draw``'s list, the result alone."""
+    import numpy as np
+    import torch
+    from torch import nn
+
+    std = 128 ** -0.5 / 0.87962566103423978
+    view = torch.zeros(1024, 131)[:, :128]
+    nn.init.trunc_normal_(view, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=torch.Generator().manual_seed(0))
+    return [np.array(view.numpy())]
+
+
+def _ops_apart(first: list, again: list) -> Optional[dict]:
+    """The first op of ``_parent_draw`` whose output differs between two
+    draws: its name, how many elements differ, their rows, and for up to
+    four of them the uniform draw, both ``erfinv_`` outputs and the
+    float64 inverse error function of the draw."""
+    import numpy as np
+
+    for i, (x, y) in enumerate(zip(first, again)):
+        if not np.array_equal(x, y):
+            rows, cols = np.nonzero(x != y)
+            u = first[0][rows[:4], cols[:4]]
+            exact = _erfinv64(u)
+            return {"op": _TRUNC_OPS[i], "elements": int(rows.size),
+                    "rows": sorted(set(rows.tolist()))[:8],
+                    "uniform_equal": bool(np.array_equal(first[0], again[0])),
+                    "at": [{"u": float(u[k]),
+                            "erfinv_first": float(first[1][rows[k], cols[k]]),
+                            "erfinv_again": float(again[1][rows[k], cols[k]]),
+                            "erfinv_float64": float(exact[k])}
+                           for k in range(len(u))]}
+    return None
+
+
+def _erfinv64(u) -> "numpy.ndarray":
+    import torch
+
+    return torch.erfinv(torch.from_numpy(u).double()).numpy()
+
+
+def init_draw_one(kind: str) -> dict:
+    """One fresh process of ``--init-draws``: the card's context made (as
+    a rank's is before it initialises its model), then the first draw:
+    ``kind`` "view" (``_view_draw``), "parent" (``_parent_draw`` on the
+    process's threads), "serial" (the same on one thread) or "port" (this
+    tree's ``init_parameters`` of the default-width world model).  All but
+    "port" draw again; "parent" and "serial" name the first op apart
+    (``_ops_apart``) if the two differ."""
+    import torch
+
+    torch.zeros(1, device="cuda")
+    out = {"kind": kind, "threads": torch.get_num_threads()}
+    if kind == "port":
+        sys.path.insert(0, REPO)
+        from multimodal_rssm_torch.core.config import compose
+        from multimodal_rssm_torch.models.world_model import (
+            WorldModel, init_parameters)
+        from multimodal_rssm_torch.train import trainer as tr
+
+        cfg = compose(overrides=[])
+        model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
+        init_parameters(model, torch.Generator().manual_seed(0))
+        weight = model.get_parameter(
+            next(n for n, _ in model.named_parameters()
+                 if n.endswith("fc_embed_state_action.weight")))
+        out["first_block"] = _digest(weight.detach()[:, :128].numpy())
+        out["digest"] = _digest(torch.cat(
+            [p.detach().reshape(-1) for p in model.parameters()]).numpy())
+        return out
+    if kind == "view":
+        first, again = _view_draw(), _view_draw()
+    else:
+        threads = 1 if kind == "serial" else None
+        first, again = _parent_draw(threads), _parent_draw(threads)
+        out["apart"] = _ops_apart(first, again)
+    out["digest"], out["again"] = _digest(first[-1]), _digest(again[-1])
+    return out
+
+
+def init_draws(out: Optional[str] = None) -> dict:
+    """F6's first parameter draw, process by process: in this process,
+    ``_parent_draw`` on 2-8 intra-op threads against one; then
+    ``INIT_DRAW_PROCESSES`` fresh processes of each of
+    ``INIT_DRAW_KINDS`` (``init_draw_one``), ``INIT_DRAW_AT_ONCE`` at a
+    time (four ranks share a host so).  For each kind: the processes whose
+    first draw differs from the kind's most frequent one, with the op
+    where each parts from its own second draw; and whether the port's
+    first block holds the parent's usual bits.  ``python3 chip_smoke.py
+    --init-draws [--out DIR]``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    one = _digest(_parent_draw(1)[-1])
+    record = {"phase": "init_draws", "torch": torch.__version__,
+              "default_threads": torch.get_num_threads(),
+              "replica_is_trunc_normal": _digest(_view_draw()[0]) == one,
+              "in_process_equal_to_one_thread": {
+                  t: _digest(_parent_draw(t)[-1]) == one
+                  for t in range(2, 9)}}
+    emit(record)
+
+    def run(kind):
+        got = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--init-draw-one",
+             kind], stdout=subprocess.PIPE, text=True, check=True)
+        return json.loads(got.stdout.splitlines()[-1])
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(INIT_DRAW_AT_ONCE) as pool:
+        got = list(pool.map(run, INIT_DRAW_KINDS * INIT_DRAW_PROCESSES))
+    record["seconds"] = time.perf_counter() - t0
+    for kind in INIT_DRAW_KINDS:
+        runs = [g for g in got if g["kind"] == kind]
+        usual = collections.Counter(
+            g["digest"] for g in runs).most_common(1)[0][0]
+        odd = [g for g in runs if g["digest"] != usual]
+        record[kind] = {
+            "processes": len(runs), "odd": len(odd),
+            "threads": sorted({g["threads"] for g in runs}),
+            "odd_readings": odd[:10]}
+        if kind == "port":
+            record[kind]["first_block_is_parent_usual"] = sorted(
+                {g["first_block"] for g in runs}) == [one]
+        else:
+            record[kind]["usual_is_one_thread"] = usual == one
+            record[kind]["second_draw_odd"] = sum(
+                g["again"] != usual for g in runs)
+        emit({"phase": "init_draws", "kind": kind, **record[kind]})
+    if out is not None:
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "init_draws.json"), "w") as f:
+            json.dump(record, f, indent=1)
+    return record
 
 
 def phase_parallel(tmp: str, device_name: str) -> dict:
@@ -4781,7 +5024,17 @@ def main() -> int:
         eval_k1 = timed("eval", phase_eval, tmp, run_dir, name)
         control_k1 = timed("control", phase_control, tmp, run_dir, name)
         bridges_k1 = timed("bridges", phase_bridges, tmp, run_dir, name)
-        timed("serve", phase_serve, tmp, run_dir, name)
+        with tempfile.TemporaryDirectory() as gate_tmp:
+            gate = start_quality(gate_tmp)
+            serve = phase_serve(tmp, run_dir, name)
+            try:
+                timed("serve", next, serve)   # the export and the checks
+                quality = timed("waiting for quality", finish_quality, gate)
+                timed("serve timing", next, serve, None)
+            finally:
+                serve.close()
+                stop_quality(gate)
+            clock["quality (beside serve)"] = quality["wall_seconds"]
     timed("budget", phase_budget,
           ((None, ()), (None, tuple(CODEC_RUNS["img256_groupnorm"]))))
     timed("parity", phase_parity)
@@ -4792,8 +5045,6 @@ def main() -> int:
                                      default)
     fused = timed("fused_codec", phase_fused_codec, name, launches)
     tools_k1 = timed("tools", phase_tools_process)
-    with tempfile.TemporaryDirectory() as tmp:
-        timed("quality", phase_quality, tmp)
     kernel["launches"] = launches["normalize_image"]
     kernel["launches_by_path"] = {
         "train": launches["normalize_image"],
@@ -4819,25 +5070,6 @@ if __name__ == "__main__":
         arg = sys.argv[2] if len(sys.argv) > 2 else ""
         emit(budget_run(int(arg) if arg else None, sys.argv[3:]))
         sys.exit(0)
-    if sys.argv[1:2] == ["--hold-memory"]:   # _memory_held's other process
-        hold_memory(float(sys.argv[2]))
-        sys.exit(0)
-    if sys.argv[1:2] == ["--model-axis-pairs"]:   # (d)'s worlds side by side
-        sys.path.insert(0, REPO)
-        import torch
-
-        if not torch.cuda.is_available():
-            sys.exit("chip_smoke: no CUDA device is visible")
-        from multimodal_rssm_torch.core.device import configure_float32
-
-        configure_float32()
-        phase_build()
-        arms = tuple(None if a == "cudnn" else a for a in sys.argv[2:])
-        with tempfile.TemporaryDirectory() as tmp:
-            write_dataset(tmp, 4)
-            emit(phase_model_axis_pairs(tmp, arms or MODEL_AXIS_PAIR_ARMS))
-        print_card()
-        sys.exit(0)
     if sys.argv[1:2] == ["--recompute-step"]:   # F6's harness
         sys.path.insert(0, REPO)
         import torch
@@ -4849,14 +5081,27 @@ if __name__ == "__main__":
         configure_float32()
         phase_build(force=False)
         args = sys.argv[2:]
-        trials = RECOMPUTE_TRIALS
-        if "--trials" in args:
-            i = args.index("--trials")
-            trials = int(args[i + 1])
-            del args[i:i + 2]
+        options = {}
+        for flag, key, kind in (("--trials", "trials", int),
+                                ("--out", "out", str)):
+            if flag in args:
+                i = args.index(flag)
+                options[key] = kind(args[i + 1])
+                del args[i:i + 2]
         with tempfile.TemporaryDirectory() as tmp:
             write_dataset(tmp, 4)
-            emit(recompute_step(tmp, tuple(args) or RECOMPUTE_ARMS, trials))
+            recompute_step(tmp, tuple(args) or ("cli",), **options)
+        print_card()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--init-draw-one"]:   # init_draws's fresh process
+        emit(init_draw_one(sys.argv[2]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--init-draws"]:   # F6's first draw, process by process
+        import torch
+
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is visible")
+        init_draws(sys.argv[3] if sys.argv[2:3] == ["--out"] else None)
         print_card()
         sys.exit(0)
     if sys.argv[1:2] == ["--profiler-edges"]:   # op_profile's window edges

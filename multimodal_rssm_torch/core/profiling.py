@@ -150,6 +150,28 @@ class ProfilerWindow:
             if not e.key.startswith("ProfilerStep") and e.self_cpu_time_total:
                 yield e.key, e.self_cpu_time_total, e.count
 
+    def ordered_kernels(self) -> list:
+        """The names of the kernels in the timed span, in the order they
+        ran (memory copies and sets, annotations and the window's own empty
+        warm-up kernels left out); on the CPU, the operators that the
+        thread of the span's first one ran, in the order they started."""
+        events = sorted(self.prof.profiler.kineto_results.events(),
+                        key=lambda e: e.start_ns())
+        if self.device.type == "cuda":
+            return [e.name() for e in events
+                    if e.device_type() == torch.autograd.DeviceType.CUDA
+                    and not _is_annotation(e)
+                    and _WARMUP_KERNEL not in e.name()
+                    and not e.name().startswith(("Memcpy", "Memset"))]
+        ops = [e for e in events
+               if e.device_type() == torch.autograd.DeviceType.CPU
+               and not _is_annotation(e)
+               and not e.name().startswith("ProfilerStep")]
+        if not ops:
+            return []
+        thread = ops[0].start_thread_id()
+        return [e.name() for e in ops if e.start_thread_id() == thread]
+
     def export(self, path: str) -> str:
         self.prof.export_chrome_trace(path)
         return path

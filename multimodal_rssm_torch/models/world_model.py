@@ -447,7 +447,25 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     taps; a transposed conv's input channels are its weight's first axis);
     biases 0; norm scales 1 and shifts 0; the GRU cell's four tensors
     uniform in [0, 1 / sqrt(hidden)) (flax's ``uniform(scale)``).  Seeded
-    model construction without the global RNG."""
+    model construction without the global RNG.
+
+    The draws run on one intra-op thread (the caller's count is restored
+    after).  With the host's threads, the first parameter drawn
+    (``fc_embed_state_action``'s state columns, the process's first
+    parallel use of the host's vector math) came out, on the H100's host,
+    with one row up to ~6e-6 apart in about one fresh process in twenty and
+    never in a process's later draws, so one seed could give two models
+    (F6, ``PERF.md``).  Every draw is elementwise, so one thread gives the
+    bits that the usual process's threads give."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _draw_parameters(model, generator)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _draw_parameters(model: nn.Module, generator: torch.Generator) -> None:
     with torch.no_grad():
         for name, p in model.named_parameters():
             owner = model.get_submodule(name.rsplit(".", 1)[0])

@@ -288,6 +288,7 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
 
     model = WorldModel.from_config(cfg, tr.compute_dtype(cfg))
     init_parameters(model, torch.Generator().manual_seed(seed))
+    tr.stage("weights", model, at="initialised")
     model.to(dev)
     optimizer, scheduler = tr.build_optimizer(cfg, model)
     aug_spec = tr.build_aug_spec(D)
@@ -328,8 +329,10 @@ def run(cfg, cwd: str = ".", device: Optional[str] = None,
             "train.model_path=<its models_N.msgpack>")
     elif cfg.train.model_path:
         load_model_path(cfg, cwd, model, optimizer, scheduler)
+    tr.stage("weights", model, at="loaded")
     if dp is not None:
         mesh_lib.broadcast_module_(model)
+        tr.stage("weights", model, at="broadcast")
     if dp is not None and dp.model is not None:
         spec = tensor_lib.shard_model_(
             model, dp.model,

@@ -493,17 +493,23 @@ def data_parallel_scope(model: WorldModel, dp: Optional[DataParallel],
         yield
 
 
-# ``hook(stage, model)`` callables that ``optimizer_step`` calls at the
-# start of a step and after each stage of its gradients: "local" (this
+# ``hook(stage, model, **data)`` callables that ``stage`` calls: the train
+# loop before the first step at "weights" (``at``: "initialised" on the
+# host, "loaded" on the device before the weights' broadcast, "broadcast"
+# after it), then a train step as it goes: "inputs" (``make_train_step``'s
+# step, before the input pipeline:
+# ``raw``, ``draws``, ``generator``), "start" (``optimizer_step``, the
+# prepared ``batch``), then after each stage of the gradients "local" (this
 # rank's backward), "data_mean" (the data group's average) and "broadcast"
-# (the model group's replicated gradients from its first rank).  Empty but
-# for an instrument (``parallel/digests.py``).
+# (the model group's replicated gradients from its first rank), and "end"
+# (after the optimizer's step).  Empty but for an instrument
+# (``parallel/digests.py``).
 STAGE_HOOKS: List[Callable] = []
 
 
-def _stage(stage: str, model: WorldModel) -> None:
+def stage(name: str, model: WorldModel, **data) -> None:
     for hook in STAGE_HOOKS:
-        hook(stage, model)
+        hook(name, model, **data)
 
 
 def optimizer_step(model: WorldModel, loss_fn: Callable, batch,
@@ -517,21 +523,22 @@ def optimizer_step(model: WorldModel, loss_fn: Callable, batch,
     norms under ``dp.model``).  Returns the metrics and the gradient
     norms."""
     optimizer.zero_grad(set_to_none=True)
-    _stage("start", model)
+    stage("start", model, batch=batch)
     with data_parallel_scope(model, dp):
         metrics = accumulated_backward(loss_fn, model, batch, generator,
                                        accum)
-    _stage("local", model)
+    stage("local", model)
     if dp is not None:
         all_reduce_mean_([p.grad for p in model.parameters()
                           if p.grad is not None], dp.group)
-        _stage("data_mean", model)
+        stage("data_mean", model)
         if dp.model is not None:
             broadcast_replicated_grads_(model, dp.model)
-            _stage("broadcast", model)
+            stage("broadcast", model)
         metrics = mean_metrics(metrics, dp.group)
     metrics.update(apply_gradients(model, optimizer, scheduler, max_norm,
                                    None if dp is None else dp.model))
+    stage("end", model)
     return metrics
 
 
@@ -567,6 +574,8 @@ def make_train_step(model: WorldModel, cfg, optimizer, scheduler,
         return observations, actions, rewards, nonterminals
 
     def train_step(raw_batch, draws, generator):
+        stage("inputs", model, raw=raw_batch, draws=draws,
+               generator=generator)
         batch = _prepare(raw_batch, draws, generator,
                          None if dp is None else dp.train)
         return optimizer_step(model, loss_fn, batch, generator, optimizer,

@@ -135,6 +135,31 @@ def _cli_args(data_dir, *extra):
 MESH = ["train.mesh.data=2", "train.mesh.model=2"]
 
 
+# fresh CLI worlds of one step whose ranks record their staged digests:
+# name -> the rank that flips one bit of its first raw batch (or None)
+DIGEST_WORLDS = {"fresh": None, "again": None, "flipped_bit": 1}
+
+
+def _digest_worlds(tmp, data_dir):
+    """``DIGEST_WORLDS`` one after another, each a ``data=2 x model=2``
+    world of the train CLI for one step in four fresh processes; each
+    rank's staged digests by world."""
+    out = tmp / "digest_worlds"
+    out.mkdir()
+    for name, flip in DIGEST_WORLDS.items():
+        argv = [a for a in _cli_args(data_dir, *MESH,
+                                     "train.train_iteration=1",
+                                     f"main.experiment_name=dw_{name}")
+                if not a.startswith(("train.checkpoint_interval",
+                                     "train.histogram_interval"))]
+        with launch.file_rendezvous() as init_method:
+            launch.spawn(cases.cli_digest_world, 4,
+                         (4, init_method, argv, name, str(out), flip),
+                         timeout=WORLD_TIMEOUT_S)
+    return {name: [torch.load(str(out / f"{name}_{r}.pt"))
+                   for r in range(4)] for name in DIGEST_WORLDS}
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory, data_dir):
     """Every world of the module, started together in the background: the
@@ -160,6 +185,7 @@ def worlds(tmp_path_factory, data_dir):
         "first": _in_background(cli_train.main, _cli_args(
             data_dir, *MESH, "train.train_iteration=3",
             "main.experiment_name=mp_3")),
+        "digests": _in_background(_digest_worlds, tmp, data_dir),
     }
     return {"joins": joins, "dir": tmp, "inputs": inputs,
             "jax": (jcfg, jm, variables, jbatch)}
@@ -358,6 +384,80 @@ def test_staged_digests_of_a_model_axis_step_repeat_bit_for_bit(steps):
         for ranks_m in by_model.values():
             for stage in ("data_mean", "broadcast"):
                 assert len({stages[r][stage][name] for r in ranks_m}) == 1
+
+
+@pytest.mark.parametrize("world", ["again", "flipped_bit"])
+def test_staged_digests_of_fresh_model_axis_cli_worlds(worlds, world):
+    """``data=2 x model=2`` through the train CLI for one step, each world
+    in four fresh processes (where F6 showed on the card): every rank
+    records every stage, ``inputs`` (the raw batch, the prepared batch, the
+    weights after the broadcast and the shard, the generator), ``forward``
+    (the encoders' embeddings, each RSSM step's GRU input, belief and
+    posterior), ``kernels`` (on the CPU the operators of the step, in
+    order) and the three gradient stages.  A second fresh world ("again")
+    gives the same digests at every stage on every rank; one bit flipped
+    in rank 1's raw batch ("flipped_bit") is reported at stage ``inputs``
+    on rank 1 alone, as that raw tensor (K1 quantises the low bit away,
+    so nothing after the raw batch moves)."""
+    got = worlds["joins"]["digests"]()
+    for rank, (base, other) in enumerate(zip(got["fresh"], got[world])):
+        rec = base[0]
+        assert tuple(rec["stages"]) == digests.STAGES
+        inputs, forward = rec["stages"]["inputs"], rec["stages"]["forward"]
+        for prefix in ("raw/observations/", "prepared/observations/",
+                       "param/", "buffer/"):
+            assert any(k.startswith(prefix) for k in inputs), prefix
+        assert "generator" in inputs
+        assert {"encoder/image_horizon", "encoder/sound"} <= set(forward)
+        for key in ("gru_input", "belief", "posterior_mean",
+                    "posterior_std", "posterior_sample"):
+            assert f"rssm/000/{key}" in forward, key
+        assert rec["stages"]["kernels"], "no kernel recorded"
+        parting = digests.first_parting(base, other)
+        if world == "flipped_bit" and rank == 1:
+            assert parting["first_stage"] == "inputs", parting
+            assert parting["first"] == "raw/observations/image_horizon"
+            assert parting["stages"] == {
+                "inputs": ["raw/observations/image_horizon"]}, parting
+        else:
+            assert parting is None, (rank, parting)
+
+
+@pytest.mark.parametrize("threads", [1, 3, 8])
+def test_init_draws_on_one_thread_whatever_the_caller_sets(monkeypatch,
+                                                           threads):
+    """F6's repair: ``init_parameters`` makes every draw on one intra-op
+    thread and gives the caller's thread count back, so its bits do not
+    depend on the threads a process has (on the H100's host, the first
+    parameter drawn once came out one row apart in a fresh process with
+    several threads; a torch that draws the truncated normal by rejection
+    did not show it in any process, so the test holds the mechanism and
+    the bits)."""
+    from multimodal_rssm_torch.models import world_model as wm
+
+    cfg = compose(overrides=OVER)
+    seen = []
+    draw = torch.nn.init.trunc_normal_
+
+    def counted(*args, **kwargs):
+        seen.append(torch.get_num_threads())
+        return draw(*args, **kwargs)
+
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(threads)
+        model = WorldModel.from_config(cfg)
+        monkeypatch.setattr(torch.nn.init, "trunc_normal_", counted)
+        wm.init_parameters(model, torch.Generator().manual_seed(0))
+        assert torch.get_num_threads() == threads
+    finally:
+        torch.set_num_threads(before)
+    assert seen and set(seen) == {1}
+    monkeypatch.undo()
+    reference = WorldModel.from_config(cfg)
+    wm._draw_parameters(reference, torch.Generator().manual_seed(0))
+    for (n, p), q in zip(model.named_parameters(), reference.parameters()):
+        assert torch.equal(p, q), n
 
 
 @pytest.mark.parametrize("case", ["data1_model2_remat",

@@ -204,6 +204,34 @@ def sigterm_world(rank, nprocs, init_method, argv, signal_rank, signal_step,
     dist.destroy_process_group()
 
 
+def cli_digest_world(rank, nprocs, init_method, argv, name, out_dir,
+                     flip_rank=None):
+    """The train CLI's run in a fresh world of ranks, each recording its
+    staged digests (``parallel/digests.py``) of the first step; rank
+    ``flip_rank`` first flips one bit of its first raw batch (the lowest
+    bit of the first byte of the first observation it gathers)."""
+    from multimodal_rssm_torch.cli import train as cli_train
+
+    _join(rank, nprocs, init_method)
+    if rank == flip_rank:
+        gather = tr.gather_batch
+
+        def flipped(*args, **kwargs):
+            observations, *rest = gather(*args, **kwargs)
+            first = next(iter(observations.values()))
+            first.view(-1).view(torch.uint8)[0] ^= 1
+            tr.gather_batch = gather
+            return (observations, *rest)
+
+        tr.gather_batch = flipped
+    parser = cli_train._parser()
+    with StagedDigests(1) as digests:
+        cli_train._train(parser.parse_args(argv), parser, "cpu")
+    torch.save(digests.records,
+               os.path.join(out_dir, f"{name}_{rank}.pt"))
+    dist.destroy_process_group()
+
+
 def model_axis_world(rank, nprocs, init_method, in_path, out_dir):
     """The model-axis step cases of this world's size (``inputs["cases"]``:
     name -> (world size, overrides)), each on the same weights and batch,
